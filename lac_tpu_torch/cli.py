@@ -1,0 +1,129 @@
+"""Command-line interface: ``python -m lac_tpu_torch compress|decompress|info|verify``.
+
+Ports the byte-model part of ``lac_tpu/cli.py``: ``compress`` (:24-70 for
+byte models), ``decompress`` (:73-90), ``verify`` (:93-108) and ``info``
+(:225-237), with the same defaults (order0n, block 4096, rate 4). The
+``--device`` option picks the device; its default is ``cuda``, and the CPU
+runs only with ``--device cpu``. The LM models, ``recover``, ``train`` and
+``bench`` come with later slices of the port.
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+import time
+
+
+def _cmd_compress(args) -> int:
+    if args.model == "lm":
+        raise SystemExit("--model lm is not ported yet (slice 3 of the port)")
+    from .config import ByteCodingConfig
+    from .runtime.engine import compress_bytes
+
+    with open(args.file, "rb") as f:
+        data = f.read()
+    t0 = time.perf_counter()
+    cfg = ByteCodingConfig(
+        model_id=args.model,
+        block_size=args.block_size,
+        prob_bits=args.prob_bits,
+        rate=args.rate,
+    )
+    out = compress_bytes(data, device=args.device, **cfg.engine_kwargs())
+    dt = time.perf_counter() - t0
+    dst = args.output or args.file + ".lac"
+    with open(dst, "wb") as f:
+        f.write(out)
+    bpb = 8 * len(out) / max(1, len(data))
+    print(
+        f"{args.file}: {len(data)} -> {len(out)} bytes "
+        f"({bpb:.4f} bpb, {len(data) / dt / 1e6:.2f} MB/s) -> {dst}"
+    )
+    return 0
+
+
+def _cmd_decompress(args) -> int:
+    from .runtime.engine import decompress_bytes
+
+    with open(args.file, "rb") as f:
+        data = f.read()
+    t0 = time.perf_counter()
+    out = decompress_bytes(data, device=args.device)
+    dt = time.perf_counter() - t0
+    dst = args.output or (
+        args.file[:-4] if args.file.endswith(".lac") else args.file + ".out"
+    )
+    with open(dst, "wb") as f:
+        f.write(out)
+    print(f"{args.file}: {len(data)} -> {len(out)} bytes ({len(out) / dt / 1e6:.2f} MB/s) -> {dst}")
+    return 0
+
+
+def _cmd_verify(args) -> int:
+    from .stream.container import verify_container
+
+    with open(args.file, "rb") as f:
+        rep = verify_container(f.read())
+    print(
+        f"codec={rep['codec']} model={rep['model_id']} blocks={rep['n_blocks']} "
+        f"original_len={rep['original_len']}"
+    )
+    if rep["ok"]:
+        print("all block checksums OK")
+        return 0
+    print(f"CORRUPT blocks (index, byte span): "
+          f"{[(i, rep['block_spans'][i]) for i in rep['bad_blocks']]}")
+    return 1
+
+
+def _cmd_info(args) -> int:
+    from .stream.container import read_container
+
+    with open(args.file, "rb") as f:
+        header, blocks = read_container(f.read())
+    total_payload = sum(len(b.payload) for b in blocks)
+    print(f"codec={header.codec} prob_bits={header.prob_bits} model={header.model_id}")
+    print(f"config={header.config}")
+    print(f"original_len={header.original_len} blocks={len(blocks)} payload={total_payload}B")
+    if header.original_len:
+        print(f"ratio={8 * total_payload / header.original_len:.4f} bpb (payload only)")
+    return 0
+
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(prog="lac_tpu_torch", description=__doc__)
+    sub = p.add_subparsers(dest="cmd", required=True)
+
+    c = sub.add_parser("compress", help="compress FILE into a .lac container")
+    c.add_argument("file")
+    c.add_argument("-o", "--output")
+    c.add_argument("--model", default="order0n",
+                   help="model id: order0n (ported); order1n/order2n/order0c come with slice 2")
+    c.add_argument("--block-size", type=int, default=1 << 12)
+    c.add_argument("--prob-bits", type=int, default=16)
+    c.add_argument("--rate", type=int, default=4,
+                   help="adaptation rate base (turbo byte models)")
+    c.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    c.set_defaults(fn=_cmd_compress)
+
+    d = sub.add_parser("decompress", help="decompress a .lac container")
+    d.add_argument("file")
+    d.add_argument("-o", "--output")
+    d.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    d.set_defaults(fn=_cmd_decompress)
+
+    i = sub.add_parser("info", help="show container metadata")
+    i.add_argument("file")
+    i.set_defaults(fn=_cmd_info)
+
+    v = sub.add_parser("verify", help="check per-block checksums of a .lac container")
+    v.add_argument("file")
+    v.set_defaults(fn=_cmd_verify)
+
+    args = p.parse_args(argv)
+    return args.fn(args)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,297 @@
+// order0n byte codec kernels for Hopper (sm_90a): the model's forward pass,
+// rANS-32/16 encode with word compaction, and the fused model + decoder.
+//
+// Ports the order0n kernels of lac_tpu/ops/pallas_rans.py. The bitstream is
+// the spec of lac_tpu_torch/coder/rans.py and models/functional.py
+// (Order0NibCDF); the plain PyTorch versions in ops/rans_kernels.py repeat
+// this arithmetic and the tests hold both to the JAX package.
+//
+// One thread codes one lane (one block of the file) from its first symbol to
+// its last. The TPU kernels' storage tricks are not carried over, since they
+// are not part of the bitstream (docs/DESIGN.md:205-216): there is no
+// pair-packed word FIFO (a thread keeps a pointer into its own word row),
+// no tree select (a thread indexes its context row directly), no packed-pair
+// lo tables (states are u16 in shared memory) and no f32 quotient fix-up
+// (plain u32 division gives the same quotient).
+//
+// Layout: symbols, intervals and decoded bytes are time-major [T, B], so the
+// 32 threads of a warp touch 32 neighbouring addresses at every step. Word
+// rows are lane-major [B, cap]: each thread walks its own row, which is not
+// coalesced across the warp.
+//
+// Built by ops/_build.py with
+//   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared -Xcompiler -fPIC
+// and bound with ctypes. Each entry point launches on the given stream,
+// does not synchronise, and returns cudaGetLastError() after its launch.
+// No PyTorch header is included.
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kNV = 16;                // nibble alphabet
+constexpr int kNSB = 15;               // internal state bits
+constexpr int kNS = 1 << kNSB;         // state total
+constexpr int kNM = 256 - kNV;         // 240: 8-bit coding domain less the +k guard
+constexpr int kModelThreads = 64;      // lanes per block in the model kernels
+constexpr int kEncodeThreads = 128;    // lanes per block in the encode kernel
+
+__device__ __forceinline__ int rate_at(int base, int t) {
+  return base + (t >= 16) + (t >= 32) + (t >= 64) + (t >= 128);
+}
+
+// 15-bit state -> 8-bit coding boundary of nibble k
+__device__ __forceinline__ int eff(int s, int k) { return ((s * kNM) >> kNSB) + k; }
+
+// shift toward the one-hot CDF of nibble `nib` (k <= nib toward 0, else toward 2^15)
+__device__ __forceinline__ int nib_update(int s, int k, int nib, int r) {
+  return k <= nib ? s - (s >> r) : s + ((kNS - s) >> r);
+}
+
+// Each thread's 16 lo-nibble tables (16 x 16 u16 states) live in one column
+// of this shared array: element [c*16 + k][threadIdx.x]. Neighbouring
+// threads read neighbouring u16s, so the accesses are free of bank
+// conflicts. 256 * 64 * 2 bytes = 32 KB per block.
+using LoTables = uint16_t[kNV * kNV][kModelThreads];
+
+__device__ __forceinline__ void lo_tables_init(LoTables& sl, int tid) {
+#pragma unroll 4
+  for (int r = 0; r < kNV * kNV; ++r) sl[r][tid] = (uint16_t)((r & 15) << (kNSB - 4));
+}
+
+// ---------------------------------------------------------------------------
+// K1  o0n_intervals
+// Replaces _o0n_intervals_kernel (lac_tpu/ops/pallas_rans.py:742-791), called
+// through o0n_encode_intervals (:794, pallas_call :804).
+// Bound on this card: each lane is a chain of T dependent model updates, so
+// the kernel is bound by that per-lane serial dependence (latency), not by
+// its 9 bytes of traffic per symbol. Design: the hi table (16 states) and
+// the visit counts stay in registers with every index static; only the one
+// 16-entry lo row picked by the hi nibble is read and written back in shared
+// memory per step. Reads of syms and writes of lo/fr are coalesced.
+// ---------------------------------------------------------------------------
+__global__ void __launch_bounds__(kModelThreads)
+o0n_intervals_kernel(const uint8_t* __restrict__ syms, int T, int B, int rate,
+                     int32_t* __restrict__ lo_out, int32_t* __restrict__ fr_out) {
+  __shared__ LoTables sl;
+  const int tid = threadIdx.x;
+  const int b = blockIdx.x * kModelThreads + tid;
+  lo_tables_init(sl, tid);
+  if (b >= B) return;
+
+  int sh[kNV], cnt[kNV];
+#pragma unroll
+  for (int k = 0; k < kNV; ++k) {
+    sh[k] = k << (kNSB - 4);
+    cnt[k] = 0;
+  }
+  for (int t = 0; t < T; ++t) {
+    const size_t at = (size_t)t * B + b;
+    const int s = syms[at];
+    const int h = s >> 4, l = s & 15;
+    int loh = 0, hih = 256, c = 0;
+#pragma unroll
+    for (int k = 0; k < kNV; ++k) {
+      const int e = eff(sh[k], k);
+      if (k == h) { loh = e; c = cnt[k]; }
+      if (k == h + 1) hih = e;
+    }
+    const int fh = hih - loh;
+    uint16_t* row = &sl[h * kNV][tid];
+    int st[kNV];
+#pragma unroll
+    for (int k = 0; k < kNV; ++k) st[k] = row[k * kModelThreads];
+    int lol = 0, hil = 256;
+#pragma unroll
+    for (int k = 0; k < kNV; ++k) {
+      const int e = eff(st[k], k);
+      if (k == l) lol = e;
+      if (k == l + 1) hil = e;
+    }
+    lo_out[at] = (loh << 8) + fh * lol;
+    fr_out[at] = fh * (hil - lol);
+    // hi table on the global-step schedule, lo table on its visit count
+    const int rh = rate_at(rate, t), rl = rate_at(rate, c);
+#pragma unroll
+    for (int k = 0; k < kNV; ++k) {
+      sh[k] = nib_update(sh[k], k, h, rh);
+      row[k * kModelThreads] = (uint16_t)nib_update(st[k], k, l, rl);
+      cnt[k] += (k == h);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K2  rans32_encode
+// Replaces _rans32_enc_kernel (lac_tpu/ops/pallas_rans.py:179-234), called
+// through rans32_encode_dense (:237, pallas_call :249), together with the
+// XLA pass compact_words (:271-310) that follows it there.
+// Out per lane: [x >> 16, x & 0xFFFF, emitted words in ascending t], zeros
+// after them, and nwords = 2 + every emitted word, even past cap.
+// Bound on this card: per-lane serial dependence through x (one u32 divide
+// per symbol) and the uncoalesced per-lane word row. Design: the words are
+// written back to front into a ring over row[2, cap), so no dense [T, B]
+// grid is stored and no second pass over T is needed; at the end the ring is
+// turned so that the newest word sits at row[2] (a forward copy when the
+// words fit, a rotation by three reversals when they overflowed cap). lo and
+// fr are read coalesced.
+// ---------------------------------------------------------------------------
+__device__ void reverse_u16(uint16_t* p, int i, int j) {  // [i, j)
+  for (--j; i < j; ++i, --j) {
+    const uint16_t v = p[i];
+    p[i] = p[j];
+    p[j] = v;
+  }
+}
+
+__global__ void __launch_bounds__(kEncodeThreads)
+rans32_encode_kernel(const int32_t* __restrict__ lo_in, const int32_t* __restrict__ fr_in,
+                     const int32_t* __restrict__ lengths, int T, int B, int cap,
+                     uint16_t* __restrict__ words, int32_t* __restrict__ nwords) {
+  const int b = blockIdx.x * kEncodeThreads + threadIdx.x;
+  if (b >= B) return;
+  const int n = min(max(lengths[b], 0), T);
+  uint16_t* row = words + (size_t)b * cap;
+  uint16_t* ring = row + 2;
+  const int C = cap - 2;
+  uint32_t x = 1u << 16;
+  int e = 0, p = C;  // emitted count; ring slot of the newest word
+  for (int t = n - 1; t >= 0; --t) {
+    const size_t at = (size_t)t * B + b;
+    const uint32_t f = (uint32_t)fr_in[at];
+    const uint32_t lo = (uint32_t)lo_in[at];
+    if ((uint64_t)x >= ((uint64_t)f << 16)) {
+      if (C > 0) {
+        p = (p == 0 ? C : p) - 1;
+        ring[p] = (uint16_t)(x & 0xFFFFu);
+      }
+      ++e;
+      x >>= 16;
+    }
+    x = ((x / f) << 16) + (x % f) + lo;
+  }
+  if (C > 0) {
+    if (e < C) {
+      for (int i = 0; i < e; ++i) ring[i] = ring[C - e + i];
+      for (int i = e; i < C; ++i) ring[i] = 0;
+    } else if (p != 0) {  // rotate left by p: ring[p] becomes ring[0]
+      reverse_u16(ring, 0, p);
+      reverse_u16(ring, p, C);
+      reverse_u16(ring, 0, C);
+    }
+  }
+  row[0] = (uint16_t)(x >> 16);
+  row[1] = (uint16_t)(x & 0xFFFFu);
+  nwords[b] = 2 + e;
+}
+
+// ---------------------------------------------------------------------------
+// K3  o0n_decode
+// Replaces _o0n_decode_fused_kernel (lac_tpu/ops/pallas_rans.py:849-918),
+// called through _o0n_decode_fused (:1012) / o0n_rans32_decode (:1024),
+// pallas_call in _nib_decode_call (:951).
+// Bound on this card: per-lane serial dependence (each symbol's search needs
+// the state the previous symbol left), then the uncoalesced reads of each
+// lane's word row. Design: as K1, the hi table and counts stay in registers
+// and one lo row per step is touched in shared memory; the hi nibble is
+// found by counting boundaries <= slot >> 8 and the lo nibble by counting
+// f_h-scaled boundaries <= the remainder, both without branches. A lane
+// reads its next word through its own pointer (0 past cap, as the TPU's
+// zero padding gives), and writes 0 past its length.
+// ---------------------------------------------------------------------------
+__global__ void __launch_bounds__(kModelThreads)
+o0n_decode_kernel(const uint16_t* __restrict__ words, const int32_t* __restrict__ lengths,
+                  int T, int B, int cap, int rate, uint8_t* __restrict__ syms) {
+  __shared__ LoTables sl;
+  const int tid = threadIdx.x;
+  const int b = blockIdx.x * kModelThreads + tid;
+  lo_tables_init(sl, tid);
+  if (b >= B) return;
+
+  const int n = min(max(lengths[b], 0), T);
+  const uint16_t* row = words + (size_t)b * cap;
+  uint32_t x = ((uint32_t)(cap > 0 ? row[0] : 0) << 16) | (uint32_t)(cap > 1 ? row[1] : 0);
+  int pos = 2;
+  int sh[kNV], cnt[kNV];
+#pragma unroll
+  for (int k = 0; k < kNV; ++k) {
+    sh[k] = k << (kNSB - 4);
+    cnt[k] = 0;
+  }
+  for (int t = 0; t < n; ++t) {
+    const int slot = (int)(x & 0xFFFFu);
+    const int thr = slot >> 8;
+    int h = -1, loh = 0, hih = 256, c = 0;
+#pragma unroll
+    for (int k = 0; k < kNV; ++k) {
+      const int e = eff(sh[k], k);
+      const bool le = e <= thr;
+      h += le;
+      loh = le ? e : loh;
+      c = le ? cnt[k] : c;
+      hih = (!le && e < hih) ? e : hih;
+    }
+    const int fh = hih - loh;
+    const int r = slot - (loh << 8);
+    uint16_t* lrow = &sl[h * kNV][tid];
+    int st[kNV];
+#pragma unroll
+    for (int k = 0; k < kNV; ++k) st[k] = lrow[k * kModelThreads];
+    int l = -1, lo_s = 0, hi_s = fh << 8;
+#pragma unroll
+    for (int k = 0; k < kNV; ++k) {
+      const int sc = fh * eff(st[k], k);
+      const bool le = sc <= r;
+      l += le;
+      lo_s = le ? sc : lo_s;
+      hi_s = (!le && sc < hi_s) ? sc : hi_s;
+    }
+    x = (uint32_t)(hi_s - lo_s) * (x >> 16) + (uint32_t)(r - lo_s);
+    if (x < (1u << 16)) {
+      const uint32_t w = pos < cap ? row[pos] : 0u;
+      x = (x << 16) | w;
+      ++pos;
+    }
+    syms[(size_t)t * B + b] = (uint8_t)((h << 4) | l);
+    const int rh = rate_at(rate, t), rl = rate_at(rate, c);
+#pragma unroll
+    for (int k = 0; k < kNV; ++k) {
+      sh[k] = nib_update(sh[k], k, h, rh);
+      lrow[k * kModelThreads] = (uint16_t)nib_update(st[k], k, l, rl);
+      cnt[k] += (k == h);
+    }
+  }
+  for (int t = n; t < T; ++t) syms[(size_t)t * B + b] = 0;
+}
+
+}  // namespace
+
+extern "C" {
+
+int lac_o0n_intervals(const void* syms, void* lo, void* fr, int T, int B, int rate,
+                      void* stream) {
+  const int grid = (B + kModelThreads - 1) / kModelThreads;
+  o0n_intervals_kernel<<<grid, kModelThreads, 0, (cudaStream_t)stream>>>(
+      (const uint8_t*)syms, T, B, rate, (int32_t*)lo, (int32_t*)fr);
+  return (int)cudaGetLastError();
+}
+
+int lac_rans32_encode(const void* lo, const void* fr, const void* lengths, void* words,
+                      void* nwords, int T, int B, int cap, void* stream) {
+  const int grid = (B + kEncodeThreads - 1) / kEncodeThreads;
+  rans32_encode_kernel<<<grid, kEncodeThreads, 0, (cudaStream_t)stream>>>(
+      (const int32_t*)lo, (const int32_t*)fr, (const int32_t*)lengths, T, B, cap,
+      (uint16_t*)words, (int32_t*)nwords);
+  return (int)cudaGetLastError();
+}
+
+int lac_o0n_decode(const void* words, const void* lengths, void* syms, int T, int B,
+                   int cap, int rate, void* stream) {
+  const int grid = (B + kModelThreads - 1) / kModelThreads;
+  o0n_decode_kernel<<<grid, kModelThreads, 0, (cudaStream_t)stream>>>(
+      (const uint16_t*)words, (const int32_t*)lengths, T, B, cap, rate, (uint8_t*)syms);
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"

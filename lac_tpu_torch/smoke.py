@@ -1,0 +1,50 @@
+"""The smoke corpus and the golden containers it must compress to.
+
+No counterpart in the JAX package. The corpus is the repo's own frozen JAX
+package read as bytes: the ``lac_tpu/**/*.py`` files, sorted by their path
+relative to the repo root, joined and repeated to length. Those bytes are
+the same on every machine, unlike a corpus read from the system's Python
+library. The constants are the crc32 and length of the containers that
+``lac_tpu``'s native coder (``lac_tpu.native.host.native_compress``, which
+is bit-identical to the Pallas path) writes for the 32 MiB corpus;
+``tests/test_torch_golden.py`` recomputes them on the CPU, and
+``chip_smoke.py`` holds the card's containers to them.
+"""
+
+from __future__ import annotations
+
+import glob
+import os
+import zlib
+
+__all__ = ["SMOKE_BYTES", "GOLDEN", "smoke_corpus", "container_digest"]
+
+SMOKE_BYTES = 32 << 20  # bench.py's corpus size
+
+# block_size -> (crc32, length) of the order0n container of the 32 MiB corpus
+GOLDEN = {
+    4096: (2994531879, 20826341),
+    1024: (1209190892, 21779179),
+}
+
+_REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def smoke_corpus(n: int = SMOKE_BYTES, root: str = _REPO) -> bytes:
+    """The first ``n`` bytes of the repeated ``lac_tpu/**/*.py`` sources."""
+    files = sorted(
+        os.path.relpath(p, root)
+        for p in glob.glob(os.path.join(root, "lac_tpu", "**", "*.py"), recursive=True)
+    )
+    if not files:
+        raise FileNotFoundError(f"no lac_tpu/**/*.py under {root}")
+    parts = []
+    for rel in files:
+        with open(os.path.join(root, rel), "rb") as f:
+            parts.append(f.read())
+    data = b"".join(parts)
+    return (data * (n // len(data) + 1))[:n]
+
+
+def container_digest(container: bytes) -> tuple[int, int]:
+    return zlib.crc32(container), len(container)

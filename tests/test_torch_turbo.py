@@ -1,0 +1,132 @@
+"""The port's turbo path (lac_tpu_torch.runtime) on the CPU against lac_tpu:
+containers byte-identical to lac_tpu's turbo (Pallas in interpret mode) for
+small inputs and to lac_tpu's native coder (bit-identical to the Pallas
+path) for larger ones, and each package decodes the other's containers."""
+
+import numpy as np
+import pytest
+
+from lac_tpu.native.host import native_compress, native_decompress
+from lac_tpu.runtime import engine as ref_engine
+from lac_tpu.runtime import turbo as ref_turbo
+from lac_tpu.stream.container import read_container as ref_read
+from lac_tpu_torch.runtime import engine, turbo
+from lac_tpu_torch.smoke import smoke_corpus
+from lac_tpu_torch.stream.container import read_container
+
+CPU = "cpu"
+
+
+def _random_bytes(n, seed=3):
+    return np.random.default_rng(seed).integers(0, 256, n, dtype=np.uint8).tobytes()
+
+
+SMALL = {
+    "empty": b"",
+    "1byte": b"q",
+    "1023": smoke_corpus(1023),
+    "1025": smoke_corpus(1025),
+    "random": _random_bytes(3000),
+}
+LARGE = {
+    "random": _random_bytes(40000, seed=4),
+    "smoke_corpus": smoke_corpus(192 << 10),
+}
+
+
+@pytest.mark.parametrize("block", [1024, 4096])
+@pytest.mark.parametrize("name", sorted(SMALL))
+def test_small_inputs_identical_to_pallas_turbo(name, block):
+    data = SMALL[name]
+    ours = turbo.turbo_compress(data, block_size=block, device=CPU)
+    ref = ref_turbo.turbo_compress(data, block_size=block)
+    assert ours == ref
+    assert turbo.turbo_decompress(ref, device=CPU) == data
+    assert ref_turbo.turbo_decompress(ours) == data
+
+
+@pytest.mark.parametrize("block", [1024, 4096])
+@pytest.mark.parametrize("name", sorted(LARGE))
+def test_large_inputs_identical_to_native(name, block):
+    data = LARGE[name]
+    ours = engine.compress_bytes(data, model_id="order0n", block_size=block, device=CPU)
+    ref = native_compress(data, block_size=block)
+    assert ours == ref
+    assert engine.decompress_bytes(ref, device=CPU) == data
+    assert native_decompress(ours) == data
+    header, blocks = read_container(ours)
+    if name == "random":  # incompressible: every full block is stored raw
+        assert all(b.token_count == 0 for b in blocks)
+    else:
+        assert all(b.token_count == b.raw_len for b in blocks)
+
+
+def test_empty_input_is_one_block_of_state_words():
+    _, blocks = read_container(turbo.turbo_compress(b"", device=CPU))
+    assert len(blocks) == 1
+    assert (blocks[0].raw_len, blocks[0].token_count, blocks[0].payload) == (
+        0, 0, b"\x00\x01\x00\x00")
+
+
+def test_block_8192_raises_where_lac_tpu_falls_back_to_order0c():
+    data = smoke_corpus(9000)
+    ref_header, _ = ref_read(native_compress(data, block_size=8192))
+    assert ref_header.model_id == "order0c"
+    with pytest.raises(NotImplementedError, match="slice 2"):
+        turbo.turbo_compress(data, block_size=8192, device=CPU)
+
+
+def test_engine_clamps_block_size_like_lac_tpu():
+    data = smoke_corpus(5000)
+    ours = engine.compress_bytes(data, model_id="order0n", block_size=1 << 16, device=CPU)
+    assert read_container(ours)[0].config == {"block_size": 4096, "rate": 4}
+    assert ours == native_compress(data, block_size=4096)
+    assert ref_engine.decompress_bytes(ours) == data
+
+
+def test_decompress_blocks_random_access():
+    data = smoke_corpus(5000) + _random_bytes(1100)
+    c = engine.compress_bytes(data, model_id="order0n", block_size=1024, device=CPU)
+    got = engine.decompress_blocks(c, [5, 0, 3], device=CPU)
+    assert got == [data[5120:], data[:1024], data[3072:4096]]
+
+
+def test_engine_decode_parses_the_container_once(monkeypatch):
+    from lac_tpu_torch.runtime import engine as engine_mod
+    from lac_tpu_torch.stream import container as container_mod
+
+    data = smoke_corpus(5000)
+    c = engine.compress_bytes(data, model_id="order0n", block_size=1024, device=CPU)
+    calls = []
+
+    def counting_scan(buf):
+        calls.append(len(buf))
+        return scan(buf)
+
+    scan = container_mod.scan_container
+    monkeypatch.setattr(container_mod, "scan_container", counting_scan)
+    assert engine_mod.decompress_bytes(c, device=CPU) == data
+    assert engine_mod.decompress_blocks(c, [2], device=CPU) == [data[2048:3072]]
+    assert calls == [len(c), len(c)]
+
+
+def test_unported_models_and_codecs_raise():
+    data = smoke_corpus(3000)
+    for model in ("order1n", "order2n", "order0c"):
+        with pytest.raises(NotImplementedError, match="slice 2"):
+            turbo.turbo_compress(data, model=model, device=CPU)
+        with pytest.raises(NotImplementedError):
+            engine.decompress_bytes(native_compress(data, model=model), device=CPU)
+    with pytest.raises(NotImplementedError):
+        engine.compress_bytes(data, model_id="order0", device=CPU)
+    with pytest.raises(ValueError):
+        turbo.turbo_compress(data, block_size=1000, device=CPU)
+
+
+def test_default_device_is_cuda():
+    import torch
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; the default runs there")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        turbo.turbo_compress(b"abc")
