@@ -4,18 +4,24 @@ import faulthandler; faulthandler.dump_traceback_later(900, exit=True)  # noqa: 
 #
 #   python3 chip_smoke.py
 #
-# Phase 0  the card's name and power limit; build the CUDA kernels.
+# Phase 0  the card's name and power limit; build the CUDA kernels; the
+#          launch shape of the order1n/order2n kernels.
 # Phase 1  each kernel against its plain PyTorch version on the card, at the
 #          shapes the main path gives it: T = 4096 and 1024 steps, with one
 #          lane per block of the 32 MiB corpus (B = 8192 and 32768): corpus
-#          lanes, seeded random lanes whose words overflow cap, and ragged
-#          lengths with 0, 1 and T-1. Equal integer for integer.
-# Phase 2  the main path through its entry points: the CLI at its defaults
-#          (order0n, block 4096) on the 32 MiB smoke corpus, then
+#          lanes, seeded random lanes whose words overflow cap, ragged
+#          lengths with 0, 1 and T-1, and one lane of a single repeated byte
+#          (one context visited T times). For each of the three models: its
+#          intervals kernel, K2 on those intervals, its decode kernel. Equal
+#          integer for integer.
+# Phase 2  the main path of each model through its entry points, on the
+#          32 MiB smoke corpus: the CLI at block 4096 (order0n at its
+#          defaults, then --model order1n and --model order2n), then
 #          engine.compress_bytes at block 1024; byte compare after decode,
 #          and each container's crc32 and length against the golden values
 #          that lac_tpu's native coder gives (lac_tpu_torch/smoke.py). The
-#          kernels' launch counts are zeroed just before and read just after.
+#          kernels' launch counts are zeroed just before each model's path
+#          and read just after it.
 # Phase 3  numbers: end-to-end MB/s, host ms of decode's two parts (the
 #          container parse and the rest) and of the container write, each
 #          kernel's time from CUDA events beside its bound, bits per byte,
@@ -62,14 +68,30 @@ INT32_OPS_PER_S = 67e12 / 4
 #     f_h 1, remainder 2; of the lo nibble 2 x 4, f12 1; the rANS step 4 and
 #     its refill 5; the output byte 2; the same updates, rates and count as
 #     K1 128 + 8 + 2.
-OPS_PER_SYMBOL = {"o0n_intervals": 158, "rans32_encode": 8, "o0n_decode": 213}
+#   K4 (162): K1's 158, plus the hi row's visit count 2 (the hi rate
+#     replaces the step rate, so no more rates) and the hi row picked by
+#     prev_h 2 (a shift and an add to its address).
+#   K6 (165): K4's 162, plus the lo context h*4 + (prev_h >> 2) 3.
+#   K5 (217), K7 (220): K3's 213 plus what K4 and K6 add to K1.
+OPS_PER_SYMBOL = {
+    "o0n_intervals": 158, "rans32_encode": 8, "o0n_decode": 213,
+    "o1n_intervals": 162, "o1n_decode": 217, "o2n_intervals": 165, "o2n_decode": 220,
+}
 
 REPLACES = {
     "o0n_intervals": "lac_tpu/ops/pallas_rans.py:742",
     "rans32_encode": "lac_tpu/ops/pallas_rans.py:179",
     "o0n_decode": "lac_tpu/ops/pallas_rans.py:849",
+    "o1n_intervals": "lac_tpu/ops/pallas_rans.py:1044",
+    "o1n_decode": "lac_tpu/ops/pallas_rans.py:1148",
+    "o2n_intervals": "lac_tpu/ops/pallas_rans.py:1277",
+    "o2n_decode": "lac_tpu/ops/pallas_rans.py:1382",
 }
-SOURCE = "lac_tpu_torch/ops/csrc/o0n_rans32.cu"
+SOURCE = {name: "lac_tpu_torch/ops/csrc/" + (
+    "o0n_rans32.cu" if name in ("o0n_intervals", "rans32_encode", "o0n_decode")
+    else "ctx_nib_rans32.cu") for name in OPS_PER_SYMBOL}
+# model id -> the prefix of its kernels and wrappers in ops/rans_kernels.py
+CODECS = {"order0n": "o0n", "order1n": "o1n", "order2n": "o2n"}
 
 
 class Phase:
@@ -126,6 +148,7 @@ def event_ms(torch, fn, reps=EVENT_REPS):
 def phase1_inputs(corpus: bytes, t_len: int, b: int):
     rng = np.random.default_rng(SEED)
     syms_bt = np.frombuffer(corpus[: t_len * b], dtype=np.uint8).reshape(b, t_len).copy()
+    syms_bt[3] = ord("e")  # one context visited T times: counts past 255
     syms_bt[8:72] = rng.integers(0, 256, (64, t_len), dtype=np.uint8)  # overflow cap
     lengths = np.full(b, t_len, dtype=np.int32)
     lengths[:3] = (0, 1, t_len - 1)
@@ -148,86 +171,95 @@ def phase1(torch, rk, corpus, dev):
         syms = torch.from_numpy(syms_np).to(dev)
         lengths = torch.from_numpy(len_np).to(dev)
         cap = t_len // 2 + 3
-
-        lo, fr = rk.o0n_encode_intervals(syms, RATE)
-        (plo, pfr), ms1 = sync_time(torch, lambda: rk.o0n_intervals_plain(syms, RATE))
-        e1 = max(max_abs_diff(torch, lo, plo), max_abs_diff(torch, fr, pfr))
-
-        words, nwords = rk.rans32_encode(lo, fr, lengths, cap)
-        (pwords, pnwords), ms2 = sync_time(
-            torch, lambda: rk.rans32_encode_plain(lo, fr, lengths, cap))
-        e2 = max(max_abs_diff(torch, words, pwords), max_abs_diff(torch, nwords, pnwords))
-        check(bool((nwords > cap).any()), f"T={t_len}: no lane overflowed cap")
-
-        out = rk.o0n_rans32_decode(words, lengths, t_len, RATE)
-        pout, ms3 = sync_time(torch, lambda: rk.o0n_decode_plain(words, lengths, t_len, RATE))
-        e3 = max_abs_diff(torch, out, pout)
-
-        # round trip on the lanes whose words fit cap; zeros past each length
         t_idx = torch.arange(t_len, device=dev)[:, None]
         live = t_idx < lengths[None, :]
-        fits = (nwords <= cap)[None, :]
-        check(bool(((out == syms) | ~live | ~fits).all()), f"T={t_len}: round trip")
-        check(bool(((out == 0) | live).all()), f"T={t_len}: zeros past length")
+        for c in CODECS.values():
+            kin, kdec = f"{c}_intervals", f"{c}_decode"
+            lo, fr = getattr(rk, f"{c}_encode_intervals")(syms, RATE)
+            (plo, pfr), ms1 = sync_time(
+                torch, lambda: getattr(rk, f"{c}_intervals_plain")(syms, RATE))
+            e1 = max(max_abs_diff(torch, lo, plo), max_abs_diff(torch, fr, pfr))
 
-        for name, e in zip(OPS_PER_SYMBOL, (e1, e2, e3)):
-            err[name] = max(err[name], e)
-            check(e == 0, f"T={t_len} B={b}: {name} differs from its plain version by {e}")
-        print(f"T={t_len} B={b}: K1 K2 K3 equal to plain "
-              f"(plain ms {ms1:.1f} {ms2:.1f} {ms3:.1f}; "
-              f"{int((nwords > cap).sum())} lanes overflow cap {cap})", flush=True)
-        if si == 0:
-            plain_ms = dict(zip(OPS_PER_SYMBOL, (ms1, ms2, ms3)))
+            words, nwords = rk.rans32_encode(lo, fr, lengths, cap)
+            (pwords, pnwords), ms2 = sync_time(
+                torch, lambda: rk.rans32_encode_plain(lo, fr, lengths, cap))
+            e2 = max(max_abs_diff(torch, words, pwords), max_abs_diff(torch, nwords, pnwords))
+            check(bool((nwords > cap).any()), f"T={t_len} {c}: no lane overflowed cap")
+
+            out = getattr(rk, f"{c}_rans32_decode")(words, lengths, t_len, RATE)
+            pout, ms3 = sync_time(
+                torch, lambda: getattr(rk, f"{c}_decode_plain")(words, lengths, t_len, RATE))
+            e3 = max_abs_diff(torch, out, pout)
+
+            # round trip on the lanes whose words fit cap; zeros past each length
+            fits = (nwords <= cap)[None, :]
+            check(bool(((out == syms) | ~live | ~fits).all()), f"T={t_len} {c}: round trip")
+            check(bool(((out == 0) | live).all()), f"T={t_len} {c}: zeros past length")
+            check(bool((out[:, 3] == syms[:, 3]).all()), f"T={t_len} {c}: single-byte lane")
+
+            for name, e in ((kin, e1), ("rans32_encode", e2), (kdec, e3)):
+                err[name] = max(err[name], e)
+                check(e == 0, f"T={t_len} B={b}: {name} differs from its plain version by {e}")
+            print(f"T={t_len} B={b}: {kin}, rans32_encode, {kdec} equal to plain "
+                  f"(plain ms {ms1:.1f} {ms2:.1f} {ms3:.1f}; "
+                  f"{int((nwords > cap).sum())} lanes overflow cap {cap})", flush=True)
+            if si == 0:
+                plain_ms[kin], plain_ms[kdec] = ms1, ms3
+                plain_ms.setdefault("rans32_encode", ms2)
     return err, plain_ms
 
 
-def phase2(cli, engine, smoke, corpus, work):
-    path = os.path.join(work, "corpus.bin")
+def check_container(smoke, model, bs, c, corpus_len):
+    got = smoke.container_digest(c)
+    want = smoke.GOLDEN[(model, bs)]
+    check(got == want, f"{model} block {bs}: container (crc32, len) {got} != golden {want}")
+    print(f"{model} block {bs}: container crc32 {got[0]} len {got[1]} equals lac_tpu's; "
+          f"{8 * len(c) / corpus_len:.4f} bits/byte", flush=True)
+
+
+def phase2(cli, engine, smoke, model, corpus, work):
+    """One model's main path: the CLI at block 4096 (the order0n path at the
+    CLI's defaults), then the engine at block 1024."""
+    path = os.path.join(work, f"{model}.bin")
     with open(path, "wb") as f:
         f.write(corpus)
-    check(cli.main(["compress", path, "-o", path + ".lac"]) == 0, "cli compress")
+    opts = [] if model == "order0n" else ["--model", model]
+    check(cli.main(["compress", path, "-o", path + ".lac", *opts]) == 0, "cli compress")
     check(cli.main(["decompress", path + ".lac", "-o", path + ".out"]) == 0, "cli decompress")
     check(cli.main(["verify", path + ".lac"]) == 0, "cli verify")
     with open(path + ".out", "rb") as f:
-        check(f.read() == corpus, "cli round trip differs from the corpus")
+        check(f.read() == corpus, f"{model}: cli round trip differs from the corpus")
     with open(path + ".lac", "rb") as f:
         c4096 = f.read()
-    c1024 = engine.compress_bytes(corpus, model_id="order0n", block_size=1024)
-    check(engine.decompress_bytes(c1024) == corpus, "block 1024 round trip")
+    c1024 = engine.compress_bytes(corpus, model_id=model, block_size=1024)
+    check(engine.decompress_bytes(c1024) == corpus, f"{model}: block 1024 round trip")
     for bs, c in ((4096, c4096), (1024, c1024)):
-        got = smoke.container_digest(c)
-        check(got == smoke.GOLDEN[bs],
-              f"block {bs}: container (crc32, len) {got} != golden {smoke.GOLDEN[bs]}")
-        print(f"block {bs}: container crc32 {got[0]} len {got[1]} equals lac_tpu's; "
-              f"{8 * len(c) / len(corpus):.4f} bits/byte", flush=True)
+        check_container(smoke, model, bs, c, len(corpus))
     return {4096: c4096, 1024: c1024}
 
 
-def e2e(torch, engine, corpus):
-    rates = {}
+def e2e(torch, engine, model, corpus):
     for bs in BLOCK_SIZES:
         enc, dec = [], []
         for _ in range(E2E_REPS):
             c, ms = sync_time(torch, lambda: engine.compress_bytes(
-                corpus, model_id="order0n", block_size=bs))
+                corpus, model_id=model, block_size=bs))
             enc.append(ms)
             out, ms = sync_time(torch, lambda: engine.decompress_bytes(c))
             dec.append(ms)
-            check(out == corpus, f"block {bs}: timed round trip")
+            check(out == corpus, f"{model} block {bs}: timed round trip")
         enc_mbs = len(corpus) / 1e6 / (float(np.median(enc)) / 1e3)
         dec_mbs = len(corpus) / 1e6 / (float(np.median(dec)) / 1e3)
-        rates[bs] = (enc_mbs, dec_mbs)
-        print(f"e2e block {bs}: encode {enc_mbs:.1f} MB/s, decode {dec_mbs:.1f} MB/s "
+        print(f"e2e {model} block {bs}: encode {enc_mbs:.1f} MB/s, decode {dec_mbs:.1f} MB/s "
               f"(median of {E2E_REPS}; encode ms {[round(x, 1) for x in enc]}, "
               f"decode ms {[round(x, 1) for x in dec]})", flush=True)
-    return rates
 
 
 def host_split(torch, turbo, container_mod, c):
     """Host ms, median of 3, of the parts of the path for container ``c``:
     the parse that decode starts with (``read_container``), the decode after
-    it (``turbo.decompress_parsed``, K3 and its copies included), and the
-    ``write_container`` that encode ends with."""
+    it (``turbo.decompress_parsed``, the decode kernel and its copies
+    included), and the ``write_container`` that encode ends with."""
     parse, rest, write = [], [], []
     for _ in range(3):
         t0 = time.perf_counter()
@@ -242,30 +274,32 @@ def host_split(torch, turbo, container_mod, c):
 
 
 def kernel_times(torch, rk, corpus, dev, t_len):
-    """Event times and bounds of K1, K2, K3 on the main path's inputs at
-    block ``t_len`` (all of the corpus, one lane per block)."""
+    """Event times and bounds of every kernel on the main path's inputs at
+    block ``t_len`` (all of the corpus, one lane per block). K2 is timed on
+    order0n's intervals."""
     b = len(corpus) // t_len
     syms = torch.from_numpy(
         np.frombuffer(corpus, dtype=np.uint8).reshape(b, t_len).T.copy()).to(dev)
     lengths = torch.full((b,), t_len, dtype=torch.int32, device=dev)
     cap = t_len // 2 + 3
-    lo, fr = rk.o0n_encode_intervals(syms, RATE)
-    words, nwords = rk.rans32_encode(lo, fr, lengths, cap)
-    ms = {
-        "o0n_intervals": event_ms(torch, lambda: rk.o0n_encode_intervals(syms, RATE)),
-        "rans32_encode": event_ms(torch, lambda: rk.rans32_encode(lo, fr, lengths, cap)),
-        "o0n_decode": event_ms(
-            torch, lambda: rk.o0n_rans32_decode(words, lengths, t_len, RATE)),
-    }
     nsym = int(lengths.sum().item())
-    words_read = int(torch.clamp(nwords, max=cap).sum().item())
-    moved = {
-        "o0n_intervals": t_len * b * (1 + 4 + 4),
-        "rans32_encode": nsym * 8 + b * 4 + b * cap * 2 + b * 4,
-        "o0n_decode": words_read * 2 + b * 4 + t_len * b,
-    }
+    ms, moved = {}, {}
+    for c in CODECS.values():
+        intervals = getattr(rk, f"{c}_encode_intervals")
+        decode = getattr(rk, f"{c}_rans32_decode")
+        lo, fr = intervals(syms, RATE)
+        words, nwords = rk.rans32_encode(lo, fr, lengths, cap)
+        ms[f"{c}_intervals"] = event_ms(torch, lambda: intervals(syms, RATE))
+        moved[f"{c}_intervals"] = t_len * b * (1 + 4 + 4)
+        if c == "o0n":
+            ms["rans32_encode"] = event_ms(
+                torch, lambda: rk.rans32_encode(lo, fr, lengths, cap))
+            moved["rans32_encode"] = nsym * 8 + b * 4 + b * cap * 2 + b * 4
+        ms[f"{c}_decode"] = event_ms(torch, lambda: decode(words, lengths, t_len, RATE))
+        words_read = int(torch.clamp(nwords, max=cap).sum().item())
+        moved[f"{c}_decode"] = words_read * 2 + b * 4 + t_len * b
     out = {}
-    for name in ms:
+    for name in OPS_PER_SYMBOL:
         t_bytes = 1e3 * moved[name] / HBM_BYTES_PER_S
         t_ops = 1e3 * nsym * OPS_PER_SYMBOL[name] / INT32_OPS_PER_S
         out[name] = {
@@ -277,6 +311,10 @@ def kernel_times(torch, rk, corpus, dev, t_len):
               f"{out[name]['bound_ms']:.4f} ms by {out[name]['bound_by']} "
               f"(bytes {t_bytes:.4f} ms, ops {t_ops:.4f} ms)", flush=True)
     return out
+
+
+def path_kernels(codec: str) -> tuple:
+    return (f"{codec}_intervals", "rans32_encode", f"{codec}_decode")
 
 
 def main() -> int:
@@ -304,8 +342,11 @@ def main() -> int:
             print(f"torch {torch.__version__} cuda {torch.version.cuda} "
                   f"device {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
             t0 = time.perf_counter()
-            _build.load_library()
+            lib = _build.load_library()
             print(f"kernels built and loaded in {time.perf_counter() - t0:.2f} s")
+            print(f"order1n/order2n kernels: {lib.lac_ctx_lanes()} lanes a block, "
+                  f"{lib.lac_ctx_shared_bytes(16)} / {lib.lac_ctx_shared_bytes(64)} "
+                  f"shared bytes a block")
             corpus = smoke.smoke_corpus()
             check(len(corpus) == smoke.SMOKE_BYTES, "corpus length")
             print(f"corpus {len(corpus)} bytes, crc32 {zlib.crc32(corpus)}")
@@ -314,32 +355,39 @@ def main() -> int:
             err, plain_ms = phase1(torch, rk, corpus, dev)
 
         with Phase("phase 2: main path"):
+            counts = {k: 0 for k in OPS_PER_SYMBOL}
+            containers = {}
             torch.cuda.reset_peak_memory_stats()
-            rk.reset_launches()
-            containers = phase2(cli, engine, smoke, corpus, work)
-            counts = dict(rk.launches)
+            for model, c in CODECS.items():
+                rk.reset_launches()
+                containers[model] = phase2(cli, engine, smoke, model, corpus, work)
+                path_counts = {k: rk.launches[k] for k in path_kernels(c)}
+                print(f"{model} path launches {path_counts} over 2 compress + "
+                      f"2 decompress calls", flush=True)
+                for name, n in path_counts.items():
+                    check(n > 0, f"kernel {name} was not launched on the {model} path")
+                    counts[name] += n
             peak = torch.cuda.max_memory_allocated()
-            print(f"main path launches {counts} over 2 compress + 2 decompress calls; "
-                  f"max_memory_allocated {peak} bytes")
-            for name, n in counts.items():
-                check(n > 0, f"kernel {name} was not launched on the main path")
+            print(f"main path launches {counts}; max_memory_allocated {peak} bytes")
 
         with Phase("phase 3: numbers"):
-            e2e(torch, engine, corpus)
+            for model in CODECS:
+                e2e(torch, engine, model, corpus)
             times = kernel_times(torch, rk, corpus, dev, BLOCK_SIZES[0])
             kernel_times(torch, rk, corpus, dev, BLOCK_SIZES[1])
-            for bs, c in containers.items():
-                print(f"bits/byte block {bs}: {8 * len(c) / len(corpus):.6f}")
-                parse, rest, write = host_split(torch, turbo, container, c)
-                print(f"host split block {bs}: decode = parse {parse:.1f} ms + "
-                      f"decompress_parsed {rest:.1f} ms; encode ends with write "
-                      f"{write:.1f} ms (medians of 3)")
+            for model, by_block in containers.items():
+                for bs, c in by_block.items():
+                    print(f"bits/byte {model} block {bs}: {8 * len(c) / len(corpus):.6f}")
+                    parse, rest, write = host_split(torch, turbo, container, c)
+                    print(f"host split {model} block {bs}: decode = parse {parse:.1f} ms + "
+                          f"decompress_parsed {rest:.1f} ms; encode ends with write "
+                          f"{write:.1f} ms (medians of 3)")
 
         kernels = [
             {
                 "name": name,
                 "route": "cuda",
-                "source": SOURCE,
+                "source": SOURCE[name],
                 "replaces": REPLACES[name],
                 "launches": counts[name],
                 "max_abs_err": err[name],

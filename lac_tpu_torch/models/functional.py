@@ -1,25 +1,43 @@
-"""The order0n byte model as torch functions over a batch of lanes.
+"""The nibble byte models as torch functions over a batch of lanes.
 
 Ports ``lac_tpu/models/functional.py``: ``adaptive_rate`` (:277-289),
 ``nib_state_init`` / ``nib_state_to_coder`` / ``nib_state_update``
-(:347-374) and ``Order0NibCDF`` (:376-423). This is the model's spec in the
-port: the kernels of ``ops/rans_kernels.py`` and their plain versions must
-give the intervals that ``Order0NibCDF.cdf`` gives here.
+(:347-374), ``Order0NibCDF`` (:376-423), ``Order1NibCDF`` (:425-481) and
+``Order2NibCDF`` (:483-543). This is the models' spec in the port: the
+kernels of ``ops/rans_kernels.py`` and their plain versions must give the
+intervals that ``cdf`` gives here.
 
 A byte ``s = 16*h + l`` is modelled as ``P(h) * P(l | h)``: one hi-nibble
-CDF and 16 lo-nibble CDFs, one per hi nibble. States are 15-bit and scaled
-to the 8-bit coding domain per step, ``eff[k] = ((state[k]*240) >> 15) + k``;
-the two nibble intervals compose into one 16-bit rANS step,
-``lo12 = (lo_h << 8) + f_h*lo_l`` and ``f12 = f_h*f_l``. The hi table adapts
-on the global step schedule, each lo table on its own visit count.
+CDF row and one lo-nibble CDF row, each picked from a table by a context.
+States are 15-bit and scaled to the 8-bit coding domain per step,
+``eff[k] = ((state[k]*240) >> 15) + k``; the two nibble intervals compose
+into one 16-bit rANS step, ``lo12 = (lo_h << 8) + f_h*lo_l`` and
+``f12 = f_h*f_l``. The three models differ only in their contexts:
 
-State layout is the reference's: ``sh [B, 17]``, ``sl [B, 16, 17]``,
-``cnt [B, 16]`` (all int32) and the step count, here a Python int.
+- order0n: one hi row, adapting on the global step schedule; the lo row
+  picked by ``h`` (16 contexts), adapting on its own visit count;
+- order1n: the hi row picked by the previous byte's hi nibble ``prev_h``
+  (16 contexts) and the lo row by ``h``, both adapting on visit counts;
+- order2n: the hi row as order1n; the lo row picked by
+  ``h*4 + (prev_h >> 2)`` (64 contexts).
+
+``hi_row(state)`` and ``lo_row(state, h)`` return the rows in use, so one
+loop steps any of the three (``ops/rans_kernels.py``). ``update`` is pure,
+as the reference's; ``update_`` writes the tables in place and is what the
+plain kernel versions step with, since a copy of every table per step
+costs them more than the step itself.
+
+State layouts are the reference's, all int32:
+``Order0NibCDF``: ``(sh [B, 17], sl [B, 16, 17], cnt [B, 16], step)``,
+the step a Python int; ``Order1NibCDF`` / ``Order2NibCDF``:
+``(sh [B, 16, 17], sl [B, 16|64, 17], cnth [B, 16], cntl [B, 16|64],
+prev_h [B])``.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import ClassVar
 
 import torch
 
@@ -31,6 +49,8 @@ __all__ = [
     "nib_state_to_coder",
     "nib_state_update",
     "Order0NibCDF",
+    "Order1NibCDF",
+    "Order2NibCDF",
 ]
 
 NIB_V = 16  # nibble alphabet
@@ -76,6 +96,41 @@ def nib_state_update(state: torch.Tensor, nib: torch.Tensor, rate) -> torch.Tens
     return torch.where(k <= nib[..., None], toward_zero, toward_total)
 
 
+def _table_init(batch: int, rows: int, device) -> torch.Tensor:
+    """[B, rows, 17] uniform context rows."""
+    return nib_state_init(1, device)[0].expand(batch, rows, NIB_V + 1).contiguous()
+
+
+def _lanes(t: torch.Tensor) -> torch.Tensor:
+    return torch.arange(t.shape[0], device=t.device)
+
+
+def _adapt_(table, cnt, ctx, nib, base_rate: int) -> None:
+    """In place: move row ``ctx`` of each lane's table toward ``nib`` at the
+    rate of that row's visit count, and count the visit."""
+    lane = _lanes(table)
+    rate = adaptive_rate(base_rate, cnt[lane, ctx])[:, None]
+    table[lane, ctx] = nib_state_update(table[lane, ctx], nib, rate)
+    cnt[lane, ctx] += 1
+
+
+def _compose(effh: torch.Tensor, effl: torch.Tensor) -> torch.Tensor:
+    """Composed 257-entry CDF (total 2**16) from the hi boundaries [B, 17]
+    and the lo boundaries that each hi nibble picks, [B, 16, 17]."""
+    s = torch.arange(256, device=effh.device)
+    hs, ls = s >> 4, s & 15
+    loh = effh[:, hs]  # [B, 256]
+    fh = effh[:, hs + 1] - loh
+    cdf = (loh << 8) + fh * effl[:, hs, ls]
+    total = torch.full((effh.shape[0], 1), 1 << 16, dtype=torch.int32, device=effh.device)
+    return torch.cat([cdf, total], dim=-1)
+
+
+def _split(syms: torch.Tensor):
+    syms = syms.to(torch.int64)
+    return syms >> 4, syms & 15
+
+
 @dataclass(frozen=True)
 class Order0NibCDF:
     """Nibble-factorised adaptive byte model (model id "order0n").
@@ -85,34 +140,93 @@ class Order0NibCDF:
 
     def init_state(self, batch: int, device=None):
         sh = nib_state_init(batch, device)
-        sl = nib_state_init(1, device)[0].expand(batch, NIB_V, NIB_V + 1).contiguous()
+        sl = _table_init(batch, NIB_V, device)
         cnt = torch.zeros((batch, NIB_V), dtype=torch.int32, device=device)
         return (sh, sl, cnt, 0)
 
+    def hi_row(self, state) -> torch.Tensor:
+        return state[0]
+
+    def lo_row(self, state, h: torch.Tensor) -> torch.Tensor:
+        sl = state[1]
+        return sl[_lanes(sl), h]
+
     def cdf(self, state) -> torch.Tensor:
         sh, sl, _cnt, _step = state
-        b = sh.shape[0]
-        effh = nib_state_to_coder(sh)  # [B, 17]
-        effl = nib_state_to_coder(sl)  # [B, 16, 17]
-        s = torch.arange(256, device=sh.device)
-        hs, ls = s >> 4, s & 15
-        loh = effh[:, hs]  # [B, 256]
-        fh = effh[:, hs + 1] - loh
-        lol = effl[:, hs, ls]
-        cdf = (loh << 8) + fh * lol
-        total = torch.full((b, 1), 1 << 16, dtype=torch.int32, device=sh.device)
-        return torch.cat([cdf, total], dim=-1)
+        return _compose(nib_state_to_coder(sh), nib_state_to_coder(sl))
 
     def update(self, state, syms: torch.Tensor):
         sh, sl, cnt, step = state
-        syms = syms.to(torch.int64)
-        h, l = syms >> 4, syms & 15
+        return self.update_((sh, sl.clone(), cnt.clone(), step), syms)
+
+    def update_(self, state, syms: torch.Tensor):
+        sh, sl, cnt, step = state
+        h, l = _split(syms)
         sh = nib_state_update(sh, h, adaptive_rate(self.rate, step))
-        lane = torch.arange(sh.shape[0], device=sh.device)
-        row = sl[lane, h]  # [B, 17]
-        rl = adaptive_rate(self.rate, cnt[lane, h])[:, None]
-        sl = sl.clone()
-        sl[lane, h] = nib_state_update(row, l, rl)
-        cnt = cnt.clone()
-        cnt[lane, h] += 1
+        _adapt_(sl, cnt, h, l, self.rate)
         return (sh, sl, cnt, step + 1)
+
+
+@dataclass(frozen=True)
+class _CtxNibCDF:
+    """Both nibble rows picked by context, both adapting on visit counts."""
+
+    rate: int = 4
+    n_lo: ClassVar[int] = NIB_V
+
+    def lo_ctx(self, h: torch.Tensor, prev_h: torch.Tensor) -> torch.Tensor:
+        raise NotImplementedError
+
+    def init_state(self, batch: int, device=None):
+        sh = _table_init(batch, NIB_V, device)
+        sl = _table_init(batch, self.n_lo, device)
+        cnth = torch.zeros((batch, NIB_V), dtype=torch.int32, device=device)
+        cntl = torch.zeros((batch, self.n_lo), dtype=torch.int32, device=device)
+        prev_h = torch.zeros((batch,), dtype=torch.int32, device=device)
+        return (sh, sl, cnth, cntl, prev_h)
+
+    def hi_row(self, state) -> torch.Tensor:
+        sh, prev_h = state[0], state[4]
+        return sh[_lanes(sh), prev_h]
+
+    def lo_row(self, state, h: torch.Tensor) -> torch.Tensor:
+        sl, prev_h = state[1], state[4]
+        return sl[_lanes(sl), self.lo_ctx(h, prev_h)]
+
+    def cdf(self, state) -> torch.Tensor:
+        effl = torch.stack(
+            [nib_state_to_coder(self.lo_row(state, torch.full_like(state[4], h)))
+             for h in range(NIB_V)], dim=1)
+        return _compose(nib_state_to_coder(self.hi_row(state)), effl)
+
+    def update(self, state, syms: torch.Tensor):
+        return self.update_(tuple(a.clone() for a in state), syms)
+
+    def update_(self, state, syms: torch.Tensor):
+        sh, sl, cnth, cntl, prev_h = state
+        h, l = _split(syms)
+        lc = self.lo_ctx(h, prev_h)  # from the previous byte, before prev_h moves
+        _adapt_(sh, cnth, prev_h, h, self.rate)
+        _adapt_(sl, cntl, lc, l, self.rate)
+        return (sh, sl, cnth, cntl, h.to(torch.int32))
+
+
+@dataclass(frozen=True)
+class Order1NibCDF(_CtxNibCDF):
+    """Order-1 nibble model (model id "order1n"): hi | prev_h, lo | h."""
+
+    n_lo: ClassVar[int] = NIB_V
+
+    def lo_ctx(self, h, prev_h):
+        return h
+
+
+@dataclass(frozen=True)
+class Order2NibCDF(_CtxNibCDF):
+    """Order-2-lite nibble model (model id "order2n"): hi | prev_h,
+    lo | (h, prev_h >> 2), 64 lo contexts."""
+
+    n_lo: ClassVar[int] = 4 * NIB_V
+
+    def lo_ctx(self, h, prev_h):
+        return h * 4 + (prev_h.to(h.dtype) >> 2)

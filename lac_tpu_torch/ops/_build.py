@@ -1,13 +1,14 @@
 """Build and load the port's CUDA kernels: nvcc by hand, bound with ctypes.
 
 The JAX package has no counterpart: Pallas compiles its kernels inside
-``jax.jit``. Here ``csrc/o0n_rans32.cu`` (plain C entry points, no PyTorch
-header) is compiled on first use with
+``jax.jit``. Here the ``csrc/*.cu`` files (plain C entry points, no PyTorch
+header; ``o0n_rans32.cu`` and ``ctx_nib_rans32.cu``, which share
+``nib_model.cuh``) are compiled on first use, by one call of
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared -Xcompiler -fPIC
 
-into ``ops/build/``, under a name that holds a hash of the source and the
-flags. The compiler writes to a temporary name that is then renamed into
+into one library in ``ops/build/``, under a name that holds a hash of every
+source in ``csrc/`` and the flags. The compiler writes to a temporary name that is then renamed into
 place, so no lock file is needed and a build that was cut off leaves
 nothing that a later build waits on. The first build prints its seconds
 and what ``-Xptxas -v`` says of each kernel's registers, shared memory and
@@ -19,6 +20,7 @@ Nothing here runs when the module is imported.
 from __future__ import annotations
 
 import ctypes
+import glob
 import hashlib
 import os
 import re
@@ -30,7 +32,7 @@ import time
 __all__ = ["load_library", "NVCC_FLAGS"]
 
 _OPS_DIR = os.path.dirname(os.path.abspath(__file__))
-_SRC = os.path.join(_OPS_DIR, "csrc", "o0n_rans32.cu")
+_CSRC = os.path.join(_OPS_DIR, "csrc")
 _BUILD_DIR = os.path.join(_OPS_DIR, "build")
 _BUILD_TIMEOUT_S = 300
 
@@ -48,9 +50,18 @@ _SIGNATURES = {
     "lac_rans32_encode": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
     # words, lengths, syms, T, B, cap, rate, stream
     "lac_o0n_decode": (_P, _P, _P, _I, _I, _I, _I, _P),
+    "lac_o1n_intervals": (_P, _P, _P, _I, _I, _I, _P),
+    "lac_o1n_decode": (_P, _P, _P, _I, _I, _I, _I, _P),
+    "lac_o2n_intervals": (_P, _P, _P, _I, _I, _I, _P),
+    "lac_o2n_decode": (_P, _P, _P, _I, _I, _I, _I, _P),
+    # launch shape of the order1n/order2n kernels: lanes a block; shared
+    # bytes a block for a lo-context count
+    "lac_ctx_lanes": (),
+    "lac_ctx_shared_bytes": (_I,),
 }
 
-_KERNELS = ("o0n_intervals_kernel", "rans32_encode_kernel", "o0n_decode_kernel")
+_KERNELS = ("o0n_intervals_kernel", "rans32_encode_kernel", "o0n_decode_kernel",
+            "ctx_intervals_kernel", "ctx_decode_kernel")
 
 _lock = threading.Lock()
 _lib = None
@@ -74,6 +85,9 @@ def _ptxas_summary(log: str) -> str:
         m = re.search(r"Compiling entry function '([^']+)'", line)
         if m:
             name = next((k for k in _KERNELS if k in m.group(1)), m.group(1))
+            tmpl = re.search(r"ILi(\d+)E", m.group(1))  # template argument
+            if tmpl:
+                name += f"<{tmpl.group(1)}>"
         if "spill stores" in line and name:
             out.append(f"  {name}: {line.split('ptxas info    :')[-1].strip()}")
         if "Used" in line and "registers" in line and name:
@@ -81,10 +95,15 @@ def _ptxas_summary(log: str) -> str:
     return "\n".join(out)
 
 
+def _sources() -> list[str]:
+    return sorted(glob.glob(os.path.join(_CSRC, "*.cu")) + glob.glob(os.path.join(_CSRC, "*.cuh")))
+
+
 def _build(so_path: str) -> None:
     os.makedirs(_BUILD_DIR, exist_ok=True)
     tmp = f"{so_path}.tmp{os.getpid()}"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", tmp, _SRC]
+    units = [p for p in _sources() if p.endswith(".cu")]
+    cmd = [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", tmp, *units]
     t0 = time.perf_counter()
     try:
         proc = subprocess.run(
@@ -111,10 +130,11 @@ def load_library() -> ctypes.CDLL:
     with _lock:
         if _lib is not None:
             return _lib
-        with open(_SRC, "rb") as f:
-            src = f.read()
-        tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-        so_path = os.path.join(_BUILD_DIR, f"o0n_rans32-{tag}.so")
+        digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+        for path in _sources():
+            with open(path, "rb") as f:
+                digest.update(os.path.basename(path).encode() + b"\0" + f.read())
+        so_path = os.path.join(_BUILD_DIR, f"lac_kernels-{digest.hexdigest()[:16]}.so")
         if not os.path.exists(so_path):
             _build(so_path)
         lib = ctypes.CDLL(so_path)

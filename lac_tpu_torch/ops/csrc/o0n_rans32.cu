@@ -19,7 +19,7 @@
 // rows are lane-major [B, cap]: each thread walks its own row, which is not
 // coalesced across the warp.
 //
-// Built by ops/_build.py with
+// Built by ops/_build.py, with ctx_nib_rans32.cu, into one library with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared -Xcompiler -fPIC
 // and bound with ctypes. Each entry point launches on the given stream,
 // does not synchronise, and returns cudaGetLastError() after its launch.
@@ -28,26 +28,14 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "nib_model.cuh"
+
 namespace {
 
-constexpr int kNV = 16;                // nibble alphabet
-constexpr int kNSB = 15;               // internal state bits
-constexpr int kNS = 1 << kNSB;         // state total
-constexpr int kNM = 256 - kNV;         // 240: 8-bit coding domain less the +k guard
+using namespace lac_nib;
+
 constexpr int kModelThreads = 64;      // lanes per block in the model kernels
 constexpr int kEncodeThreads = 128;    // lanes per block in the encode kernel
-
-__device__ __forceinline__ int rate_at(int base, int t) {
-  return base + (t >= 16) + (t >= 32) + (t >= 64) + (t >= 128);
-}
-
-// 15-bit state -> 8-bit coding boundary of nibble k
-__device__ __forceinline__ int eff(int s, int k) { return ((s * kNM) >> kNSB) + k; }
-
-// shift toward the one-hot CDF of nibble `nib` (k <= nib toward 0, else toward 2^15)
-__device__ __forceinline__ int nib_update(int s, int k, int nib, int r) {
-  return k <= nib ? s - (s >> r) : s + ((kNS - s) >> r);
-}
 
 // Each thread's 16 lo-nibble tables (16 x 16 u16 states) live in one column
 // of this shared array: element [c*16 + k][threadIdx.x]. Neighbouring

@@ -1,52 +1,90 @@
-"""order0n coding kernels: one wrapper per CUDA kernel, its plain PyTorch
-version beside it, a launch count, and the codec gate.
+"""Nibble-codec coding kernels: one wrapper per CUDA kernel, its plain
+PyTorch version beside it, a launch count, and the codec gates.
 
-Ports the order0n part of ``lac_tpu/ops/pallas_rans.py``:
+Ports the nibble-codec part of ``lac_tpu/ops/pallas_rans.py``:
 
 - ``o0n_encode_intervals`` (:742-822) -> K1, ``lac_o0n_intervals``;
 - ``rans32_encode_dense`` (:179-267) followed by ``compact_words``
   (:271-310) -> K2, ``rans32_encode``, one kernel whose result equals
   ``compact_words(rans32_encode_dense(...))``;
 - ``o0n_rans32_decode`` (:849-1030) -> K3, ``lac_o0n_decode``;
-- ``o0n_encode_fused`` (:825-846), the chain K1 -> K2;
-- the codec gate ``o0n_decode_fits`` / ``_o0n_vmem_ok`` (:921-931) and the
-  constants it reads (``_FUSED_VMEM_LIMIT`` :438, ``_FIFO`` :61,
-  ``_MAX_KERNEL_LANES`` :313, ``_NV`` :626). The gate is the reference's
-  pure formula, not a check of GPU memory: it decides which codec a
-  container records (``runtime/turbo.py:123-128``).
+- ``o1n_encode_intervals`` (:1044-1141) -> K4, ``lac_o1n_intervals``;
+- ``o1n_rans32_decode`` (:1148-1258) -> K5, ``lac_o1n_decode``;
+- ``o2n_encode_intervals`` (:1277-1375) -> K6, ``lac_o2n_intervals``;
+- ``o2n_rans32_decode`` (:1382-1495) -> K7, ``lac_o2n_decode``;
+- ``o0n_encode_fused`` / ``o1n_encode_fused`` / ``o2n_encode_fused``
+  (``_nib_encode_fused`` :825-846), each its intervals kernel -> K2;
+- the codec gates ``o0n_decode_fits`` (:921-931), ``o1n_decode_fits``
+  (:1229-1238), ``o2n_decode_fits`` (:1465-1475) and the sub-lane splitter
+  ``_nib_sub_lanes`` (:969-976) that the order2n gate asks, with the
+  constants they read (``_FUSED_VMEM_LIMIT`` :438, ``_FIFO`` :61,
+  ``_MAX_KERNEL_LANES`` :313, ``_NV`` :626, ``_NL2`` :1270). A gate is the
+  reference's pure formula, not a check of GPU memory: it decides which
+  codec a container records (``runtime/turbo.py:123-128``).
+
+The plain versions are one loop per direction, ``nib_intervals_plain`` and
+``nib_decode_plain``, that step any of the models of
+``models/functional.py`` through its ``hi_row`` / ``lo_row`` selectors.
 
 A wrapper runs the plain version only for a tensor on the CPU. For a CUDA
-tensor it launches the kernel (``csrc/o0n_rans32.cu``) or raises; it never
-falls back. ``launches[name]`` counts the kernel's launches and nothing else.
+tensor it launches the kernel (``csrc/o0n_rans32.cu``,
+``csrc/ctx_nib_rans32.cu``) or raises; it never falls back.
+``launches[name]`` counts the kernel's launches and nothing else.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..models.functional import NIB_V, Order0NibCDF, nib_state_to_coder
+from ..models.functional import (
+    NIB_V,
+    Order0NibCDF,
+    Order1NibCDF,
+    Order2NibCDF,
+    nib_state_to_coder,
+)
 from . import _build
 
 __all__ = [
     "o0n_encode_intervals",
+    "o1n_encode_intervals",
+    "o2n_encode_intervals",
     "rans32_encode",
     "o0n_rans32_decode",
+    "o1n_rans32_decode",
+    "o2n_rans32_decode",
     "o0n_encode_fused",
+    "o1n_encode_fused",
+    "o2n_encode_fused",
     "o0n_decode_fits",
+    "o1n_decode_fits",
+    "o2n_decode_fits",
     "launches",
     "reset_launches",
+    "nib_intervals_plain",
+    "nib_decode_plain",
     "o0n_intervals_plain",
+    "o1n_intervals_plain",
+    "o2n_intervals_plain",
     "rans32_encode_plain",
     "o0n_decode_plain",
+    "o1n_decode_plain",
+    "o2n_decode_plain",
 ]
 
-# reference constants (lac_tpu/ops/pallas_rans.py) read by the codec gate
+# reference constants (lac_tpu/ops/pallas_rans.py) read by the codec gates
 _FIFO = 128
 _FUSED_VMEM_LIMIT = 64 * 1024 * 1024
 _MAX_KERNEL_LANES = 2048
 _NV = NIB_V
+_NL2 = 4 * NIB_V  # order2n lo contexts
 
-launches = {"o0n_intervals": 0, "rans32_encode": 0, "o0n_decode": 0}
+_MODELS = {"o0n": Order0NibCDF, "o1n": Order1NibCDF, "o2n": Order2NibCDF}
+
+launches = {
+    "o0n_intervals": 0, "rans32_encode": 0, "o0n_decode": 0,
+    "o1n_intervals": 0, "o1n_decode": 0, "o2n_intervals": 0, "o2n_decode": 0,
+}
 
 
 def reset_launches() -> None:
@@ -55,20 +93,56 @@ def reset_launches() -> None:
 
 
 # --------------------------------------------------------------------------
-# Codec gate (pure formula)
+# Codec gates (pure formulas)
 # --------------------------------------------------------------------------
+
+_VMEM_BUDGET = _FUSED_VMEM_LIMIT - 4 * 1024 * 1024
 
 
 def _o0n_vmem_ok(cap: int, b: int) -> bool:
     cap2 = (cap + 1) // 2
     need = 4 * (5 * cap2 * b + 5 * 8 * _NV * b + 2 * _FIFO * b + 16 * b)
-    return need <= _FUSED_VMEM_LIMIT - 4 * 1024 * 1024
+    return need <= _VMEM_BUDGET
+
+
+def _o1n_vmem_ok(cap: int, b: int) -> bool:
+    cap2 = (cap + 1) // 2
+    need = 4 * (5 * cap2 * b + 9 * 8 * _NV * b + 2 * _FIFO * b + 24 * b)
+    return need <= _VMEM_BUDGET
+
+
+def _o2n_vmem_ok(cap: int, b: int) -> bool:
+    cap2 = (cap + 1) // 2
+    need = 4 * (5 * cap2 * b + 9 * 8 * (_NV + _NL2) * b + 2 * _FIFO * b + 24 * b)
+    return need <= _VMEM_BUDGET
+
+
+def _nib_sub_lanes(fits_one, cap: int) -> int:
+    """Largest power-of-two lane count from 256 up to ``_MAX_KERNEL_LANES``
+    whose budget fits ``cap``; 0 if none does."""
+    sub = _MAX_KERNEL_LANES
+    while sub >= 256 and not fits_one(cap, sub):
+        sub //= 2
+    return sub if sub >= 256 else 0
 
 
 def o0n_decode_fits(cap: int, b: int) -> bool:
     """Whether the reference's order0n decode geometry admits (cap, B); the
     compressor records order0c instead when it does not."""
     return _o0n_vmem_ok(cap, min(b, _MAX_KERNEL_LANES))
+
+
+def o1n_decode_fits(cap: int, b: int) -> bool:
+    """As ``o0n_decode_fits``, for order1n."""
+    return _o1n_vmem_ok(cap, min(b, _MAX_KERNEL_LANES))
+
+
+def o2n_decode_fits(cap: int, b: int) -> bool:
+    """The order2n gate ignores ``b``: the reference narrows its sub-kernels
+    until the budget fits, so it asks whether any width from 256 lanes up
+    fits ``cap``."""
+    del b
+    return _nib_sub_lanes(_o2n_vmem_ok, cap) > 0
 
 
 # --------------------------------------------------------------------------
@@ -96,21 +170,16 @@ def _same_device(*ts: torch.Tensor) -> None:
             raise ValueError(f"tensors on different devices: {dev} and {t.device}")
 
 
-def _launch(name: str, c_name: str, device: torch.device, *args) -> None:
-    """Call one C entry point on the device's current stream; raise on any
-    non-zero cudaError_t. Counts the launch."""
+def _launch(name: str, device: torch.device, *args) -> None:
+    """Call the C entry point ``lac_<name>`` on the device's current stream;
+    raise on any non-zero cudaError_t. Counts the launch."""
     lib = _build.load_library()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        rc = getattr(lib, c_name)(*args, stream)
+        rc = getattr(lib, f"lac_{name}")(*args, stream)
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError_t {rc}")
     launches[name] += 1
-
-
-# --------------------------------------------------------------------------
-# K1: order0n forward -> composed (lo12, f12)
-# --------------------------------------------------------------------------
 
 
 def _interval(eff: torch.Tensor, k: torch.Tensor):
@@ -124,41 +193,71 @@ def _search(eff: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     return (eff[:, :_NV] <= v[:, None]).sum(1) - 1
 
 
-def o0n_intervals_plain(syms_tb: torch.Tensor, rate: int):
-    """Plain version of K1: ``Order0NibCDF`` stepped over T, vectorised
-    over the B lanes, giving each symbol's two nibble intervals composed."""
+# --------------------------------------------------------------------------
+# Model forward -> composed (lo12, f12): K1 (order0n), K4 (order1n),
+# K6 (order2n)
+# --------------------------------------------------------------------------
+
+
+def nib_intervals_plain(model, syms_tb: torch.Tensor):
+    """Plain version of the intervals kernels: ``model`` stepped over T,
+    vectorised over the B lanes, giving each symbol's two nibble intervals
+    composed."""
     t_len, b = syms_tb.shape
     dev = syms_tb.device
-    model = Order0NibCDF(rate)
     state = model.init_state(b, dev)
-    lane = torch.arange(b, device=dev)
     lo = torch.empty((t_len, b), dtype=torch.int32, device=dev)
     fr = torch.empty((t_len, b), dtype=torch.int32, device=dev)
     for t in range(t_len):
         s = syms_tb[t].to(torch.int64)
         h, l = s >> 4, s & 15
-        sh, sl, _, _ = state
-        loh, fh = _interval(nib_state_to_coder(sh), h)
-        lol, fl = _interval(nib_state_to_coder(sl[lane, h]), l)
+        loh, fh = _interval(nib_state_to_coder(model.hi_row(state)), h)
+        lol, fl = _interval(nib_state_to_coder(model.lo_row(state, h)), l)
         lo[t] = (loh << 8) + fh * lol
         fr[t] = fh * fl
-        state = model.update(state, s)
+        state = model.update_(state, s)
+    return lo, fr
+
+
+def o0n_intervals_plain(syms_tb: torch.Tensor, rate: int):
+    return nib_intervals_plain(Order0NibCDF(rate), syms_tb)
+
+
+def o1n_intervals_plain(syms_tb: torch.Tensor, rate: int):
+    return nib_intervals_plain(Order1NibCDF(rate), syms_tb)
+
+
+def o2n_intervals_plain(syms_tb: torch.Tensor, rate: int):
+    return nib_intervals_plain(Order2NibCDF(rate), syms_tb)
+
+
+def _intervals(codec: str, syms_tb: torch.Tensor, rate: int):
+    _check(syms_tb, "syms_tb", torch.uint8, 2)
+    if syms_tb.device.type == "cpu":
+        return nib_intervals_plain(_MODELS[codec](rate), syms_tb)
+    t_len, b = syms_tb.shape
+    lo = torch.empty((t_len, b), dtype=torch.int32, device=syms_tb.device)
+    fr = torch.empty((t_len, b), dtype=torch.int32, device=syms_tb.device)
+    if t_len and b:
+        _launch(f"{codec}_intervals", syms_tb.device,
+                syms_tb.data_ptr(), lo.data_ptr(), fr.data_ptr(), t_len, b, rate)
     return lo, fr
 
 
 def o0n_encode_intervals(syms_tb: torch.Tensor, rate: int):
     """syms_tb: [T, B] uint8 bytes. Returns composed (lo12, f12) [T, B]
     int32 with total 2**16, the input of ``rans32_encode``."""
-    _check(syms_tb, "syms_tb", torch.uint8, 2)
-    if syms_tb.device.type == "cpu":
-        return o0n_intervals_plain(syms_tb, rate)
-    t_len, b = syms_tb.shape
-    lo = torch.empty((t_len, b), dtype=torch.int32, device=syms_tb.device)
-    fr = torch.empty((t_len, b), dtype=torch.int32, device=syms_tb.device)
-    if t_len and b:
-        _launch("o0n_intervals", "lac_o0n_intervals", syms_tb.device,
-                syms_tb.data_ptr(), lo.data_ptr(), fr.data_ptr(), t_len, b, rate)
-    return lo, fr
+    return _intervals("o0n", syms_tb, rate)
+
+
+def o1n_encode_intervals(syms_tb: torch.Tensor, rate: int):
+    """As ``o0n_encode_intervals``, for the order1n model."""
+    return _intervals("o1n", syms_tb, rate)
+
+
+def o2n_encode_intervals(syms_tb: torch.Tensor, rate: int):
+    """As ``o0n_encode_intervals``, for the order2n model."""
+    return _intervals("o2n", syms_tb, rate)
 
 
 # --------------------------------------------------------------------------
@@ -220,7 +319,7 @@ def rans32_encode(lo_tb: torch.Tensor, fr_tb: torch.Tensor,
     words = torch.empty((b, cap), dtype=torch.uint16, device=lo_tb.device)
     nwords = torch.empty((b,), dtype=torch.int32, device=lo_tb.device)
     if b:
-        _launch("rans32_encode", "lac_rans32_encode", lo_tb.device,
+        _launch("rans32_encode", lo_tb.device,
                 lo_tb.data_ptr(), fr_tb.data_ptr(), lengths.data_ptr(),
                 words.data_ptr(), nwords.data_ptr(), t_len, b, cap)
     return words, nwords
@@ -228,24 +327,31 @@ def rans32_encode(lo_tb: torch.Tensor, fr_tb: torch.Tensor,
 
 def o0n_encode_fused(syms_tb: torch.Tensor, lengths: torch.Tensor, rate: int, cap: int):
     """K1 then K2: [T, B] uint8 bytes -> (words [B, cap] uint16, nwords [B])."""
-    lo, fr = o0n_encode_intervals(syms_tb, rate)
-    return rans32_encode(lo, fr, lengths, cap)
+    return rans32_encode(*o0n_encode_intervals(syms_tb, rate), lengths, cap)
+
+
+def o1n_encode_fused(syms_tb: torch.Tensor, lengths: torch.Tensor, rate: int, cap: int):
+    """K4 then K2, as ``o0n_encode_fused``."""
+    return rans32_encode(*o1n_encode_intervals(syms_tb, rate), lengths, cap)
+
+
+def o2n_encode_fused(syms_tb: torch.Tensor, lengths: torch.Tensor, rate: int, cap: int):
+    """K6 then K2, as ``o0n_encode_fused``."""
+    return rans32_encode(*o2n_encode_intervals(syms_tb, rate), lengths, cap)
 
 
 # --------------------------------------------------------------------------
-# K3: fused order0n model + rANS-32/16 decode
+# Fused model + rANS-32/16 decode: K3 (order0n), K5 (order1n), K7 (order2n)
 # --------------------------------------------------------------------------
 
 
-def o0n_decode_plain(words: torch.Tensor, lengths: torch.Tensor, t_len: int, rate: int):
-    """Plain version of K3: ``Order0NibCDF`` stepped over T with the rANS
-    decode, vectorised over the B lanes. A lane's state after its length is
-    never read again, so the model steps every lane."""
+def nib_decode_plain(model, words: torch.Tensor, lengths: torch.Tensor, t_len: int):
+    """Plain version of the decode kernels: ``model`` stepped over T with
+    the rANS decode, vectorised over the B lanes. A lane's state after its
+    length is never read again, so the model steps every lane."""
     b, cap = words.shape
     dev = words.device
-    model = Order0NibCDF(rate)
     state = model.init_state(b, dev)
-    lane = torch.arange(b, device=dev)
     w = torch.cat([words.to(torch.int64), torch.zeros((b, 1), dtype=torch.int64, device=dev)], 1)
     pos = torch.full((b,), 2, dtype=torch.int64, device=dev)
     x = (w[:, min(0, cap)] << 16) | w[:, min(1, cap)]
@@ -254,12 +360,11 @@ def o0n_decode_plain(words: torch.Tensor, lengths: torch.Tensor, t_len: int, rat
     for t in range(t_len):
         active = t < n
         slot = x & 0xFFFF
-        sh, sl, _, _ = state
-        effh = nib_state_to_coder(sh)
+        effh = nib_state_to_coder(model.hi_row(state))
         h = _search(effh, slot >> 8)
         loh, fh = _interval(effh, h)
         r = slot - (loh << 8)
-        sc = fh[:, None] * nib_state_to_coder(sl[lane, h])  # sc[16] = fh << 8
+        sc = fh[:, None] * nib_state_to_coder(model.lo_row(state, h))  # sc[16] = fh << 8
         l = _search(sc, r)
         lo_s, f12 = _interval(sc, l)
         xn = (f12 * (x >> 16) + (r - lo_s)) & 0xFFFFFFFF
@@ -270,14 +375,23 @@ def o0n_decode_plain(words: torch.Tensor, lengths: torch.Tensor, t_len: int, rat
         x = torch.where(active, xn, x)
         s = (h << 4) | l
         syms[t] = torch.where(active, s, 0).to(torch.uint8)
-        state = model.update(state, s)
+        state = model.update_(state, s)
     return syms
 
 
-def o0n_rans32_decode(words: torch.Tensor, lengths: torch.Tensor, t_len: int, rate: int):
-    """Fused order0n decode. words: [B, cap] uint16 in decode order (a lane
-    reads 0 past cap); lengths: [B] int32. Returns syms [T, B] uint8, with 0
-    past each lane's length."""
+def o0n_decode_plain(words: torch.Tensor, lengths: torch.Tensor, t_len: int, rate: int):
+    return nib_decode_plain(Order0NibCDF(rate), words, lengths, t_len)
+
+
+def o1n_decode_plain(words: torch.Tensor, lengths: torch.Tensor, t_len: int, rate: int):
+    return nib_decode_plain(Order1NibCDF(rate), words, lengths, t_len)
+
+
+def o2n_decode_plain(words: torch.Tensor, lengths: torch.Tensor, t_len: int, rate: int):
+    return nib_decode_plain(Order2NibCDF(rate), words, lengths, t_len)
+
+
+def _decode(codec: str, words: torch.Tensor, lengths: torch.Tensor, t_len: int, rate: int):
     _check(words, "words", torch.uint16, 2)
     _check(lengths, "lengths", torch.int32, 1)
     _same_device(words, lengths)
@@ -285,10 +399,27 @@ def o0n_rans32_decode(words: torch.Tensor, lengths: torch.Tensor, t_len: int, ra
     if lengths.shape != (b,):
         raise ValueError("lengths must be [B]")
     if words.device.type == "cpu":
-        return o0n_decode_plain(words, lengths, t_len, rate)
+        return nib_decode_plain(_MODELS[codec](rate), words, lengths, t_len)
     syms = torch.empty((t_len, b), dtype=torch.uint8, device=words.device)
     if t_len and b:
-        _launch("o0n_decode", "lac_o0n_decode", words.device,
+        _launch(f"{codec}_decode", words.device,
                 words.data_ptr(), lengths.data_ptr(), syms.data_ptr(),
                 t_len, b, cap, rate)
     return syms
+
+
+def o0n_rans32_decode(words: torch.Tensor, lengths: torch.Tensor, t_len: int, rate: int):
+    """Fused order0n decode. words: [B, cap] uint16 in decode order (a lane
+    reads 0 past cap); lengths: [B] int32. Returns syms [T, B] uint8, with 0
+    past each lane's length."""
+    return _decode("o0n", words, lengths, t_len, rate)
+
+
+def o1n_rans32_decode(words: torch.Tensor, lengths: torch.Tensor, t_len: int, rate: int):
+    """Fused order1n decode, as ``o0n_rans32_decode``."""
+    return _decode("o1n", words, lengths, t_len, rate)
+
+
+def o2n_rans32_decode(words: torch.Tensor, lengths: torch.Tensor, t_len: int, rate: int):
+    """Fused order2n decode, as ``o0n_rans32_decode``."""
+    return _decode("o2n", words, lengths, t_len, rate)

@@ -1,9 +1,10 @@
-"""Turbo byte path, order0n: file bytes -> blocks -> one coding lane each.
+"""Turbo byte path, nibble codecs: file bytes -> blocks -> one coding lane each.
 
-Ports the order0n path of ``lac_tpu/runtime/turbo.py``: ``turbo_compress``
-(:113-245), ``turbo_decompress`` (:288-295), ``turbo_decompress_blocks``
-(:298-303), ``_decode_cap_bucket`` (:68-75) and ``MAX_WAVE`` (:58), with
-the rules that shape the container:
+Ports the order0n, order1n and order2n paths of ``lac_tpu/runtime/turbo.py``:
+``turbo_compress`` (:113-245), ``turbo_decompress`` (:288-295),
+``turbo_decompress_blocks`` (:298-303), ``_encode_wave`` / ``_decode_wave``
+(:78-95), ``_decode_cap_bucket`` (:68-75) and ``MAX_WAVE`` (:58), with the
+rules that shape the container:
 
 - ``block_size % 256 == 0`` (:119);
 - encode word capacity ``cap = block_size // 2 + 3`` (:193);
@@ -11,15 +12,16 @@ the rules that shape the container:
   ``2 * nwords < max(len, 1)`` (:151, 157-162);
 - an empty input is one block of length 0 whose payload is the state words
   ``[1, 0]``;
-- the codec gate of :123-128, through ``o0n_decode_fits``.
+- the codec gate of :123-128: where a model's ``*_decode_fits`` refuses
+  the geometry, the reference records order0c instead.
 
 The reference's waves, cap buckets for the decode grid and 2048-lane
 sub-kernels exist for the TPU's compile shapes and never reach the
 bitstream. Here the lanes of a file go to the kernels in one launch per
 step, in groups of at most ``_LANES_PER_LAUNCH`` to bound device memory.
-Models other than order0n, and order0n's fallback to order0c when the gate
-refuses the geometry (``block_size > 4096``), raise ``NotImplementedError``:
-they are the port's second slice.
+order0c is not ported yet, so the order0c model, and the order0c fallback
+of the gate (order0n and order1n at ``block_size > 4096``; order2n's gate
+admits block 8192), raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -27,7 +29,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..ops.rans_kernels import o0n_decode_fits, o0n_encode_fused, o0n_rans32_decode
+from ..ops import rans_kernels as rk
 from ..stream.container import (
     CODEC_RANS32,
     BlockEntry,
@@ -52,7 +54,12 @@ _DEFAULT_RATE = 4
 _DEFAULT_MODEL = "order0n"
 _PB = 16
 _TURBO_MODELS = ("order0c", "order0n", "order1n", "order2n")
-_PORTED_MODELS = ("order0n",)
+# model -> (fused encode, fused decode, codec gate)
+_CODECS = {
+    "order0n": (rk.o0n_encode_fused, rk.o0n_rans32_decode, rk.o0n_decode_fits),
+    "order1n": (rk.o1n_encode_fused, rk.o1n_rans32_decode, rk.o1n_decode_fits),
+    "order2n": (rk.o2n_encode_fused, rk.o2n_rans32_decode, rk.o2n_decode_fits),
+}
 # device memory per lane is about 9 * block_size bytes during encode
 _LANES_PER_LAUNCH = 1 << 16
 
@@ -69,19 +76,18 @@ def _decode_cap_bucket(maxw: int, block_size: int) -> int:
     return top
 
 
-def _not_ported(model: str) -> NotImplementedError:
+def _not_ported(what: str) -> NotImplementedError:
     return NotImplementedError(
-        f"turbo model {model!r} is not ported yet: order1n, order2n and order0c "
-        "(also order0n's order0c fallback at block_size > 4096) come with "
-        "slice 2 of the port"
+        f"{what} is not ported yet: the order0c codec comes with the port's "
+        "order0c slice (ROADMAP A4)"
     )
 
 
 def _check_model(model: str) -> None:
     if model not in _TURBO_MODELS:
         raise ValueError(f"turbo model must be one of {_TURBO_MODELS}")
-    if model not in _PORTED_MODELS:
-        raise _not_ported(model)
+    if model not in _CODECS:
+        raise _not_ported(f"turbo model {model!r}")
 
 
 def turbo_compress(
@@ -94,8 +100,10 @@ def turbo_compress(
     if block_size % 256:
         raise ValueError("turbo block_size must be a multiple of 256")
     _check_model(model)
-    if not o0n_decode_fits(_decode_cap_bucket(block_size // 2 + 3, block_size), MAX_WAVE):
-        raise _not_ported("order0c")  # the reference records order0c here
+    encode_fused, _, fits = _CODECS[model]
+    if not fits(_decode_cap_bucket(block_size // 2 + 3, block_size), MAX_WAVE):
+        # the reference records order0c here
+        raise _not_ported(f"{model} at block_size {block_size} (falls back to order0c)")
     dev = resolve_device(device)
     n = len(data)
     nblocks = max(1, -(-n // block_size))
@@ -112,7 +120,7 @@ def turbo_compress(
         # [B, T] rows -> time-major [T, B] on the device
         syms_tb = host.to(dev).view(b1 - b0, block_size).t().contiguous()
         len_d = torch.from_numpy(lengths[b0:b1]).to(dev)
-        words_d, nwords_d = o0n_encode_fused(syms_tb, len_d, rate, cap)
+        words_d, nwords_d = encode_fused(syms_tb, len_d, rate, cap)
         nwords[b0:b1] = nwords_d.cpu().numpy()
         coded = 2 * nwords[b0:b1] < np.maximum(lengths[b0:b1], 1)
         maxw = int(nwords[b0:b1][coded].max()) if coded.any() else 0
@@ -146,6 +154,7 @@ def _decode_block_list(header, blocks, device) -> list[bytes]:
     """Decode a list of independent blocks, in any order and any subset of
     the container's blocks (the random-access primitive)."""
     rate = header.config["rate"]
+    decode = _CODECS[header.model_id][1]
     dev = resolve_device(device)
     results = [blk.payload if _is_raw(blk) else b"" for blk in blocks]
     coded = [j for j, blk in enumerate(blocks) if not _is_raw(blk)]
@@ -164,7 +173,7 @@ def _decode_block_list(header, blocks, device) -> list[bytes]:
         t_len = int(lengths.max())
         if t_len == 0:
             continue
-        syms_tb = o0n_rans32_decode(
+        syms_tb = decode(
             torch.from_numpy(words).to(dev), torch.from_numpy(lengths).to(dev),
             t_len, rate,
         )

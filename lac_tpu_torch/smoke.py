@@ -21,10 +21,14 @@ __all__ = ["SMOKE_BYTES", "GOLDEN", "smoke_corpus", "container_digest"]
 
 SMOKE_BYTES = 32 << 20  # bench.py's corpus size
 
-# block_size -> (crc32, length) of the order0n container of the 32 MiB corpus
+# (model, block_size) -> (crc32, length) of the container of the 32 MiB corpus
 GOLDEN = {
-    4096: (2994531879, 20826341),
-    1024: (1209190892, 21779179),
+    ("order0n", 4096): (2994531879, 20826341),
+    ("order0n", 1024): (1209190892, 21779179),
+    ("order1n", 4096): (412144608, 20078619),
+    ("order2n", 4096): (1088585412, 19816129),
+    ("order1n", 1024): (3498104981, 21408501),
+    ("order2n", 1024): (995146321, 21247183),
 }
 
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

@@ -42,6 +42,19 @@ def test_block_size_option(corpus_file, tmp_path):
         assert f.read() == native_compress(smoke_corpus(6000), block_size=1024)
 
 
+@pytest.mark.parametrize("model", ["order1n", "order2n"])
+def test_model_option(corpus_file, tmp_path, model):
+    out = str(tmp_path / f"{model}.lac")
+    assert cli.main(["compress", corpus_file, "-o", out, "--model", model,
+                     "--device", "cpu"]) == 0
+    with open(out, "rb") as f:
+        assert f.read() == native_compress(smoke_corpus(6000), block_size=4096, model=model)
+    back = str(tmp_path / f"{model}.out")
+    assert cli.main(["decompress", out, "-o", back, "--device", "cpu"]) == 0
+    with open(back, "rb") as f:
+        assert f.read() == smoke_corpus(6000)
+
+
 def test_info_and_verify(corpus_file, capsys):
     cli.main(["compress", corpus_file, "--device", "cpu"])
     capsys.readouterr()

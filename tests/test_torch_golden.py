@@ -1,6 +1,7 @@
 """The golden containers of lac_tpu_torch/smoke.py, which chip_smoke.py
-holds the card's output to, are what lac_tpu writes: its native coder
-(bit-identical to the Pallas path) on the 32 MiB smoke corpus."""
+holds the card's output to, are what lac_tpu writes for each ported model:
+its native coder (bit-identical to the Pallas path) on the 32 MiB smoke
+corpus."""
 
 import pytest
 
@@ -8,11 +9,18 @@ from lac_tpu.native.host import native_compress
 from lac_tpu_torch import smoke
 
 
-@pytest.mark.parametrize("block", [4096, 1024])
-def test_golden_equals_native_compress(block):
+@pytest.mark.parametrize("model,block", sorted(smoke.GOLDEN))
+def test_golden_equals_native_compress(model, block):
     corpus = smoke.smoke_corpus()
     assert len(corpus) == smoke.SMOKE_BYTES
-    assert smoke.container_digest(native_compress(corpus, block_size=block)) == smoke.GOLDEN[block]
+    got = smoke.container_digest(native_compress(corpus, block_size=block, model=model))
+    assert got == smoke.GOLDEN[(model, block)]
+
+
+def test_golden_covers_every_ported_model():
+    from lac_tpu_torch.runtime.turbo import _CODECS
+
+    assert set(smoke.GOLDEN) == {(m, b) for m in _CODECS for b in (4096, 1024)}
 
 
 def test_corpus_is_prefix_stable():

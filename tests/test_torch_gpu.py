@@ -29,35 +29,39 @@ def _inputs(t_len, b, seed=0):
     syms[:, 1::3] = rng.integers(0, 256, (t_len, len(range(1, b, 3))), dtype=np.uint8)
     lengths = rng.integers(0, t_len + 1, b).astype(np.int32)
     lengths[:3] = (0, 1, t_len - 1)
+    syms[:, 3], lengths[3] = ord("e"), t_len  # one context visited T times
     return syms, lengths
 
 
+@pytest.mark.parametrize("codec", ["o0n", "o1n", "o2n"])
 @pytest.mark.parametrize("t_len,b,cap", [(256, 67, 258), (1024, 130, 515), (300, 5, 40)])
-def test_kernels_equal_plain_versions(cuda, t_len, b, cap):
+def test_kernels_equal_plain_versions(cuda, t_len, b, cap, codec):
     syms, lengths = _inputs(t_len, b)
     s, n = torch.from_numpy(syms).to(cuda), torch.from_numpy(lengths).to(cuda)
     before = dict(rk.launches)
-    lo, fr = rk.o0n_encode_intervals(s, RATE)
-    plo, pfr = rk.o0n_intervals_plain(s, RATE)
+    lo, fr = getattr(rk, f"{codec}_encode_intervals")(s, RATE)
+    plo, pfr = getattr(rk, f"{codec}_intervals_plain")(s, RATE)
     assert torch.equal(lo, plo) and torch.equal(fr, pfr)
     words, nwords = rk.rans32_encode(lo, fr, n, cap)
     pw, pnw = rk.rans32_encode_plain(lo, fr, n, cap)
     assert torch.equal(words.to(torch.int32), pw.to(torch.int32))
     assert torch.equal(nwords, pnw)
-    out = rk.o0n_rans32_decode(words, n, t_len, RATE)
-    assert torch.equal(out, rk.o0n_decode_plain(words, n, t_len, RATE))
+    out = getattr(rk, f"{codec}_rans32_decode")(words, n, t_len, RATE)
+    assert torch.equal(out, getattr(rk, f"{codec}_decode_plain")(words, n, t_len, RATE))
+    assert torch.equal(out[:, 3], s[:, 3])
     torch.cuda.synchronize()
-    assert {k: rk.launches[k] - before[k] for k in before} == {
-        "o0n_intervals": 1, "rans32_encode": 1, "o0n_decode": 1}
+    assert {k: rk.launches[k] - before[k] for k in before if rk.launches[k] != before[k]} == {
+        f"{codec}_intervals": 1, "rans32_encode": 1, f"{codec}_decode": 1}
 
 
+@pytest.mark.parametrize("model", ["order0n", "order1n", "order2n"])
 @pytest.mark.parametrize("block", [1024, 4096])
-def test_turbo_on_card_equals_cpu(cuda, block):
+def test_turbo_on_card_equals_cpu(cuda, block, model):
     rng = np.random.default_rng(1)
     data = (b"lacuna " * 3000) + rng.integers(0, 256, 5000, dtype=np.uint8).tobytes()
-    on_card = engine.compress_bytes(data, model_id="order0n", block_size=block)
+    on_card = engine.compress_bytes(data, model_id=model, block_size=block)
     assert on_card == engine.compress_bytes(
-        data, model_id="order0n", block_size=block, device="cpu")
+        data, model_id=model, block_size=block, device="cpu")
     assert engine.decompress_bytes(on_card) == data
     assert turbo.turbo_decompress_blocks(on_card, [1]) == [data[block : 2 * block]]
 

@@ -1,7 +1,8 @@
-"""The port's turbo path (lac_tpu_torch.runtime) on the CPU against lac_tpu:
-containers byte-identical to lac_tpu's turbo (Pallas in interpret mode) for
-small inputs and to lac_tpu's native coder (bit-identical to the Pallas
-path) for larger ones, and each package decodes the other's containers."""
+"""The port's turbo path (lac_tpu_torch.runtime) on the CPU against lac_tpu,
+for each ported model (order0n, order1n, order2n): containers
+byte-identical to lac_tpu's turbo (Pallas in interpret mode) for small
+inputs and to lac_tpu's native coder (bit-identical to the Pallas path) for
+larger ones, and each package decodes the other's containers."""
 
 import numpy as np
 import pytest
@@ -15,6 +16,7 @@ from lac_tpu_torch.smoke import smoke_corpus
 from lac_tpu_torch.stream.container import read_container
 
 CPU = "cpu"
+MODELS = ("order0n", "order1n", "order2n")
 
 
 def _random_bytes(n, seed=3):
@@ -36,10 +38,11 @@ LARGE = {
 
 @pytest.mark.parametrize("block", [1024, 4096])
 @pytest.mark.parametrize("name", sorted(SMALL))
-def test_small_inputs_identical_to_pallas_turbo(name, block):
+@pytest.mark.parametrize("model", MODELS)
+def test_small_inputs_identical_to_pallas_turbo(model, name, block):
     data = SMALL[name]
-    ours = turbo.turbo_compress(data, block_size=block, device=CPU)
-    ref = ref_turbo.turbo_compress(data, block_size=block)
+    ours = turbo.turbo_compress(data, block_size=block, model=model, device=CPU)
+    ref = ref_turbo.turbo_compress(data, block_size=block, model=model)
     assert ours == ref
     assert turbo.turbo_decompress(ref, device=CPU) == data
     assert ref_turbo.turbo_decompress(ours) == data
@@ -47,10 +50,11 @@ def test_small_inputs_identical_to_pallas_turbo(name, block):
 
 @pytest.mark.parametrize("block", [1024, 4096])
 @pytest.mark.parametrize("name", sorted(LARGE))
-def test_large_inputs_identical_to_native(name, block):
+@pytest.mark.parametrize("model", MODELS)
+def test_large_inputs_identical_to_native(model, name, block):
     data = LARGE[name]
-    ours = engine.compress_bytes(data, model_id="order0n", block_size=block, device=CPU)
-    ref = native_compress(data, block_size=block)
+    ours = engine.compress_bytes(data, model_id=model, block_size=block, device=CPU)
+    ref = native_compress(data, block_size=block, model=model)
     assert ours == ref
     assert engine.decompress_bytes(ref, device=CPU) == data
     assert native_decompress(ours) == data
@@ -68,12 +72,25 @@ def test_empty_input_is_one_block_of_state_words():
         0, 0, b"\x00\x01\x00\x00")
 
 
-def test_block_8192_raises_where_lac_tpu_falls_back_to_order0c():
+@pytest.mark.parametrize("model", ["order0n", "order1n"])
+def test_block_8192_raises_where_lac_tpu_falls_back_to_order0c(model):
     data = smoke_corpus(9000)
-    ref_header, _ = ref_read(native_compress(data, block_size=8192))
+    ref_header, _ = ref_read(native_compress(data, block_size=8192, model=model))
     assert ref_header.model_id == "order0c"
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        turbo.turbo_compress(data, block_size=8192, device=CPU)
+    with pytest.raises(NotImplementedError, match="order0c slice"):
+        turbo.turbo_compress(data, block_size=8192, model=model, device=CPU)
+
+
+def test_order2n_block_8192_identical_to_native():
+    """The order2n gate admits block 8192, where order0n and order1n fall
+    back to order0c: lac_tpu records order2n."""
+    data = smoke_corpus(20000) + _random_bytes(9000, seed=5)
+    ours = turbo.turbo_compress(data, block_size=8192, model="order2n", device=CPU)
+    ref = native_compress(data, block_size=8192, model="order2n")
+    assert ref_read(ref)[0].model_id == "order2n"
+    assert ours == ref
+    assert turbo.turbo_decompress(ref, device=CPU) == data
+    assert native_decompress(ours) == data
 
 
 def test_engine_clamps_block_size_like_lac_tpu():
@@ -112,11 +129,16 @@ def test_engine_decode_parses_the_container_once(monkeypatch):
 
 def test_unported_models_and_codecs_raise():
     data = smoke_corpus(3000)
-    for model in ("order1n", "order2n", "order0c"):
-        with pytest.raises(NotImplementedError, match="slice 2"):
-            turbo.turbo_compress(data, model=model, device=CPU)
+    with pytest.raises(NotImplementedError, match="order0c slice"):
+        turbo.turbo_compress(data, model="order0c", device=CPU)
+    with pytest.raises(NotImplementedError):
+        engine.decompress_bytes(native_compress(data, model="order0c"), device=CPU)
+    for model in ("order0n", "order1n"):  # their order0c fallback
+        with pytest.raises(NotImplementedError, match="order0c slice"):
+            turbo.turbo_compress(data, block_size=8192, model=model, device=CPU)
         with pytest.raises(NotImplementedError):
-            engine.decompress_bytes(native_compress(data, model=model), device=CPU)
+            engine.decompress_bytes(
+                native_compress(data, block_size=8192, model=model), device=CPU)
     with pytest.raises(NotImplementedError):
         engine.compress_bytes(data, model_id="order0", device=CPU)
     with pytest.raises(ValueError):
