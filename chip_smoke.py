@@ -11,17 +11,20 @@ import faulthandler; faulthandler.dump_traceback_later(900, exit=True)  # noqa: 
 #          lane per block of the 32 MiB corpus (B = 8192 and 32768): corpus
 #          lanes, seeded random lanes whose words overflow cap, ragged
 #          lengths with 0, 1 and T-1, and one lane of a single repeated byte
-#          (one context visited T times). For each of the three models: its
+#          (one context visited T times). For each of the four models: its
 #          intervals kernel, K2 on those intervals, its decode kernel. Equal
-#          integer for integer.
+#          integer for integer. Then order0c's three once more at the
+#          fallback's block 8192 (T = 8192, B = 4096, cap 4099, where lac_tpu
+#          decodes in chunks).
 # Phase 2  the main path of each model through its entry points, on the
 #          32 MiB smoke corpus: the CLI at block 4096 (order0n at its
-#          defaults, then --model order1n and --model order2n), then
-#          engine.compress_bytes at block 1024; byte compare after decode,
-#          and each container's crc32 and length against the golden values
-#          that lac_tpu's native coder gives (lac_tpu_torch/smoke.py). The
-#          kernels' launch counts are zeroed just before each model's path
-#          and read just after it.
+#          defaults, then --model order1n, order2n and order0c), then
+#          engine.compress_bytes at block 1024; then order0n at block 8192
+#          through turbo.turbo_compress, which records order0c (the codec
+#          gate's fallback). Byte compare after decode, and each container's
+#          crc32 and length against the golden values that lac_tpu's native
+#          coder gives (lac_tpu_torch/smoke.py). The kernels' launch counts
+#          are zeroed just before each path and read just after it.
 # Phase 3  numbers: end-to-end MB/s, host ms of decode's two parts (the
 #          container parse and the rest) and of the container write, each
 #          kernel's time from CUDA events beside its bound, bits per byte,
@@ -73,9 +76,20 @@ INT32_OPS_PER_S = 67e12 / 4
 #     prev_h 2 (a shift and an add to its address).
 #   K6 (165): K4's 162, plus the lo context h*4 + (prev_h >> 2) 3.
 #   K5 (217), K7 (220): K3's 213 plus what K4 and K6 add to K1.
+# order0c moves all 256 entries of its joint-byte CDF every step; entry 0
+# stays 0, so 255 move, each the same update toward 0 or toward M as a
+# nibble state's, counted at the same 4.
+#   K8 (1035): the 255 updates 1020; the interval 7 (the two boundaries
+#     either side of the byte, each an entry and an add, the top one an add
+#     more, the s = 255 select, the width); the rate 8.
+#   K9 (1068): slot 1; an 8-probe binary search, each probe a boundary add,
+#     a compare and a select, 24; the interval 4 (the upper boundary 2, the
+#     s = 255 select, the width); the rANS step 4 and its refill 5; the
+#     output byte 2; K8's 1020 updates and rate 8.
 OPS_PER_SYMBOL = {
     "o0n_intervals": 158, "rans32_encode": 8, "o0n_decode": 213,
     "o1n_intervals": 162, "o1n_decode": 217, "o2n_intervals": 165, "o2n_decode": 220,
+    "o0c_intervals": 1035, "o0c_decode": 1068,
 }
 
 REPLACES = {
@@ -86,12 +100,21 @@ REPLACES = {
     "o1n_decode": "lac_tpu/ops/pallas_rans.py:1148",
     "o2n_intervals": "lac_tpu/ops/pallas_rans.py:1277",
     "o2n_decode": "lac_tpu/ops/pallas_rans.py:1382",
+    "o0c_intervals": "lac_tpu/ops/pallas_rans.py:113",
+    # and _decode_chunk_kernel :493, the reference's decode for wide rows
+    "o0c_decode": "lac_tpu/ops/pallas_rans.py:377",
 }
 SOURCE = {name: "lac_tpu_torch/ops/csrc/" + (
-    "o0n_rans32.cu" if name in ("o0n_intervals", "rans32_encode", "o0n_decode")
+    "o0c_rans32.cu" if name.startswith("o0c")
+    else "o0n_rans32.cu" if name in ("o0n_intervals", "rans32_encode", "o0n_decode")
     else "ctx_nib_rans32.cu") for name in OPS_PER_SYMBOL}
 # model id -> the prefix of its kernels and wrappers in ops/rans_kernels.py
-CODECS = {"order0n": "o0n", "order1n": "o1n", "order2n": "o2n"}
+CODECS = {"order0n": "o0n", "order1n": "o1n", "order2n": "o2n", "order0c": "o0c"}
+# the codec gate's fallback: order0n at block 8192 records order0c
+FALLBACK = ("order0n", 8192, "order0c")
+# the most words a lane may have for lac_tpu's fused order0c decode at its
+# 2048-lane width (_fused_vmem_ok); it decodes wider rows in chunks
+FUSED_MAX_WORDS = 2656
 
 
 class Phase:
@@ -162,10 +185,12 @@ def max_abs_diff(torch, a, b) -> int:
 
 def phase1(torch, rk, corpus, dev):
     """Kernels against plain versions; returns (max_abs_err, plain_ms at the
-    first shape) per kernel."""
+    first shape) per kernel. After the two main shapes, order0c once more at
+    the fallback's block 8192 (cap 4099), where lac_tpu decodes in chunks."""
     err = {k: 0 for k in OPS_PER_SYMBOL}
     plain_ms = {}
-    for si, t_len in enumerate(BLOCK_SIZES):
+    for si, t_len in enumerate((*BLOCK_SIZES, FALLBACK[1])):
+        codecs = CODECS.values() if t_len in BLOCK_SIZES else (CODECS[FALLBACK[2]],)
         b = len(corpus) // t_len
         syms_np, len_np = phase1_inputs(corpus, t_len, b)
         syms = torch.from_numpy(syms_np).to(dev)
@@ -173,7 +198,7 @@ def phase1(torch, rk, corpus, dev):
         cap = t_len // 2 + 3
         t_idx = torch.arange(t_len, device=dev)[:, None]
         live = t_idx < lengths[None, :]
-        for c in CODECS.values():
+        for c in codecs:
             kin, kdec = f"{c}_intervals", f"{c}_decode"
             lo, fr = getattr(rk, f"{c}_encode_intervals")(syms, RATE)
             (plo, pfr), ms1 = sync_time(
@@ -200,9 +225,14 @@ def phase1(torch, rk, corpus, dev):
             for name, e in ((kin, e1), ("rans32_encode", e2), (kdec, e3)):
                 err[name] = max(err[name], e)
                 check(e == 0, f"T={t_len} B={b}: {name} differs from its plain version by {e}")
+            wide = ""
+            if t_len == FALLBACK[1]:
+                n = int(((nwords > FUSED_MAX_WORDS) & (nwords <= cap)).sum())
+                check(n > 0, f"T={t_len}: no coded lane needs more than {FUSED_MAX_WORDS} words")
+                wide = f"; {n} coded lanes need more than {FUSED_MAX_WORDS} words"
             print(f"T={t_len} B={b}: {kin}, rans32_encode, {kdec} equal to plain "
                   f"(plain ms {ms1:.1f} {ms2:.1f} {ms3:.1f}; "
-                  f"{int((nwords > cap).sum())} lanes overflow cap {cap})", flush=True)
+                  f"{int((nwords > cap).sum())} lanes overflow cap {cap}{wide})", flush=True)
             if si == 0:
                 plain_ms[kin], plain_ms[kdec] = ms1, ms3
                 plain_ms.setdefault("rans32_encode", ms2)
@@ -215,6 +245,18 @@ def check_container(smoke, model, bs, c, corpus_len):
     check(got == want, f"{model} block {bs}: container (crc32, len) {got} != golden {want}")
     print(f"{model} block {bs}: container crc32 {got[0]} len {got[1]} equals lac_tpu's; "
           f"{8 * len(c) / corpus_len:.4f} bits/byte", flush=True)
+
+
+def phase2_fallback(turbo, container_mod, smoke, corpus):
+    """order0n at block 8192 through turbo_compress: its codec gate records
+    order0c; the container against its golden, decoded back."""
+    model, bs, recorded = FALLBACK
+    c = turbo.turbo_compress(corpus, block_size=bs, model=model)
+    header, _ = container_mod.read_container(c)
+    check(header.model_id == recorded, f"{model} block {bs} recorded {header.model_id}")
+    check(turbo.turbo_decompress(c) == corpus, f"{model} block {bs}: round trip")
+    check_container(smoke, recorded, bs, c, len(corpus))
+    return c
 
 
 def phase2(cli, engine, smoke, model, corpus, work):
@@ -367,6 +409,15 @@ def main() -> int:
                 for name, n in path_counts.items():
                     check(n > 0, f"kernel {name} was not launched on the {model} path")
                     counts[name] += n
+            rk.reset_launches()
+            c = phase2_fallback(turbo, container, smoke, corpus)
+            path_counts = {k: rk.launches[k] for k in path_kernels(CODECS[FALLBACK[2]])}
+            print(f"{FALLBACK[0]} block {FALLBACK[1]} path launches {path_counts} over 1 "
+                  f"compress + 1 decompress call", flush=True)
+            for name, n in path_counts.items():
+                check(n > 0, f"kernel {name} was not launched on the fallback path")
+                counts[name] += n
+            containers[FALLBACK[2]][FALLBACK[1]] = c
             peak = torch.cuda.max_memory_allocated()
             print(f"main path launches {counts}; max_memory_allocated {peak} bytes")
 

@@ -99,7 +99,7 @@ def main(argv=None) -> int:
     c.add_argument("file")
     c.add_argument("-o", "--output")
     c.add_argument("--model", default="order0n",
-                   help="model id: order0n, order1n or order2n (order0c is not ported yet)")
+                   help="model id: order0n, order1n, order2n or order0c")
     c.add_argument("--block-size", type=int, default=1 << 12)
     c.add_argument("--prob-bits", type=int, default=16)
     c.add_argument("--rate", type=int, default=4,

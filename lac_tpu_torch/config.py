@@ -16,7 +16,7 @@ __all__ = ["ByteCodingConfig"]
 class ByteCodingConfig:
     """Byte-alphabet coding (turbo codecs)."""
 
-    model_id: str = "order0n"     # order0n | order1n | order2n (order0c not ported yet)
+    model_id: str = "order0n"     # order0n | order1n | order2n | order0c
     block_size: int = 1 << 12     # bytes per independent block
     prob_bits: int = 16           # CDF quantization precision (2**prob_bits)
     rate: int = 4                 # adaptation rate base (turbo model)

@@ -1,11 +1,21 @@
-"""The nibble byte models as torch functions over a batch of lanes.
+"""The turbo byte models as torch functions over a batch of lanes.
 
-Ports ``lac_tpu/models/functional.py``: ``adaptive_rate`` (:277-289),
+Ports ``lac_tpu/models/functional.py``: ``cdf_state_init`` /
+``cdf_state_to_coder`` / ``cdf_state_update`` (:250-275) and ``Order0CDF``
+(:292-311) at the turbo path's ``V = 256``, ``prob_bits = 16``,
+``adaptive_rate`` (:277-289),
 ``nib_state_init`` / ``nib_state_to_coder`` / ``nib_state_update``
 (:347-374), ``Order0NibCDF`` (:376-423), ``Order1NibCDF`` (:425-481) and
 ``Order2NibCDF`` (:483-543). This is the models' spec in the port: the
 kernels of ``ops/rans_kernels.py`` and their plain versions must give the
 intervals that ``cdf`` gives here.
+
+order0c is one joint-byte CDF per lane, kept pre-scaled in the coding
+domain: ``state[k]`` in ``[0, M]`` with ``M = 2**16 - 256``, the coder's
+boundary ``k`` is ``state[k] + k`` (so every width is >= 1 and
+``state[256] = M`` gives the total 2**16), and a step moves each boundary
+``>> rate`` toward the observed byte's one-hot CDF, the rate taken from the
+global step.
 
 A byte ``s = 16*h + l`` is modelled as ``P(h) * P(l | h)``: one hi-nibble
 CDF row and one lo-nibble CDF row, each picked from a table by a context.
@@ -28,6 +38,7 @@ plain kernel versions step with, since a copy of every table per step
 costs them more than the step itself.
 
 State layouts are the reference's, all int32:
+``Order0CDF``: ``(cdf [B, 257], step)``, the step a Python int;
 ``Order0NibCDF``: ``(sh [B, 17], sl [B, 16, 17], cnt [B, 16], step)``,
 the step a Python int; ``Order1NibCDF`` / ``Order2NibCDF``:
 ``(sh [B, 16, 17], sl [B, 16|64, 17], cnth [B, 16], cntl [B, 16|64],
@@ -42,6 +53,11 @@ from typing import ClassVar
 import torch
 
 __all__ = [
+    "O0C_V",
+    "cdf_state_init",
+    "cdf_state_to_coder",
+    "cdf_state_update",
+    "Order0CDF",
     "NIB_V",
     "NIB_STATE_BITS",
     "adaptive_rate",
@@ -53,6 +69,8 @@ __all__ = [
     "Order2NibCDF",
 ]
 
+O0C_V = 256  # order0c alphabet: the byte
+_O0C_M = (1 << 16) - O0C_V  # order0c state range [0, M]; prob_bits 16
 NIB_V = 16  # nibble alphabet
 NIB_STATE_BITS = 15  # internal state precision
 NIB_CODE_BITS = 8  # per-nibble coding precision (composed prob_bits = 16)
@@ -73,6 +91,52 @@ def adaptive_rate(base_rate: int, step):
             + (step >= 128).to(torch.int32)
         )
     return base_rate + (step >= 16) + (step >= 32) + (step >= 64) + (step >= 128)
+
+
+def cdf_state_init(batch: int, device=None) -> torch.Tensor:
+    """Uniform order0c state: [B, 257] int32 with fixed endpoints 0, M."""
+    j = torch.arange(O0C_V + 1, dtype=torch.int32, device=device)
+    return ((j * _O0C_M) // O0C_V).expand(batch, O0C_V + 1).contiguous()
+
+
+def cdf_state_to_coder(state: torch.Tensor) -> torch.Tensor:
+    """[B, 257] state -> coder CDF with total 2**16 and every width >= 1:
+    one iota add, since the state is pre-scaled."""
+    return state + torch.arange(O0C_V + 1, dtype=torch.int32, device=state.device)
+
+
+def cdf_state_update(state: torch.Tensor, syms: torch.Tensor, rate: int,
+                     out=None) -> torch.Tensor:
+    """Move the boundaries toward the observed byte's one-hot CDF.
+    ``syms``: [B]. ``out`` may be ``state``."""
+    k = torch.arange(O0C_V + 1, dtype=torch.int32, device=state.device)
+    toward_zero = state - (state >> rate)
+    toward_total = state + ((_O0C_M - state) >> rate)
+    return torch.where(k <= syms[:, None], toward_zero, toward_total, out=out)
+
+
+@dataclass(frozen=True)
+class Order0CDF:
+    """Adaptive order-0 shift-to-target byte model (model id "order0c").
+    ``cdf`` returns the 257-entry coder CDF with total 2**16."""
+
+    rate: int = 4
+
+    def init_state(self, batch: int, device=None):
+        return (cdf_state_init(batch, device), 0)
+
+    def cdf(self, state) -> torch.Tensor:
+        return cdf_state_to_coder(state[0])
+
+    def update(self, state, syms: torch.Tensor):
+        cdf, step = state
+        return (cdf_state_update(cdf, syms, adaptive_rate(self.rate, step)), step + 1)
+
+    def update_(self, state, syms: torch.Tensor):
+        """As ``update``, writing the new CDF into the old one."""
+        cdf, step = state
+        cdf_state_update(cdf, syms, adaptive_rate(self.rate, step), out=cdf)
+        return (cdf, step + 1)
 
 
 def nib_state_init(batch: int, device=None) -> torch.Tensor:

@@ -2,8 +2,8 @@
 
 The JAX package has no counterpart: Pallas compiles its kernels inside
 ``jax.jit``. Here the ``csrc/*.cu`` files (plain C entry points, no PyTorch
-header; ``o0n_rans32.cu`` and ``ctx_nib_rans32.cu``, which share
-``nib_model.cuh``) are compiled on first use, by one call of
+header; ``o0n_rans32.cu``, ``ctx_nib_rans32.cu`` and ``o0c_rans32.cu``,
+which share ``nib_model.cuh``) are compiled on first use, by one call of
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared -Xcompiler -fPIC
 
@@ -54,6 +54,8 @@ _SIGNATURES = {
     "lac_o1n_decode": (_P, _P, _P, _I, _I, _I, _I, _P),
     "lac_o2n_intervals": (_P, _P, _P, _I, _I, _I, _P),
     "lac_o2n_decode": (_P, _P, _P, _I, _I, _I, _I, _P),
+    "lac_o0c_intervals": (_P, _P, _P, _I, _I, _I, _P),
+    "lac_o0c_decode": (_P, _P, _P, _I, _I, _I, _I, _P),
     # launch shape of the order1n/order2n kernels: lanes a block; shared
     # bytes a block for a lo-context count
     "lac_ctx_lanes": (),
@@ -61,7 +63,8 @@ _SIGNATURES = {
 }
 
 _KERNELS = ("o0n_intervals_kernel", "rans32_encode_kernel", "o0n_decode_kernel",
-            "ctx_intervals_kernel", "ctx_decode_kernel")
+            "ctx_intervals_kernel", "ctx_decode_kernel",
+            "o0c_intervals_kernel", "o0c_decode_kernel")
 
 _lock = threading.Lock()
 _lib = None

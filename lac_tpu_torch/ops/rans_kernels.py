@@ -1,8 +1,13 @@
-"""Nibble-codec coding kernels: one wrapper per CUDA kernel, its plain
-PyTorch version beside it, a launch count, and the codec gates.
+"""Turbo coding kernels: one wrapper per CUDA kernel, its plain PyTorch
+version beside it, a launch count, and the codec gates.
 
-Ports the nibble-codec part of ``lac_tpu/ops/pallas_rans.py``:
+Ports ``lac_tpu/ops/pallas_rans.py``:
 
+- ``o0c_encode_intervals`` (:113-171) -> K8, ``lac_o0c_intervals``;
+- ``o0c_rans32_decode`` (:562-630), both its fused kernel (:377-438) and
+  its chunked fallback (:493-560) -> K9, ``lac_o0c_decode``: a lane keeps a
+  pointer into its own word row, so one kernel covers every ``cap``;
+- ``o0c_encode_fused`` (:316-339) -> K8 then K2;
 - ``o0n_encode_intervals`` (:742-822) -> K1, ``lac_o0n_intervals``;
 - ``rans32_encode_dense`` (:179-267) followed by ``compact_words``
   (:271-310) -> K2, ``rans32_encode``, one kernel whose result equals
@@ -22,13 +27,17 @@ Ports the nibble-codec part of ``lac_tpu/ops/pallas_rans.py``:
   reference's pure formula, not a check of GPU memory: it decides which
   codec a container records (``runtime/turbo.py:123-128``).
 
-The plain versions are one loop per direction, ``nib_intervals_plain`` and
-``nib_decode_plain``, that step any of the models of
-``models/functional.py`` through its ``hi_row`` / ``lo_row`` selectors.
+The plain versions are one loop per direction, ``_intervals_plain`` and
+``_decode_plain``, that step any model of ``models/functional.py`` with
+the codec's interval and search: the nibble models' through their
+``hi_row`` / ``lo_row`` selectors, composed into one 16-bit step;
+order0c's (``Order0CDF``) on its 257-entry CDF, at the reference turbo
+path's fixed ``v = 256`` and ``prob_bits = 16``.
 
 A wrapper runs the plain version only for a tensor on the CPU. For a CUDA
 tensor it launches the kernel (``csrc/o0n_rans32.cu``,
-``csrc/ctx_nib_rans32.cu``) or raises; it never falls back.
+``csrc/ctx_nib_rans32.cu``, ``csrc/o0c_rans32.cu``) or raises; it never
+falls back.
 ``launches[name]`` counts the kernel's launches and nothing else.
 """
 
@@ -38,6 +47,7 @@ import torch
 
 from ..models.functional import (
     NIB_V,
+    Order0CDF,
     Order0NibCDF,
     Order1NibCDF,
     Order2NibCDF,
@@ -46,6 +56,11 @@ from ..models.functional import (
 from . import _build
 
 __all__ = [
+    "o0c_encode_intervals",
+    "o0c_encode_fused",
+    "o0c_rans32_decode",
+    "o0c_intervals_plain",
+    "o0c_decode_plain",
     "o0n_encode_intervals",
     "o1n_encode_intervals",
     "o2n_encode_intervals",
@@ -61,8 +76,6 @@ __all__ = [
     "o2n_decode_fits",
     "launches",
     "reset_launches",
-    "nib_intervals_plain",
-    "nib_decode_plain",
     "o0n_intervals_plain",
     "o1n_intervals_plain",
     "o2n_intervals_plain",
@@ -79,11 +92,11 @@ _MAX_KERNEL_LANES = 2048
 _NV = NIB_V
 _NL2 = 4 * NIB_V  # order2n lo contexts
 
-_MODELS = {"o0n": Order0NibCDF, "o1n": Order1NibCDF, "o2n": Order2NibCDF}
 
 launches = {
     "o0n_intervals": 0, "rans32_encode": 0, "o0n_decode": 0,
     "o1n_intervals": 0, "o1n_decode": 0, "o2n_intervals": 0, "o2n_decode": 0,
+    "o0c_intervals": 0, "o0c_decode": 0,
 }
 
 
@@ -183,26 +196,67 @@ def _launch(name: str, device: torch.device, *args) -> None:
 
 
 def _interval(eff: torch.Tensor, k: torch.Tensor):
-    """(eff[k], eff[k+1] - eff[k]) per lane of a [B, 17] boundary table."""
+    """(eff[k], eff[k+1] - eff[k]) per lane of a [B, V+1] boundary table."""
     lo = eff.gather(1, k[:, None])[:, 0]
     return lo, eff.gather(1, k[:, None] + 1)[:, 0] - lo
 
 
 def _search(eff: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """The last k in [0, 16) with eff[k] <= v, per lane."""
-    return (eff[:, :_NV] <= v[:, None]).sum(1) - 1
+    """The last k in [0, V) with eff[k] <= v, per lane of a [B, V+1]
+    boundary table."""
+    return (eff[:, :-1] <= v[:, None]).sum(1) - 1
+
+
+def _nib_interval(model, state, s: torch.Tensor):
+    """A byte's two nibble intervals, composed: (lo12, f12)."""
+    h, l = s >> 4, s & 15
+    loh, fh = _interval(nib_state_to_coder(model.hi_row(state)), h)
+    lol, fl = _interval(nib_state_to_coder(model.lo_row(state, h)), l)
+    return (loh << 8) + fh * lol, fh * fl
+
+
+def _nib_search(model, state, slot: torch.Tensor):
+    """The byte whose composed interval holds ``slot``: (byte, lo12, f12)."""
+    effh = nib_state_to_coder(model.hi_row(state))
+    h = _search(effh, slot >> 8)
+    loh, fh = _interval(effh, h)
+    sc = fh[:, None] * nib_state_to_coder(model.lo_row(state, h))  # sc[16] = fh << 8
+    l = _search(sc, slot - (loh << 8))
+    lo_s, f12 = _interval(sc, l)
+    return (h << 4) | l, (loh << 8) + lo_s, f12
+
+
+def _o0c_interval(model, state, s: torch.Tensor):
+    return _interval(model.cdf(state), s)
+
+
+def _o0c_search(model, state, slot: torch.Tensor):
+    cdf = model.cdf(state)
+    s = _search(cdf, slot)
+    return (s, *_interval(cdf, s))
+
+
+# codec -> (model, its interval of a byte, its search for a slot)
+_CODEC_MODELS = {
+    "o0n": (Order0NibCDF, _nib_interval, _nib_search),
+    "o1n": (Order1NibCDF, _nib_interval, _nib_search),
+    "o2n": (Order2NibCDF, _nib_interval, _nib_search),
+    "o0c": (Order0CDF, _o0c_interval, _o0c_search),
+}
 
 
 # --------------------------------------------------------------------------
-# Model forward -> composed (lo12, f12): K1 (order0n), K4 (order1n),
-# K6 (order2n)
+# Model forward -> (lo, fr): K1 (order0n), K4 (order1n), K6 (order2n),
+# K8 (order0c)
 # --------------------------------------------------------------------------
 
 
-def nib_intervals_plain(model, syms_tb: torch.Tensor):
-    """Plain version of the intervals kernels: ``model`` stepped over T,
-    vectorised over the B lanes, giving each symbol's two nibble intervals
-    composed."""
+def _intervals_plain(codec: str, syms_tb: torch.Tensor, rate: int):
+    """Plain version of the intervals kernels: the codec's model stepped
+    over all T steps (the zero padding past a lane's length too, as the
+    reference does), vectorised over the B lanes."""
+    model_cls, interval, _ = _CODEC_MODELS[codec]
+    model = model_cls(rate)
     t_len, b = syms_tb.shape
     dev = syms_tb.device
     state = model.init_state(b, dev)
@@ -210,31 +264,31 @@ def nib_intervals_plain(model, syms_tb: torch.Tensor):
     fr = torch.empty((t_len, b), dtype=torch.int32, device=dev)
     for t in range(t_len):
         s = syms_tb[t].to(torch.int64)
-        h, l = s >> 4, s & 15
-        loh, fh = _interval(nib_state_to_coder(model.hi_row(state)), h)
-        lol, fl = _interval(nib_state_to_coder(model.lo_row(state, h)), l)
-        lo[t] = (loh << 8) + fh * lol
-        fr[t] = fh * fl
+        lo[t], fr[t] = interval(model, state, s)
         state = model.update_(state, s)
     return lo, fr
 
 
 def o0n_intervals_plain(syms_tb: torch.Tensor, rate: int):
-    return nib_intervals_plain(Order0NibCDF(rate), syms_tb)
+    return _intervals_plain("o0n", syms_tb, rate)
 
 
 def o1n_intervals_plain(syms_tb: torch.Tensor, rate: int):
-    return nib_intervals_plain(Order1NibCDF(rate), syms_tb)
+    return _intervals_plain("o1n", syms_tb, rate)
 
 
 def o2n_intervals_plain(syms_tb: torch.Tensor, rate: int):
-    return nib_intervals_plain(Order2NibCDF(rate), syms_tb)
+    return _intervals_plain("o2n", syms_tb, rate)
+
+
+def o0c_intervals_plain(syms_tb: torch.Tensor, rate: int):
+    return _intervals_plain("o0c", syms_tb, rate)
 
 
 def _intervals(codec: str, syms_tb: torch.Tensor, rate: int):
     _check(syms_tb, "syms_tb", torch.uint8, 2)
     if syms_tb.device.type == "cpu":
-        return nib_intervals_plain(_MODELS[codec](rate), syms_tb)
+        return _intervals_plain(codec, syms_tb, rate)
     t_len, b = syms_tb.shape
     lo = torch.empty((t_len, b), dtype=torch.int32, device=syms_tb.device)
     fr = torch.empty((t_len, b), dtype=torch.int32, device=syms_tb.device)
@@ -258,6 +312,12 @@ def o1n_encode_intervals(syms_tb: torch.Tensor, rate: int):
 def o2n_encode_intervals(syms_tb: torch.Tensor, rate: int):
     """As ``o0n_encode_intervals``, for the order2n model."""
     return _intervals("o2n", syms_tb, rate)
+
+
+def o0c_encode_intervals(syms_tb: torch.Tensor, rate: int):
+    """syms_tb: [T, B] uint8 bytes. Returns order0c's (lo, fr) [T, B] int32
+    with total 2**16, the input of ``rans32_encode``."""
+    return _intervals("o0c", syms_tb, rate)
 
 
 # --------------------------------------------------------------------------
@@ -340,15 +400,25 @@ def o2n_encode_fused(syms_tb: torch.Tensor, lengths: torch.Tensor, rate: int, ca
     return rans32_encode(*o2n_encode_intervals(syms_tb, rate), lengths, cap)
 
 
+def o0c_encode_fused(syms_tb: torch.Tensor, lengths: torch.Tensor, rate: int, cap: int):
+    """K8 then K2, as ``o0n_encode_fused``."""
+    return rans32_encode(*o0c_encode_intervals(syms_tb, rate), lengths, cap)
+
+
 # --------------------------------------------------------------------------
-# Fused model + rANS-32/16 decode: K3 (order0n), K5 (order1n), K7 (order2n)
+# Fused model + rANS-32/16 decode: K3 (order0n), K5 (order1n), K7 (order2n),
+# K9 (order0c)
 # --------------------------------------------------------------------------
 
 
-def nib_decode_plain(model, words: torch.Tensor, lengths: torch.Tensor, t_len: int):
-    """Plain version of the decode kernels: ``model`` stepped over T with
-    the rANS decode, vectorised over the B lanes. A lane's state after its
-    length is never read again, so the model steps every lane."""
+def _decode_plain(codec: str, words: torch.Tensor, lengths: torch.Tensor, t_len: int,
+                  rate: int):
+    """Plain version of the decode kernels: the codec's model stepped over
+    T with the rANS decode, vectorised over the B lanes; a lane reads 0
+    past cap. A lane's state after its length is never read again, so the
+    model steps every lane."""
+    model_cls, _, search = _CODEC_MODELS[codec]
+    model = model_cls(rate)
     b, cap = words.shape
     dev = words.device
     state = model.init_state(b, dev)
@@ -360,35 +430,32 @@ def nib_decode_plain(model, words: torch.Tensor, lengths: torch.Tensor, t_len: i
     for t in range(t_len):
         active = t < n
         slot = x & 0xFFFF
-        effh = nib_state_to_coder(model.hi_row(state))
-        h = _search(effh, slot >> 8)
-        loh, fh = _interval(effh, h)
-        r = slot - (loh << 8)
-        sc = fh[:, None] * nib_state_to_coder(model.lo_row(state, h))  # sc[16] = fh << 8
-        l = _search(sc, r)
-        lo_s, f12 = _interval(sc, l)
-        xn = (f12 * (x >> 16) + (r - lo_s)) & 0xFFFFFFFF
+        s, lo, fr = search(model, state, slot)
+        xn = (fr * (x >> 16) + (slot - lo)) & 0xFFFFFFFF
         refill = active & (xn < (1 << 16))
         wv = w.gather(1, pos.clamp(max=cap)[:, None])[:, 0]
         xn = torch.where(refill, ((xn << 16) | wv) & 0xFFFFFFFF, xn)
         pos = pos + refill.to(torch.int64)
         x = torch.where(active, xn, x)
-        s = (h << 4) | l
         syms[t] = torch.where(active, s, 0).to(torch.uint8)
         state = model.update_(state, s)
     return syms
 
 
 def o0n_decode_plain(words: torch.Tensor, lengths: torch.Tensor, t_len: int, rate: int):
-    return nib_decode_plain(Order0NibCDF(rate), words, lengths, t_len)
+    return _decode_plain("o0n", words, lengths, t_len, rate)
 
 
 def o1n_decode_plain(words: torch.Tensor, lengths: torch.Tensor, t_len: int, rate: int):
-    return nib_decode_plain(Order1NibCDF(rate), words, lengths, t_len)
+    return _decode_plain("o1n", words, lengths, t_len, rate)
 
 
 def o2n_decode_plain(words: torch.Tensor, lengths: torch.Tensor, t_len: int, rate: int):
-    return nib_decode_plain(Order2NibCDF(rate), words, lengths, t_len)
+    return _decode_plain("o2n", words, lengths, t_len, rate)
+
+
+def o0c_decode_plain(words: torch.Tensor, lengths: torch.Tensor, t_len: int, rate: int):
+    return _decode_plain("o0c", words, lengths, t_len, rate)
 
 
 def _decode(codec: str, words: torch.Tensor, lengths: torch.Tensor, t_len: int, rate: int):
@@ -399,7 +466,7 @@ def _decode(codec: str, words: torch.Tensor, lengths: torch.Tensor, t_len: int, 
     if lengths.shape != (b,):
         raise ValueError("lengths must be [B]")
     if words.device.type == "cpu":
-        return nib_decode_plain(_MODELS[codec](rate), words, lengths, t_len)
+        return _decode_plain(codec, words, lengths, t_len, rate)
     syms = torch.empty((t_len, b), dtype=torch.uint8, device=words.device)
     if t_len and b:
         _launch(f"{codec}_decode", words.device,
@@ -423,3 +490,10 @@ def o1n_rans32_decode(words: torch.Tensor, lengths: torch.Tensor, t_len: int, ra
 def o2n_rans32_decode(words: torch.Tensor, lengths: torch.Tensor, t_len: int, rate: int):
     """Fused order2n decode, as ``o0n_rans32_decode``."""
     return _decode("o2n", words, lengths, t_len, rate)
+
+
+def o0c_rans32_decode(words: torch.Tensor, lengths: torch.Tensor, t_len: int, rate: int):
+    """Fused order0c decode, as ``o0n_rans32_decode``, for any cap: the
+    reference's chunked decode for wide rows needs no kernel of its own."""
+    return _decode("o0c", words, lengths, t_len, rate)
+

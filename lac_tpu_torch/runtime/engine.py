@@ -2,8 +2,8 @@
 
 Ports the turbo part of ``lac_tpu/runtime/engine.py``: ``compress_bytes``
 (:125-155), ``decompress_bytes`` (:158-185) and ``decompress_blocks``
-(:187-212) for the turbo model ids, with the ``min(block_size, 1 << 12)``
-clamp of :135-140. A container is parsed once: the reference parses it
+(:187-212) for the four turbo model ids (order0c, order0n, order1n,
+order2n), with the ``min(block_size, 1 << 12)`` clamp of :135-140. A container is parsed once: the reference parses it
 here for the codec and again in ``turbo_decompress``. The XLA-scan models
 (codec rANS-64) are a later slice of the port and raise
 ``NotImplementedError`` here.

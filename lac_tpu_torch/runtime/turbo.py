@@ -1,6 +1,7 @@
-"""Turbo byte path, nibble codecs: file bytes -> blocks -> one coding lane each.
+"""Turbo byte path: file bytes -> blocks -> one coding lane each.
 
-Ports the order0n, order1n and order2n paths of ``lac_tpu/runtime/turbo.py``:
+Ports ``lac_tpu/runtime/turbo.py`` for its four codecs (order0c, order0n,
+order1n, order2n):
 ``turbo_compress`` (:113-245), ``turbo_decompress`` (:288-295),
 ``turbo_decompress_blocks`` (:298-303), ``_encode_wave`` / ``_decode_wave``
 (:78-95), ``_decode_cap_bucket`` (:68-75) and ``MAX_WAVE`` (:58), with the
@@ -12,16 +13,16 @@ rules that shape the container:
   ``2 * nwords < max(len, 1)`` (:151, 157-162);
 - an empty input is one block of length 0 whose payload is the state words
   ``[1, 0]``;
-- the codec gate of :123-128: where a model's ``*_decode_fits`` refuses
-  the geometry, the reference records order0c instead.
+- the codec gate of :123-128: where a nibble model's ``*_decode_fits``
+  refuses the geometry (order0n and order1n above block 4096; order2n's
+  gate admits block 8192), the container records order0c instead, which
+  has no gate.
 
-The reference's waves, cap buckets for the decode grid and 2048-lane
-sub-kernels exist for the TPU's compile shapes and never reach the
-bitstream. Here the lanes of a file go to the kernels in one launch per
-step, in groups of at most ``_LANES_PER_LAUNCH`` to bound device memory.
-order0c is not ported yet, so the order0c model, and the order0c fallback
-of the gate (order0n and order1n at ``block_size > 4096``; order2n's gate
-admits block 8192), raise ``NotImplementedError``.
+The reference's waves, cap buckets for the decode grid, 2048-lane
+sub-kernels and order0c's chunked decode exist for the TPU's compile shapes
+and memory and never reach the bitstream. Here the lanes of a file go to
+the kernels in one launch per step, in groups of at most
+``_LANES_PER_LAUNCH`` to bound device memory.
 """
 
 from __future__ import annotations
@@ -53,13 +54,14 @@ _DEFAULT_BLOCK = 1024
 _DEFAULT_RATE = 4
 _DEFAULT_MODEL = "order0n"
 _PB = 16
-_TURBO_MODELS = ("order0c", "order0n", "order1n", "order2n")
-# model -> (fused encode, fused decode, codec gate)
+# model -> (fused encode, fused decode, codec gate or None)
 _CODECS = {
+    "order0c": (rk.o0c_encode_fused, rk.o0c_rans32_decode, None),
     "order0n": (rk.o0n_encode_fused, rk.o0n_rans32_decode, rk.o0n_decode_fits),
     "order1n": (rk.o1n_encode_fused, rk.o1n_rans32_decode, rk.o1n_decode_fits),
     "order2n": (rk.o2n_encode_fused, rk.o2n_rans32_decode, rk.o2n_decode_fits),
 }
+_TURBO_MODELS = tuple(_CODECS)
 # device memory per lane is about 9 * block_size bytes during encode
 _LANES_PER_LAUNCH = 1 << 16
 
@@ -76,20 +78,6 @@ def _decode_cap_bucket(maxw: int, block_size: int) -> int:
     return top
 
 
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet: the order0c codec comes with the port's "
-        "order0c slice (ROADMAP A4)"
-    )
-
-
-def _check_model(model: str) -> None:
-    if model not in _TURBO_MODELS:
-        raise ValueError(f"turbo model must be one of {_TURBO_MODELS}")
-    if model not in _CODECS:
-        raise _not_ported(f"turbo model {model!r}")
-
-
 def turbo_compress(
     data: bytes,
     block_size: int = _DEFAULT_BLOCK,
@@ -99,11 +87,13 @@ def turbo_compress(
 ) -> bytes:
     if block_size % 256:
         raise ValueError("turbo block_size must be a multiple of 256")
-    _check_model(model)
-    encode_fused, _, fits = _CODECS[model]
-    if not fits(_decode_cap_bucket(block_size // 2 + 3, block_size), MAX_WAVE):
-        # the reference records order0c here
-        raise _not_ported(f"{model} at block_size {block_size} (falls back to order0c)")
+    if model not in _TURBO_MODELS:
+        raise ValueError(f"turbo model must be one of {_TURBO_MODELS}")
+    fits = _CODECS[model][2]
+    if fits is not None and not fits(_decode_cap_bucket(block_size // 2 + 3, block_size),
+                                     MAX_WAVE):
+        model = "order0c"  # geometry fallback, as the reference's
+    encode_fused = _CODECS[model][0]
     dev = resolve_device(device)
     n = len(data)
     nblocks = max(1, -(-n // block_size))
@@ -186,7 +176,6 @@ def _decode_block_list(header, blocks, device) -> list[bytes]:
 def _check_turbo(header: ContainerHeader) -> None:
     if header.codec != CODEC_RANS32 or header.model_id not in _TURBO_MODELS:
         raise ValueError(f"not a turbo {_TURBO_MODELS} container")
-    _check_model(header.model_id)
 
 
 def decompress_parsed(header: ContainerHeader, blocks: list[BlockEntry], device=None) -> bytes:

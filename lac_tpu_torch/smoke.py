@@ -29,6 +29,10 @@ GOLDEN = {
     ("order2n", 4096): (1088585412, 19816129),
     ("order1n", 1024): (3498104981, 21408501),
     ("order2n", 1024): (995146321, 21247183),
+    ("order0c", 4096): (1802545377, 20686159),
+    ("order0c", 1024): (3345983101, 21616345),
+    # order0n at block 8192, which its codec gate records as order0c
+    ("order0c", 8192): (3279822040, 20531251),
 }
 
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

@@ -42,7 +42,7 @@ def test_block_size_option(corpus_file, tmp_path):
         assert f.read() == native_compress(smoke_corpus(6000), block_size=1024)
 
 
-@pytest.mark.parametrize("model", ["order1n", "order2n"])
+@pytest.mark.parametrize("model", ["order1n", "order2n", "order0c"])
 def test_model_option(corpus_file, tmp_path, model):
     out = str(tmp_path / f"{model}.lac")
     assert cli.main(["compress", corpus_file, "-o", out, "--model", model,

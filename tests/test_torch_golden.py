@@ -18,9 +18,18 @@ def test_golden_equals_native_compress(model, block):
 
 
 def test_golden_covers_every_ported_model():
+    """Each model at blocks 4096 and 1024, and the order0c fallback of
+    order0n at block 8192."""
     from lac_tpu_torch.runtime.turbo import _CODECS
 
-    assert set(smoke.GOLDEN) == {(m, b) for m in _CODECS for b in (4096, 1024)}
+    assert set(smoke.GOLDEN) == {(m, b) for m in _CODECS for b in (4096, 1024)} | {
+        ("order0c", 8192)}
+
+
+def test_golden_order0c_8192_is_order0n_fallback():
+    corpus = smoke.smoke_corpus()
+    c = native_compress(corpus, block_size=8192, model="order0n")
+    assert smoke.container_digest(c) == smoke.GOLDEN[("order0c", 8192)]
 
 
 def test_corpus_is_prefix_stable():

@@ -33,7 +33,7 @@ def _inputs(t_len, b, seed=0):
     return syms, lengths
 
 
-@pytest.mark.parametrize("codec", ["o0n", "o1n", "o2n"])
+@pytest.mark.parametrize("codec", ["o0n", "o1n", "o2n", "o0c"])
 @pytest.mark.parametrize("t_len,b,cap", [(256, 67, 258), (1024, 130, 515), (300, 5, 40)])
 def test_kernels_equal_plain_versions(cuda, t_len, b, cap, codec):
     syms, lengths = _inputs(t_len, b)
@@ -54,7 +54,26 @@ def test_kernels_equal_plain_versions(cuda, t_len, b, cap, codec):
         f"{codec}_intervals": 1, "rans32_encode": 1, f"{codec}_decode": 1}
 
 
-@pytest.mark.parametrize("model", ["order0n", "order1n", "order2n"])
+def test_o0c_decode_at_block_8192_cap(cuda):
+    """K9 at the cap of block 8192's words (4099), where lac_tpu decodes in
+    chunks: one kernel for every cap, equal to its plain version."""
+    t_len, b, cap = 8192, 40, 4099
+    syms, lengths = _inputs(t_len, b, seed=2)
+    rng = np.random.default_rng(3)
+    syms[:, 5::3] = rng.integers(0, 64, (t_len, len(range(5, b, 3))), dtype=np.uint8)
+    lengths[5::3] = t_len  # about 6 bits a byte: more words than 2656, fewer than cap
+    lengths[4] = t_len  # random bytes: more words than cap
+    s, n = torch.from_numpy(syms).to(cuda), torch.from_numpy(lengths).to(cuda)
+    words, nwords = rk.o0c_encode_fused(s, n, RATE, cap)
+    out = rk.o0c_rans32_decode(words, n, t_len, RATE)
+    assert torch.equal(out, rk.o0c_decode_plain(words, n, t_len, RATE))
+    fits = nwords <= cap
+    assert bool(((nwords > 2656) & fits).any()) and bool((~fits).any())
+    live = torch.arange(t_len, device=cuda)[:, None] < n[None, :]
+    assert bool(((out == s) | ~live | ~fits[None, :]).all())
+
+
+@pytest.mark.parametrize("model", ["order0n", "order1n", "order2n", "order0c"])
 @pytest.mark.parametrize("block", [1024, 4096])
 def test_turbo_on_card_equals_cpu(cuda, block, model):
     rng = np.random.default_rng(1)

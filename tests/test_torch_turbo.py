@@ -1,5 +1,5 @@
 """The port's turbo path (lac_tpu_torch.runtime) on the CPU against lac_tpu,
-for each ported model (order0n, order1n, order2n): containers
+for each of its four models (order0c, order0n, order1n, order2n): containers
 byte-identical to lac_tpu's turbo (Pallas in interpret mode) for small
 inputs and to lac_tpu's native coder (bit-identical to the Pallas path) for
 larger ones, and each package decodes the other's containers."""
@@ -16,7 +16,7 @@ from lac_tpu_torch.smoke import smoke_corpus
 from lac_tpu_torch.stream.container import read_container
 
 CPU = "cpu"
-MODELS = ("order0n", "order1n", "order2n")
+MODELS = ("order0c", "order0n", "order1n", "order2n")
 
 
 def _random_bytes(n, seed=3):
@@ -74,11 +74,15 @@ def test_empty_input_is_one_block_of_state_words():
 
 @pytest.mark.parametrize("model", ["order0n", "order1n"])
 def test_block_8192_raises_where_lac_tpu_falls_back_to_order0c(model):
+    """Their codec gates refuse block 8192: the port records order0c there,
+    as lac_tpu does, and raises nothing."""
     data = smoke_corpus(9000)
-    ref_header, _ = ref_read(native_compress(data, block_size=8192, model=model))
-    assert ref_header.model_id == "order0c"
-    with pytest.raises(NotImplementedError, match="order0c slice"):
-        turbo.turbo_compress(data, block_size=8192, model=model, device=CPU)
+    ref = native_compress(data, block_size=8192, model=model)
+    assert ref_read(ref)[0].model_id == "order0c"
+    ours = turbo.turbo_compress(data, block_size=8192, model=model, device=CPU)
+    assert read_container(ours)[0].model_id == "order0c"
+    assert ours == ref
+    assert turbo.turbo_decompress(ref, device=CPU) == data
 
 
 def test_order2n_block_8192_identical_to_native():
@@ -128,21 +132,41 @@ def test_engine_decode_parses_the_container_once(monkeypatch):
 
 
 def test_unported_models_and_codecs_raise():
+    """The scan model order0 and a block size off the 256 grid raise; order0c
+    containers, and the order0c fallback of order0n and order1n, are
+    byte-identical to lac_tpu's both ways."""
     data = smoke_corpus(3000)
-    with pytest.raises(NotImplementedError, match="order0c slice"):
-        turbo.turbo_compress(data, model="order0c", device=CPU)
-    with pytest.raises(NotImplementedError):
-        engine.decompress_bytes(native_compress(data, model="order0c"), device=CPU)
+    ours = turbo.turbo_compress(data, model="order0c", device=CPU)
+    ref = native_compress(data, model="order0c")
+    assert ours == ref
+    assert engine.decompress_bytes(ref, device=CPU) == data
+    assert native_decompress(ours) == data
     for model in ("order0n", "order1n"):  # their order0c fallback
-        with pytest.raises(NotImplementedError, match="order0c slice"):
-            turbo.turbo_compress(data, block_size=8192, model=model, device=CPU)
-        with pytest.raises(NotImplementedError):
-            engine.decompress_bytes(
-                native_compress(data, block_size=8192, model=model), device=CPU)
+        ours = turbo.turbo_compress(data, block_size=8192, model=model, device=CPU)
+        ref = native_compress(data, block_size=8192, model=model)
+        assert ours == ref
+        assert engine.decompress_bytes(ref, device=CPU) == data
+        assert native_decompress(ours) == data
     with pytest.raises(NotImplementedError):
         engine.compress_bytes(data, model_id="order0", device=CPU)
     with pytest.raises(ValueError):
         turbo.turbo_compress(data, block_size=1000, device=CPU)
+
+
+@pytest.mark.parametrize("model", MODELS)
+def test_lanes_split_over_several_launches(monkeypatch, model):
+    """At most ``_LANES_PER_LAUNCH`` lanes go to one kernel launch: with 3,
+    ten blocks (raw and coded, and a short last one) go in four groups each
+    way, and the container and the decode stay those of one launch."""
+    monkeypatch.setattr(turbo, "_LANES_PER_LAUNCH", 3)
+    data = smoke_corpus(5000) + _random_bytes(2048, seed=6) + smoke_corpus(2900)
+    ours = engine.compress_bytes(data, model_id=model, block_size=1024, device=CPU)
+    assert len(read_container(ours)[1]) == 10
+    assert ours == native_compress(data, block_size=1024, model=model)
+    assert engine.decompress_bytes(ours, device=CPU) == data
+    picks = [9, 0, 5, 6, 2, 7, 1]
+    assert engine.decompress_blocks(ours, picks, device=CPU) == [
+        data[i * 1024 : (i + 1) * 1024] for i in picks]
 
 
 def test_default_device_is_cuda():
