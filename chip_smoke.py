@@ -15,7 +15,10 @@ import faulthandler; faulthandler.dump_traceback_later(900, exit=True)  # noqa: 
 #          intervals kernel, K2 on those intervals, its decode kernel. Equal
 #          integer for integer. Then order0c's three once more at the
 #          fallback's block 8192 (T = 8192, B = 4096, cap 4099, where lac_tpu
-#          decodes in chunks).
+#          decodes in chunks). K10-K12 at the training shape (B 64, H 8,
+#          S 1024, D 64, bf16, the model's [B, S, H, D] storage) and at
+#          B 16, then S 1000 and 257, D 128, f32 and the [B, H, S, D]
+#          storage.
 # Phase 2  the main path of each model through its entry points, on the
 #          32 MiB smoke corpus: the CLI at block 4096 (order0n at its
 #          defaults, then --model order1n, order2n and order0c), then
@@ -25,10 +28,24 @@ import faulthandler; faulthandler.dump_traceback_later(900, exit=True)  # noqa: 
 #          crc32 and length against the golden values that lac_tpu's native
 #          coder gives (lac_tpu_torch/smoke.py). The kernels' launch counts
 #          are zeroed just before each path and read just after it.
+#          Then the training path (slice 4), its attention through K10-K12
+#          (ops/csrc/causal_attn.cu): the shipped byte-6l checkpoint's loss
+#          on smoke.lm_windows() through the kernels (_FUSED "flash", then
+#          "splash") and the exact branch, each within 2e-3 nats of
+#          smoke.GOLDEN_LM; byte-16l at full width (d 512, 16 layers, 8
+#          heads of 64, d_ff 2048; the recipe of tools/train_byte16l.py,
+#          batch 64 x seq 1024, lr 3e-4, seed 0, max_seq 2048) trained 8
+#          steps with the kernels (_FUSED "flash"), then the same 8 steps
+#          from the same init with "bf16s" (no kernel), losses compared
+#          step by step, its best-eval checkpoint reloaded bit-equal; and
+#          the CLI's train at its defaults (byte-6l) for 3 steps at batch 8
+#          x seq 256.
 # Phase 3  numbers: end-to-end MB/s, host ms of decode's two parts (the
 #          container parse and the rest) and of the container write, each
 #          kernel's time from CUDA events beside its bound, bits per byte,
-#          peak device memory.
+#          peak device memory; for the training path its tokens/s, the
+#          attention kernels' share of a step, their plain versions' and
+#          scaled_dot_product_attention's times at the training shape.
 #
 # It imports the standard library, numpy, torch and lac_tpu_torch only. A
 # hang ends in a traceback and a non-zero exit (faulthandler above). Without
@@ -108,6 +125,44 @@ SOURCE = {name: "lac_tpu_torch/ops/csrc/" + (
     "o0c_rans32.cu" if name.startswith("o0c")
     else "o0n_rans32.cu" if name in ("o0n_intervals", "rans32_encode", "o0n_decode")
     else "ctx_nib_rans32.cu") for name in OPS_PER_SYMBOL}
+# K10-K12, the training path's causal attention (ops/attention.py)
+ATTN = ("causal_attn_fwd", "causal_attn_bwd_dkv", "causal_attn_bwd_dq")
+SOURCE.update({name: "lac_tpu_torch/ops/csrc/causal_attn.cu" for name in ATTN})
+# the JAX library Pallas kernels that lac_tpu's training attention reaches
+# (JAX 0.9.0, jax/experimental/pallas/ops/tpu/; via lac_tpu/models/
+# transformer.py:706-768); splash's are the same three at scale 1
+REPLACES.update({
+    "causal_attn_fwd": "jax/experimental/pallas/ops/tpu/flash_attention.py:589",
+    "causal_attn_bwd_dkv": "jax/experimental/pallas/ops/tpu/flash_attention.py:941",
+    "causal_attn_bwd_dq": "jax/experimental/pallas/ops/tpu/flash_attention.py:1287",
+})
+# phase 1 shapes (B, H, S, D, dtype, storage) and the tolerances: max
+# |kernel - plain| / max(max |plain|, 1) for O, dQ, dK, dV; lse absolute.
+# f32: the same f32 math summed in another order. bf16: the outputs are
+# rounded once to bf16 (2^-8 of the largest value) after f32 math.
+ATTN_SHAPES = (
+    (64, 8, 1024, 64, "bf16", "bshd"),  # the byte-16l training shape
+    (16, 8, 1024, 64, "bf16", "bshd"),
+    (4, 8, 1000, 64, "bf16", "bhsd"),
+    (4, 4, 257, 128, "bf16", "bshd"),
+    (4, 8, 1000, 128, "f32", "bshd"),
+    (4, 4, 257, 64, "f32", "bhsd"),
+)
+ATTN_TOL = {"bf16": 1e-2, "f32": 1e-4}
+LSE_TOL = 1e-4
+# the training recipe of tools/train_byte16l.py:24-40, cut to 8 steps
+TRAIN = dict(steps=8, batch=64, seq=1024, lr=3e-4, seed=0, eval_every=8, eval_batches=4)
+TRAIN_BYTES = 24 << 20  # the smoke corpus up to here trains; the rest evaluates
+# loss agreement of the kernels' run ("flash") with the "bf16s" run: steps 0
+# and 1 run on the same parameters (the first update has lr 0), so only the
+# attention's rounding differs (bf16s rounds scores and probabilities to
+# bf16); later steps follow two Adam trajectories, whose first real update
+# moves every parameter by about lr along the sign of its gradient.
+STEP_TOL = {0: 2e-3, 1: 2e-3}
+LATER_STEP_TOL = 2e-2
+GOLDEN_TOL = 2e-3  # nats, the port's loss against lac_tpu's GOLDEN_LM
+# H100 SXM dense peaks (NVIDIA's data sheet): bf16 tensor cores, f32 CUDA cores
+PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12}
 # model id -> the prefix of its kernels and wrappers in ops/rans_kernels.py
 CODECS = {"order0n": "o0n", "order1n": "o1n", "order2n": "o2n", "order0c": "o0c"}
 # the codec gate's fallback: order0n at block 8192 records order0c
@@ -355,6 +410,258 @@ def kernel_times(torch, rk, corpus, dev, t_len):
     return out
 
 
+# --------------------------------------------------------------------------
+# The training path: K10-K12 and the port's byte-LM training
+# --------------------------------------------------------------------------
+
+
+def attn_inputs(torch, b, h, s, d, dtype, layout, dev, seed=SEED):
+    """q, k, v, dO [B, H, S, D] on the card, stored as ``layout``."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    dt = torch.bfloat16 if dtype == "bf16" else torch.float32
+
+    def one():
+        x = (torch.randn((b, s, h, d), generator=g, device=dev) * 2.0).to(dt)
+        return x.transpose(1, 2) if layout == "bshd" else x.transpose(1, 2).contiguous()
+
+    return one(), one(), one(), one()
+
+
+def rel_err(torch, got, want) -> tuple:
+    """(max abs error, max abs error / max(max |want|, 1))."""
+    err = float((got.float() - want.float()).abs().max())
+    return err, err / max(float(want.float().abs().max()), 1.0)
+
+
+def phase1_attention(torch, A, dev):
+    """K10-K12 against their plain versions at ATTN_SHAPES; returns
+    (max abs error per kernel, plain ms per kernel at the first shape)."""
+    err = {k: 0.0 for k in ATTN}
+    plain_ms = {}
+    for si, (b, h, s, d, dtype, layout) in enumerate(ATTN_SHAPES):
+        q, k, v, do = attn_inputs(torch, b, h, s, d, dtype, layout, dev)
+        scale = d ** -0.5
+        o, lse = A.causal_attn_fwd(q, k, v, scale)
+        (po, plse), ms_f = sync_time(torch, lambda: A.attention_plain_fwd(q, k, v, scale))
+        di = A._di(po, do)
+        dk, dv = A.causal_attn_bwd_dkv(q, k, v, do, plse, di, scale)
+        (pdk, pdv), ms_kv = sync_time(
+            torch, lambda: A.attention_plain_bwd_dkv(q, k, v, do, plse, di, scale))
+        dq = A.causal_attn_bwd_dq(q, k, v, do, plse, di, scale)
+        pdq, ms_q = sync_time(
+            torch, lambda: A.attention_plain_bwd_dq(q, k, v, do, plse, di, scale))
+        torch.cuda.synchronize()
+        lse_err = float((lse - plse).abs().max())
+        rows = {"causal_attn_fwd": [("O", o, po)],
+                "causal_attn_bwd_dkv": [("dK", dk, pdk), ("dV", dv, pdv)],
+                "causal_attn_bwd_dq": [("dQ", dq, pdq)]}
+        tol = ATTN_TOL[dtype]
+        parts = []
+        for name, outs in rows.items():
+            for label, got, want in outs:
+                e, r = rel_err(torch, got, want)
+                err[name] = max(err[name], e)
+                parts.append(f"{label} {r:.2e}")
+                check(r <= tol, f"{name} B={b} H={h} S={s} D={d} {dtype}: {label} rel err "
+                                f"{r:.3e} > {tol}")
+        check(lse_err <= LSE_TOL, f"causal_attn_fwd S={s} D={d} {dtype}: lse err {lse_err}")
+        print(f"attention B={b} H={h} S={s} D={d} {dtype} {layout}: K10-K12 within {tol} "
+              f"of plain ({', '.join(parts)}; lse {lse_err:.2e}; plain ms {ms_f:.1f} "
+              f"{ms_kv:.1f} {ms_q:.1f})", flush=True)
+        if si == 0:
+            plain_ms = {"causal_attn_fwd": ms_f, "causal_attn_bwd_dkv": ms_kv,
+                        "causal_attn_bwd_dq": ms_q}
+    return err, plain_ms
+
+
+def phase2_golden(torch, T, A, ttrain, smoke, root, dev):
+    """The shipped byte-6l checkpoint's loss on the golden windows, through
+    K10 (impl flash, then splash, fused) and through the exact branch;
+    returns the kernels' launch counts on the flash run."""
+    path = os.path.join(root, smoke.LM_CHECKPOINT)
+    check(os.path.exists(path), f"{smoke.LM_CHECKPOINT} did not reach this machine")
+    cfg, model = ttrain.load_checkpoint(path)
+    toks = torch.from_numpy(smoke.lm_windows()).to(dev)
+    want = smoke.GOLDEN_LM["byte6l-pysrc"]
+    out = {}
+    for label, impl, fused in (("flash kernels", "flash", True),
+                               ("splash kernels", "splash", True),
+                               ("exact branch", "bf16s", False)):
+        T._FUSED["impl"] = impl
+        A.reset_launches()
+        with torch.no_grad():
+            loss = ttrain.lm_loss(cfg, model, toks, fused=fused).item()
+        counts = dict(A.launches)
+        d = loss - want
+        print(f"golden byte6l-pysrc, {label}: loss {loss:.6f} nats, lac_tpu {want:.6f}, "
+              f"diff {d:+.2e} (tolerance {GOLDEN_TOL}); launches {counts}", flush=True)
+        check(abs(d) <= GOLDEN_TOL, f"byte-6l loss with the {label} off GOLDEN_LM by {d}")
+        if fused:
+            check(counts["causal_attn_fwd"] == cfg.n_layers, f"K10 launches {counts}")
+            out = out or counts
+    T._FUSED["impl"] = "bf16s"
+    return out
+
+
+def timed_steps(torch, ttrain):
+    """Wrap ttrain._step to record each step's ms (host clock, synchronized);
+    returns the list and a function that restores the step."""
+    real = ttrain._step
+    times = []
+
+    def step(*args):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real(*args)
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+        return out
+
+    ttrain._step = step
+    return times, lambda: setattr(ttrain, "_step", real)
+
+
+def phase2_train(torch, T, A, ttrain, registry, corpus, work, dev):
+    """byte-16l at full width, 8 steps through K10-K12, then 8 steps from the
+    same init through bf16s; returns (launch counts of the kernels' run,
+    step ms of that run, peak bytes of that run, the config)."""
+    import dataclasses
+
+    cfg = dataclasses.replace(registry.PRESETS["byte-16l"](), max_seq=2048)
+    init = T.init_params(cfg, seed=TRAIN["seed"], device=dev)
+    ckpt = os.path.join(work, "byte16l.npz")
+    kw = dict(TRAIN, log_every=1, eval_corpus=corpus[TRAIN_BYTES:], init=init,
+              fused_attn=True)
+    runs = {}
+    for impl in ("flash", "bf16s"):
+        T._FUSED["impl"] = impl
+        A.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        times, restore = timed_steps(torch, ttrain)
+        try:
+            params, losses = ttrain.train_byte_lm(
+                cfg, corpus[:TRAIN_BYTES], save_best_path=ckpt if impl == "flash" else None,
+                **kw)
+        finally:
+            restore()
+        torch.cuda.synchronize()
+        runs[impl] = dict(params=params, losses=losses, launches=dict(A.launches),
+                          ms=times, peak=torch.cuda.max_memory_allocated())
+        med = float(np.median(times[1:]))
+        print(f"byte-16l {impl}: losses {[round(x, 5) for x in losses]}; step ms "
+              f"{[round(x, 1) for x in times]}, median of steps 1-{len(times) - 1} {med:.1f} "
+              f"({TRAIN['batch'] * TRAIN['seq'] / (med / 1e3):.1f} tokens/s); launches "
+              f"{runs[impl]['launches']}; max_memory_allocated {runs[impl]['peak']} bytes",
+              flush=True)
+    T._FUSED["impl"] = "bf16s"
+    fl, bs = runs["flash"], runs["bf16s"]
+    check(len(fl["losses"]) == TRAIN["steps"] and all(np.isfinite(fl["losses"])),
+          f"byte-16l losses {fl['losses']}")
+    for i, (a, b) in enumerate(zip(fl["losses"], bs["losses"])):
+        tol = STEP_TOL.get(i, LATER_STEP_TOL)
+        check(abs(a - b) <= tol, f"byte-16l step {i}: flash {a} vs bf16s {b} (tolerance {tol})")
+    print(f"byte-16l: flash and bf16s losses agree, max diff steps 0-1 "
+          f"{max(abs(a - b) for a, b in zip(fl['losses'][:2], bs['losses'][:2])):.2e}, "
+          f"later {max(abs(a - b) for a, b in zip(fl['losses'][2:], bs['losses'][2:])):.2e}",
+          flush=True)
+    n = cfg.n_layers
+    steps, evals = TRAIN["steps"], TRAIN["eval_batches"]
+    want = {"causal_attn_fwd": steps * 2 * n + evals * n, "causal_attn_bwd_dkv": steps * n,
+            "causal_attn_bwd_dq": steps * n}
+    check(fl["launches"] == want, f"byte-16l launches {fl['launches']}, expected {want}")
+    check(set(bs["launches"].values()) == {0}, f"bf16s launched kernels: {bs['launches']}")
+    lcfg, loaded = ttrain.load_checkpoint(ckpt)
+    check(lcfg == dataclasses.replace(cfg, max_seq=TRAIN["seq"]), f"saved config {lcfg}")
+    same = all(torch.equal(a, b) for a, b in zip(loaded.parameters(), fl["params"].parameters()))
+    check(same, "the saved byte-16l checkpoint does not reload bit-equal")
+    print(f"byte-16l: best-eval checkpoint {os.path.getsize(ckpt)} bytes reloads bit-equal",
+          flush=True)
+    return fl["launches"], fl["ms"], fl["peak"], cfg
+
+
+def phase2_cli(cli, A, ttrain, corpus, work):
+    """The CLI's train at its defaults (byte-6l) for 3 steps; its output
+    loads. Like lac_tpu's, it leaves the fused attention off."""
+    path = os.path.join(work, "train.bin")
+    with open(path, "wb") as f:
+        f.write(corpus[: 4 << 20])
+    out = os.path.join(work, "cli_lm.npz")
+    A.reset_launches()
+    check(cli.main(["train", path, "-o", out, "--steps", "3", "--batch", "8",
+                    "--seq", "256"]) == 0, "cli train")
+    counts = dict(A.launches)
+    cfg, model = ttrain.load_checkpoint(out)
+    check(cfg.n_layers == 6 and cfg.max_seq == 256, f"cli train saved {cfg}")
+    print(f"cli train byte-6l: {os.path.getsize(out)} bytes, loads; launches {counts}",
+          flush=True)
+    return counts
+
+
+def attn_bounds(b, h, s, d, dtype) -> dict:
+    """Least ms of each of K10-K12 on its inputs: the larger of its bytes
+    (each input read once, each output written once) over HBM_BYTES_PER_S
+    and its flops over the peak for the type. One causal product of
+    [S, D] by [D, S] needs D S (S + 1) flops per (b, h): K10 two (scores,
+    PV), K11 four (scores, dP, dV, dK), K12 three (scores, dP, dQ)."""
+    es = 2 if dtype == "bf16" else 4
+    t = b * h * s * d * es  # one [B, H, S, D] tensor
+    r = b * h * s * 4       # one f32 [B, H, S] row vector (lse, di)
+    prod = b * h * d * s * (s + 1)
+    work = {"causal_attn_fwd": (3 * t + t + r, 2 * prod),
+            "causal_attn_bwd_dkv": (4 * t + 2 * r + 2 * t, 4 * prod),
+            "causal_attn_bwd_dq": (4 * t + 2 * r + t, 3 * prod)}
+    out = {}
+    for name, (nbytes, flops) in work.items():
+        t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
+        t_ops = 1e3 * flops / PEAK_FLOPS[dtype]
+        out[name] = {"bound_ms": max(t_bytes, t_ops),
+                     "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                     "t_bytes": t_bytes, "t_ops": t_ops}
+    return out
+
+
+def attn_times(torch, A, dev, cfg):
+    """K10-K12, their plain versions and scaled_dot_product_attention at the
+    training shape (B 64, H 8, S 1024, D 64, bf16, [B, S, H, D] storage)."""
+    import torch.nn.functional as F
+
+    b, h, s, d = TRAIN["batch"], cfg.n_heads, TRAIN["seq"], cfg.head_dim
+    q, k, v, do = attn_inputs(torch, b, h, s, d, "bf16", "bshd", dev)
+    scale = d ** -0.5
+    o, lse = A.causal_attn_fwd(q, k, v, scale)
+    di = A._di(o, do)
+    ms = {"causal_attn_fwd": event_ms(torch, lambda: A.causal_attn_fwd(q, k, v, scale)),
+          "causal_attn_bwd_dkv": event_ms(
+              torch, lambda: A.causal_attn_bwd_dkv(q, k, v, do, lse, di, scale)),
+          "causal_attn_bwd_dq": event_ms(
+              torch, lambda: A.causal_attn_bwd_dq(q, k, v, do, lse, di, scale))}
+    _, pf = sync_time(torch, lambda: A.attention_plain_fwd(q, k, v, scale))
+    _, pkv = sync_time(torch, lambda: A.attention_plain_bwd_dkv(q, k, v, do, lse, di, scale))
+    _, pq = sync_time(torch, lambda: A.attention_plain_bwd_dq(q, k, v, do, lse, di, scale))
+    plain = {"causal_attn_fwd": pf, "causal_attn_bwd_dkv": pkv, "causal_attn_bwd_dq": pq}
+    # the library yardstick: SDPA's forward for K10; its backward alone (one
+    # autograd call computing dQ, dK and dV) for K11 and K12 together
+    sdpa_f = event_ms(torch, lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True))
+    qg, kg, vg = (t.detach().requires_grad_(True) for t in (q, k, v))
+    og = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
+    sdpa_b = event_ms(torch, lambda: torch.autograd.grad(og, (qg, kg, vg), do,
+                                                         retain_graph=True))
+    library = {"causal_attn_fwd": sdpa_f, "causal_attn_bwd_dkv": sdpa_b,
+               "causal_attn_bwd_dq": sdpa_b}
+    bounds = attn_bounds(b, h, s, d, "bf16")
+    out = {}
+    for name in ATTN:
+        out[name] = dict(ms=ms[name], plain_ms=plain[name], library_ms=library[name],
+                         bound_ms=bounds[name]["bound_ms"], bound_by=bounds[name]["bound_by"])
+        print(f"kernel {name} B={b} H={h} S={s} D={d} bf16: {ms[name]:.3f} ms, bound "
+              f"{bounds[name]['bound_ms']:.4f} ms by {bounds[name]['bound_by']} (bytes "
+              f"{bounds[name]['t_bytes']:.4f} ms, ops {bounds[name]['t_ops']:.4f} ms); "
+              f"plain {plain[name]:.1f} ms; sdpa {library[name]:.3f} ms", flush=True)
+    print(f"sdpa forward {sdpa_f:.3f} ms, backward {sdpa_b:.3f} ms; K10-K12 "
+          f"{sum(ms.values()):.3f} ms", flush=True)
+    return out
+
+
 def path_kernels(codec: str) -> tuple:
     return (f"{codec}_intervals", "rans32_encode", f"{codec}_decode")
 
@@ -368,7 +675,11 @@ def main() -> int:
     root = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, root)
     from lac_tpu_torch import cli, smoke
+    from lac_tpu_torch import train as ttrain
+    from lac_tpu_torch.models import lm_registry
+    from lac_tpu_torch.models import transformer as T
     from lac_tpu_torch.ops import _build
+    from lac_tpu_torch.ops import attention as A
     from lac_tpu_torch.ops import rans_kernels as rk
     from lac_tpu_torch.runtime import engine, turbo
     from lac_tpu_torch.stream import container
@@ -389,12 +700,19 @@ def main() -> int:
             print(f"order1n/order2n kernels: {lib.lac_ctx_lanes()} lanes a block, "
                   f"{lib.lac_ctx_shared_bytes(16)} / {lib.lac_ctx_shared_bytes(64)} "
                   f"shared bytes a block")
+            for kid, name in zip((10, 11, 12), ATTN):
+                print(f"{name}: 256 threads, {lib.lac_attn_smem_bytes(kid, 64)} / "
+                      f"{lib.lac_attn_smem_bytes(kid, 128)} dynamic shared bytes a block "
+                      f"at D 64 / 128")
             corpus = smoke.smoke_corpus()
             check(len(corpus) == smoke.SMOKE_BYTES, "corpus length")
             print(f"corpus {len(corpus)} bytes, crc32 {zlib.crc32(corpus)}")
 
         with Phase("phase 1: kernels against plain versions"):
             err, plain_ms = phase1(torch, rk, corpus, dev)
+            aerr, aplain = phase1_attention(torch, A, dev)
+            err.update(aerr)
+            plain_ms.update(aplain)
 
         with Phase("phase 2: main path"):
             counts = {k: 0 for k in OPS_PER_SYMBOL}
@@ -421,6 +739,16 @@ def main() -> int:
             peak = torch.cuda.max_memory_allocated()
             print(f"main path launches {counts}; max_memory_allocated {peak} bytes")
 
+            golden_counts = phase2_golden(torch, T, A, ttrain, smoke, root, dev)
+            train_counts, step_ms, train_peak, cfg16 = phase2_train(
+                torch, T, A, ttrain, lm_registry, corpus, work, dev)
+            for name in ATTN:
+                check(train_counts[name] > 0, f"kernel {name} was not launched training")
+            counts.update(train_counts)
+            cli_counts = phase2_cli(cli, A, ttrain, corpus, work)
+            print(f"training path launches: golden (fused) {golden_counts}; byte-16l "
+                  f"{train_counts}; cli train {cli_counts}", flush=True)
+
         with Phase("phase 3: numbers"):
             for model in CODECS:
                 e2e(torch, engine, model, corpus)
@@ -434,6 +762,22 @@ def main() -> int:
                           f"decompress_parsed {rest:.1f} ms; encode ends with write "
                           f"{write:.1f} ms (medians of 3)")
 
+            atimes = attn_times(torch, A, dev, cfg16)
+            times.update({k: {"ms": v["ms"], "bound_ms": v["bound_ms"],
+                              "bound_by": v["bound_by"]} for k, v in atimes.items()})
+            plain_ms.update({k: v["plain_ms"] for k, v in atimes.items()})
+            tok = TRAIN["batch"] * TRAIN["seq"]
+            step_med = float(np.median(step_ms[1:]))
+            per_step = {"causal_attn_fwd": 2 * cfg16.n_layers,
+                        "causal_attn_bwd_dkv": cfg16.n_layers,
+                        "causal_attn_bwd_dq": cfg16.n_layers}
+            kern_ms = sum(atimes[k]["ms"] * n for k, n in per_step.items())
+            print(f"byte-16l training: {tok / (step_med / 1e3):.1f} tokens/s (median step "
+                  f"{step_med:.1f} ms over steps 1-{TRAIN['steps'] - 1}, {tok} tokens a step); "
+                  f"K10-K12 {kern_ms:.1f} ms a step ({100 * kern_ms / step_med:.1f} %); "
+                  f"max_memory_allocated {train_peak} bytes", flush=True)
+
+        library_ms = {k: atimes[k]["library_ms"] for k in ATTN}
         kernels = [
             {
                 "name": name,
@@ -446,9 +790,9 @@ def main() -> int:
                 "plain_ms": plain_ms[name],
                 "bound_ms": times[name]["bound_ms"],
                 "bound_by": times[name]["bound_by"],
-                "library_ms": None,
+                "library_ms": library_ms.get(name),
             }
-            for name in OPS_PER_SYMBOL
+            for name in (*OPS_PER_SYMBOL, *ATTN)
         ]
         print(json.dumps({"kernels": kernels}))
         print(smi)

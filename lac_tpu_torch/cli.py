@@ -1,11 +1,13 @@
-"""Command-line interface: ``python -m lac_tpu_torch compress|decompress|info|verify``.
+"""Command-line interface: ``python -m lac_tpu_torch compress|decompress|info|verify|train``.
 
 Ports the byte-model part of ``lac_tpu/cli.py``: ``compress`` (:24-70 for
-byte models), ``decompress`` (:73-90), ``verify`` (:93-108) and ``info``
-(:225-237), with the same defaults (order0n, block 4096, rate 4). The
-``--device`` option picks the device; its default is ``cuda``, and the CPU
-runs only with ``--device cpu``. The LM models, ``recover``, ``train`` and
-``bench`` come with later slices of the port.
+byte models), ``decompress`` (:73-90), ``verify`` (:93-108), ``info``
+(:225-237) and ``train`` (:183-222, arguments :310-322), with the same
+defaults (order0n, block 4096, rate 4; train: byte-6l, 2000 steps, batch
+32, seq 256, lr 3e-4). The ``--device`` option picks the device; its
+default is ``cuda``, and the CPU runs only with ``--device cpu``. As in the
+reference, ``train`` leaves the fused attention off. The LM models,
+``recover`` and ``bench`` come with later slices of the port.
 """
 
 from __future__ import annotations
@@ -77,6 +79,40 @@ def _cmd_verify(args) -> int:
     return 1
 
 
+def _cmd_train(args) -> int:
+    """Train a byte LM on FILE and save a checkpoint for the lm coding path."""
+    import dataclasses
+
+    from .models.lm_registry import PRESETS
+    from .train import load_checkpoint, save_checkpoint, train_byte_lm
+
+    with open(args.file, "rb") as f:
+        corpus = f.read()
+    cfg = PRESETS[args.preset]()
+    init = None
+    if args.init:
+        icfg, init = load_checkpoint(args.init, device=args.device)
+        # the checkpoint's max_seq may be capped below the preset's; all
+        # other architecture fields must match for the params to fit
+        if dataclasses.replace(icfg, max_seq=cfg.max_seq) != cfg:
+            raise SystemExit(
+                f"--init checkpoint architecture does not match preset '{args.preset}'"
+            )
+    params, losses = train_byte_lm(
+        cfg, corpus, steps=args.steps, batch=args.batch, seq=args.seq,
+        lr=args.lr, seed=args.seed, log_every=max(1, args.steps // 20),
+        init=init, device=args.device,
+    )
+    # cap the checkpoint's usable context at the training length (RoPE
+    # positions past it degrade; lac_tpu/cli.py:205-210)
+    save_checkpoint(
+        args.output, dataclasses.replace(cfg, max_seq=min(cfg.max_seq, args.seq)), params,
+    )
+    print(f"saved {args.output} (final loss {losses[-1]:.4f} nats, "
+          f"{losses[-1] / 0.6931:.3f} bits/byte train)")
+    return 0
+
+
 def _cmd_info(args) -> int:
     from .stream.container import read_container
 
@@ -120,6 +156,21 @@ def main(argv=None) -> int:
     v = sub.add_parser("verify", help="check per-block checksums of a .lac container")
     v.add_argument("file")
     v.set_defaults(fn=_cmd_verify)
+
+    t = sub.add_parser("train", help="train a byte LM on FILE for the lm coding path")
+    t.add_argument("file")
+    t.add_argument("-o", "--output", default="byte_lm.npz")
+    t.add_argument("--preset", default="byte-6l")
+    t.add_argument("--steps", type=int, default=2000)
+    t.add_argument("--batch", type=int, default=32)
+    t.add_argument("--seq", type=int, default=256)
+    t.add_argument("--lr", type=float, default=3e-4)
+    t.add_argument("--seed", type=int, default=0)
+    t.add_argument("--init", default=None, metavar="CKPT",
+                   help="warm-start from an existing checkpoint "
+                        "(continuation/fine-tune; preset must match)")
+    t.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    t.set_defaults(fn=_cmd_train)
 
     args = p.parse_args(argv)
     return args.fn(args)

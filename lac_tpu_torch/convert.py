@@ -13,7 +13,14 @@ models keep the reference's state layouts as int32 tensors
   sl [B, 16|64, 17], cnth [B, 16], cntl [B, 16|64], prev_h [B])``.
 
 Both functions take and give NumPy arrays on the JAX side, so this module
-imports nothing of JAX. The checkpoint loader comes with the LM slice.
+imports nothing of JAX.
+
+LM parameters: ``lm_params_from_jax`` and ``lm_params_to_jax`` carry the
+params pytree of ``lac_tpu.models.transformer`` (``init_params``'
+stacked layout: ``layers/<name>`` with a leading ``[n_layers]`` axis) to
+and from the port's ``Transformer`` module, with no arithmetic: arrays
+are copied bit for bit, and bf16 travels as uint16 bit patterns, since
+NumPy has no bf16 of its own.
 """
 
 from __future__ import annotations
@@ -21,7 +28,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["state_from_jax", "state_to_jax"]
+__all__ = ["state_from_jax", "state_to_jax", "lm_params_from_jax", "lm_params_to_jax"]
 
 
 def _stepped(first) -> bool:
@@ -75,3 +82,92 @@ def state_to_jax(state):
         *tensors, step = state
         return (*(t.cpu().numpy().astype(np.int32) for t in tensors), np.int32(step))
     return tuple(t.cpu().numpy().astype(np.int32) for t in state)
+
+
+# --------------------------------------------------------------------------
+# LM parameters
+# --------------------------------------------------------------------------
+
+
+def _is_bf16(a: np.ndarray) -> bool:
+    return a.dtype == np.uint16 or a.dtype.name == "bfloat16"
+
+
+def _tensor(a, device) -> torch.Tensor:
+    """A NumPy leaf -> a tensor with the same bits: uint16 (or an ml_dtypes
+    bfloat16 array) becomes bf16, anything else keeps its type."""
+    a = np.asarray(a)
+    if _is_bf16(a):
+        t = torch.from_numpy(np.ascontiguousarray(a).view(np.int16).copy()).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(np.array(a))
+    return t.to(device)
+
+
+def _array(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu().contiguous()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(np.uint16).copy()
+    return t.numpy().copy()
+
+
+def _set(module: torch.nn.Module, name: str, value: torch.Tensor) -> None:
+    setattr(module, name, torch.nn.Parameter(value, requires_grad=True))
+
+
+def lm_params_from_jax(cfg, tree: dict, device="cpu"):
+    """``lac_tpu``'s LM params pytree, its leaves NumPy arrays (bf16 leaves
+    as ml_dtypes bfloat16 or as uint16 bit patterns), stacked layers ->
+    a ``models.transformer.Transformer`` on ``device`` holding the same
+    bits. Each tensor keeps its array's shape."""
+    from .models.transformer import Transformer
+
+    model = Transformer(cfg, device="meta")
+    _set(model, "embed", _tensor(tree["embed"], device))
+    for name in ("pos_embed", "head"):
+        if name in tree:
+            _set(model, name, _tensor(tree[name], device))
+        elif getattr(model, name) is not None:
+            raise ValueError(f"the params lack {name!r}, which the config needs")
+    for name, arr in tree["final_norm"].items():
+        _set(model.final_norm, name, _tensor(arr, device))
+    layers = tree["layers"]
+    for i, block in enumerate(model.layers):
+        for name, arr in layers.items():
+            if isinstance(arr, dict):  # ln1 / ln2
+                for sub, a in arr.items():
+                    _set(getattr(block, name), sub, _tensor(np.asarray(a)[i], device))
+            else:
+                _set(block, name, _tensor(np.asarray(arr)[i], device))
+    left = [n for n, p in model.named_parameters() if p.device.type == "meta"]
+    if left:
+        raise ValueError(f"the params lack {left}")
+    return model
+
+
+def lm_params_to_jax(model) -> dict:
+    """The port's ``Transformer`` -> ``lac_tpu``'s params pytree of NumPy
+    arrays, layers stacked on a leading axis; bf16 tensors come out as
+    uint16 bit patterns (``a.view(jnp.bfloat16)`` on the JAX side). The
+    layer keys are sorted, as ``jax.tree.map`` leaves them."""
+    tree = {"embed": _array(model.embed),
+            "final_norm": {n: _array(p) for n, p in model.final_norm.named_parameters()}}
+    per_layer: dict = {}
+    for block in model.layers:
+        for name, p in block.named_parameters():
+            per_layer.setdefault(name, []).append(_array(p))
+    layers: dict = {}
+    for name in sorted(per_layer):
+        head, _, sub = name.partition(".")
+        stacked = np.stack(per_layer[name])
+        if sub:
+            layers.setdefault(head, {})[sub] = stacked
+        else:
+            layers[name] = stacked
+    tree["layers"] = {k: (dict(sorted(v.items())) if isinstance(v, dict) else v)
+                      for k, v in sorted(layers.items())}
+    if model.pos_embed is not None:
+        tree["pos_embed"] = _array(model.pos_embed)
+    if model.head is not None:
+        tree["head"] = _array(model.head)
+    return tree

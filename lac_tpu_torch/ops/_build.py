@@ -3,15 +3,17 @@
 The JAX package has no counterpart: Pallas compiles its kernels inside
 ``jax.jit``. Here the ``csrc/*.cu`` files (plain C entry points, no PyTorch
 header; ``o0n_rans32.cu``, ``ctx_nib_rans32.cu`` and ``o0c_rans32.cu``,
-which share ``nib_model.cuh``) are compiled on first use, by one call of
+which share ``nib_model.cuh``, and ``causal_attn.cu``) are compiled on
+first use, one ``nvcc`` process per source, all started together,
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared -Xcompiler -fPIC
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -Xcompiler -fPIC -c
 
-into one library in ``ops/build/``, under a name that holds a hash of every
-source in ``csrc/`` and the flags. The compiler writes to a temporary name that is then renamed into
-place, so no lock file is needed and a build that was cut off leaves
-nothing that a later build waits on. The first build prints its seconds
-and what ``-Xptxas -v`` says of each kernel's registers, shared memory and
+and linked by one more ``nvcc -shared`` into one library in ``ops/build/``,
+under a name that holds a hash of every source in ``csrc/`` and the flags.
+The linker writes to a temporary name that is then renamed into place, so
+no lock file is needed and a build that was cut off leaves nothing that a
+later build waits on. The first build prints its seconds and what
+``-Xptxas -v`` says of each kernel's registers, static shared memory and
 spills.
 
 Nothing here runs when the module is imported.
@@ -38,11 +40,13 @@ _BUILD_TIMEOUT_S = 300
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 )
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
+_F = ctypes.c_float
 _SIGNATURES = {
     # syms, lo, fr, T, B, rate, stream
     "lac_o0n_intervals": (_P, _P, _P, _I, _I, _I, _P),
@@ -60,11 +64,21 @@ _SIGNATURES = {
     # bytes a block for a lo-context count
     "lac_ctx_lanes": (),
     "lac_ctx_shared_bytes": (_I,),
+    # q, k, v, o, lse, B, H, S, D, sh, ss, scale, bf16, stream
+    "lac_attn_fwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _F, _I, _P),
+    # q, k, v, dO, lse, di, dk, dv, B, H, S, D, sh, ss, scale, bf16, stream
+    "lac_attn_bwd_dkv": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _F, _I, _P),
+    # q, k, v, dO, lse, di, dq, B, H, S, D, sh, ss, scale, bf16, stream
+    "lac_attn_bwd_dq": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _F, _I, _P),
+    # dynamic shared bytes a block of K10/K11/K12 (10, 11, 12) at head dim D
+    "lac_attn_smem_bytes": (_I, _I),
 }
 
 _KERNELS = ("o0n_intervals_kernel", "rans32_encode_kernel", "o0n_decode_kernel",
             "ctx_intervals_kernel", "ctx_decode_kernel",
-            "o0c_intervals_kernel", "o0c_decode_kernel")
+            "o0c_intervals_kernel", "o0c_decode_kernel",
+            "causal_attn_fwd_kernel", "causal_attn_bwd_dkv_kernel",
+            "causal_attn_bwd_dq_kernel")
 
 _lock = threading.Lock()
 _lib = None
@@ -88,9 +102,11 @@ def _ptxas_summary(log: str) -> str:
         m = re.search(r"Compiling entry function '([^']+)'", line)
         if m:
             name = next((k for k in _KERNELS if k in m.group(1)), m.group(1))
-            tmpl = re.search(r"ILi(\d+)E", m.group(1))  # template argument
+            # template arguments: <int> or <type, int>
+            tmpl = re.search(r"I(f|13__nv_bfloat16)?Li(\d+)E", m.group(1))
             if tmpl:
-                name += f"<{tmpl.group(1)}>"
+                ty = {"f": "float, ", "13__nv_bfloat16": "bf16, "}.get(tmpl.group(1), "")
+                name += f"<{ty}{tmpl.group(2)}>"
         if "spill stores" in line and name:
             out.append(f"  {name}: {line.split('ptxas info    :')[-1].strip()}")
         if "Used" in line and "registers" in line and name:
@@ -103,26 +119,45 @@ def _sources() -> list[str]:
 
 
 def _build(so_path: str) -> None:
+    """One nvcc per source, all at once, then one link into ``so_path``."""
     os.makedirs(_BUILD_DIR, exist_ok=True)
-    tmp = f"{so_path}.tmp{os.getpid()}"
+    tag = f"tmp{os.getpid()}"
     units = [p for p in _sources() if p.endswith(".cu")]
-    cmd = [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", tmp, *units]
+    objs = [os.path.join(_BUILD_DIR, f"{os.path.basename(u)[:-3]}.{tag}.o") for u in units]
+    tmp = f"{so_path}.{tag}"
     t0 = time.perf_counter()
     try:
-        proc = subprocess.run(
-            cmd, capture_output=True, text=True, timeout=_BUILD_TIMEOUT_S
-        )
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{proc.stderr[-4000:]}"
-            )
+        procs = [
+            subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o", o, u],
+                             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            for u, o in zip(units, objs)
+        ]
+        logs, failed = [], []
+        for u, proc in zip(units, procs):
+            try:
+                out, err = proc.communicate(timeout=_BUILD_TIMEOUT_S)
+            except subprocess.TimeoutExpired:
+                for p in procs:
+                    p.kill()
+                raise RuntimeError(f"nvcc took over {_BUILD_TIMEOUT_S} s on {u}")
+            logs.append(out + err)
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed ({proc.returncode}) on {u}:\n{err[-4000:]}")
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        link = subprocess.run([_nvcc(), "-shared", "-Xcompiler", "-fPIC", "-o", tmp, *objs],
+                              capture_output=True, text=True, timeout=_BUILD_TIMEOUT_S)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({link.returncode}):\n{link.stderr[-4000:]}")
         os.replace(tmp, so_path)
     finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
+        for path in (*objs, tmp):
+            if os.path.exists(path):
+                os.remove(path)
     dt = time.perf_counter() - t0
-    print(f"[lac_tpu_torch] built {os.path.basename(so_path)} with nvcc in {dt:.2f} s")
-    summary = _ptxas_summary(proc.stderr + proc.stdout)
+    print(f"[lac_tpu_torch] built {os.path.basename(so_path)} with {len(units)} parallel "
+          f"nvcc calls and a link in {dt:.2f} s")
+    summary = _ptxas_summary("\n".join(logs))
     if summary:
         print(summary)
 

@@ -9,6 +9,14 @@ library. The constants are the crc32 and length of the containers that
 is bit-identical to the Pallas path) writes for the 32 MiB corpus;
 ``tests/test_torch_golden.py`` recomputes them on the CPU, and
 ``chip_smoke.py`` holds the card's containers to them.
+
+``GOLDEN_LM`` is the training slice's golden: the mean causal loss in nats
+that ``lac_tpu.train.lm_loss`` (exact attention branch, on the CPU) gives
+for the shipped ``checkpoints/byte6l-pysrc.npz`` on ``lm_windows()``, 8
+windows of 769 bytes of the first MiB of the corpus.
+``tests/test_torch_train.py`` recomputes it with ``lac_tpu``, and
+``chip_smoke.py`` holds the port's loss on the card to it, with the fused
+attention kernels and with the exact branch.
 """
 
 from __future__ import annotations
@@ -17,7 +25,10 @@ import glob
 import os
 import zlib
 
-__all__ = ["SMOKE_BYTES", "GOLDEN", "smoke_corpus", "container_digest"]
+import numpy as np
+
+__all__ = ["SMOKE_BYTES", "GOLDEN", "GOLDEN_LM", "LM_CHECKPOINT", "smoke_corpus",
+           "container_digest", "lm_windows"]
 
 SMOKE_BYTES = 32 << 20  # bench.py's corpus size
 
@@ -34,6 +45,11 @@ GOLDEN = {
     # order0n at block 8192, which its codec gate records as order0c
     ("order0c", 8192): (3279822040, 20531251),
 }
+
+# checkpoint name -> lac_tpu's mean loss (nats) on lm_windows()
+GOLDEN_LM = {"byte6l-pysrc": 1.636552095413208}
+LM_CHECKPOINT = "checkpoints/byte6l-pysrc.npz"
+LM_WINDOWS, LM_WINDOW = 8, 769
 
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -56,3 +72,12 @@ def smoke_corpus(n: int = SMOKE_BYTES, root: str = _REPO) -> bytes:
 
 def container_digest(container: bytes) -> tuple[int, int]:
     return zlib.crc32(container), len(container)
+
+
+def lm_windows(root: str = _REPO) -> np.ndarray:
+    """[LM_WINDOWS, LM_WINDOW] int32 token windows of the first MiB of the
+    smoke corpus, at starts ``i * ((len - LM_WINDOW) // LM_WINDOWS)``."""
+    arr = np.frombuffer(smoke_corpus(1 << 20, root), dtype=np.uint8)
+    stride = (len(arr) - LM_WINDOW) // LM_WINDOWS
+    return np.stack([arr[i * stride : i * stride + LM_WINDOW]
+                     for i in range(LM_WINDOWS)]).astype(np.int32)

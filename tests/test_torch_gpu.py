@@ -104,3 +104,92 @@ def test_cuda_tensor_raises_when_the_build_fails(cuda, monkeypatch):
     with pytest.raises(RuntimeError, match="nvcc failed"):
         rk.o0n_encode_intervals(torch.zeros((4, 2), dtype=torch.uint8, device=cuda), RATE)
     assert rk.launches == before
+
+
+# --------------------------------------------------------------------------
+# K10-K12, the causal attention of the training path (ops/attention.py).
+# Tolerance, as max |kernel - plain| / max(max |plain|, 1): 1e-4 in f32
+# (the same f32 math summed in another order) and 1e-2 in bf16 (the outputs
+# are rounded once to bf16, 2^-8 of the largest value); lse 1e-4 absolute.
+# --------------------------------------------------------------------------
+
+
+def _attn_inputs(b, h, s, d, dtype, layout, cuda, seed=0):
+    g = torch.Generator().manual_seed(seed)
+
+    def one():
+        x = (torch.randn(b, s, h, d, generator=g) * 2.0).to(dtype).to(cuda)
+        return x.transpose(1, 2) if layout == "bshd" else x.transpose(1, 2).contiguous()
+
+    return one(), one(), one(), one()
+
+
+def _attn_rel(a, b):
+    return float((a.float() - b.float()).abs().max() / max(b.float().abs().max().item(), 1.0))
+
+
+@pytest.mark.parametrize("layout", ["bshd", "bhsd"])
+@pytest.mark.parametrize("b,h,s,d,dtype", [
+    (2, 4, 1024, 64, torch.bfloat16), (1, 3, 257, 128, torch.bfloat16),
+    (2, 2, 130, 64, torch.float32), (1, 2, 1000, 128, torch.float32),
+    (1, 1, 1, 64, torch.float32), (1, 2, 7, 128, torch.bfloat16),
+])
+def test_attention_kernels_equal_plain_versions(cuda, b, h, s, d, dtype, layout):
+    from lac_tpu_torch.ops import attention as A
+
+    q, k, v, do = _attn_inputs(b, h, s, d, dtype, layout, cuda, seed=s + d)
+    scale = d ** -0.5
+    tol = 1e-4 if dtype == torch.float32 else 1e-2
+    before = dict(A.launches)
+    o, lse = A.causal_attn_fwd(q, k, v, scale)
+    po, plse = A.attention_plain_fwd(q, k, v, scale)
+    assert o.dtype == dtype and o.stride() == q.stride()
+    assert _attn_rel(o, po) <= tol and float((lse - plse).abs().max()) <= 1e-4
+    di = A._di(po, do)
+    dk, dv = A.causal_attn_bwd_dkv(q, k, v, do, plse, di, scale)
+    pdk, pdv = A.attention_plain_bwd_dkv(q, k, v, do, plse, di, scale)
+    dq = A.causal_attn_bwd_dq(q, k, v, do, plse, di, scale)
+    pdq = A.attention_plain_bwd_dq(q, k, v, do, plse, di, scale)
+    torch.cuda.synchronize()
+    for got, want in ((dq, pdq), (dk, pdk), (dv, pdv)):
+        assert _attn_rel(got, want) <= tol
+    assert {n: A.launches[n] - before[n] for n in before} == {
+        "causal_attn_fwd": 1, "causal_attn_bwd_dkv": 1, "causal_attn_bwd_dq": 1}
+    # the same bits on a second run: no atomics
+    assert torch.equal(A.causal_attn_bwd_dkv(q, k, v, do, plse, di, scale)[0], dk)
+
+
+def test_attention_kernels_refuse_other_head_dims(cuda):
+    from lac_tpu_torch.ops import attention as A
+
+    q = torch.zeros(1, 1, 8, 32, device=cuda)
+    with pytest.raises(ValueError, match="head dim"):
+        A.causal_attn_fwd(q, q, q, 1.0)
+
+
+@pytest.mark.parametrize("impl", ["flash", "splash"])
+def test_fused_training_loss_runs_the_kernels(cuda, impl):
+    """lm_loss(fused=True) on the card: K10 twice a layer (remat) and K11,
+    K12 once a layer, near the exact branch's loss."""
+    from lac_tpu_torch.models import transformer as T
+    from lac_tpu_torch.ops import attention as A
+    from lac_tpu_torch.train import lm_loss
+
+    cfg = T.tiny_config(d_model=256, n_heads=4, n_kv_heads=4, max_seq=300)
+    model = T.init_params(cfg, seed=0, device=cuda)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(0, 256, (2, 257))).to(cuda)
+    old = T._FUSED["impl"]
+    T._FUSED["impl"] = impl
+    try:
+        A.reset_launches()
+        loss = lm_loss(cfg, model, toks, fused=True)
+        loss.backward()
+        torch.cuda.synchronize()
+        assert A.launches == {"causal_attn_fwd": 2 * cfg.n_layers,
+                              "causal_attn_bwd_dkv": cfg.n_layers,
+                              "causal_attn_bwd_dq": cfg.n_layers}
+    finally:
+        T._FUSED["impl"] = old
+    with torch.no_grad():
+        exact = lm_loss(cfg, model, toks)
+    assert abs(loss.item() - exact.item()) <= 1e-4
