@@ -5,7 +5,9 @@ import faulthandler; faulthandler.dump_traceback_later(900, exit=True)  # noqa: 
 #   python3 chip_smoke.py
 #
 # Phase 0  the card's name and power limit; build the CUDA kernels; the
-#          launch shape of the order1n/order2n kernels.
+#          launch shape of the order1n/order2n kernels; the HGMMA (wgmma)
+#          instructions in each kernel's SASS (cuobjdump -sass): the bf16
+#          K10 and K11 must have some, K12 and the f32 kernels have none.
 # Phase 1  each kernel against its plain PyTorch version on the card, at the
 #          shapes the main path gives it: T = 4096 and 1024 steps, with one
 #          lane per block of the 32 MiB corpus (B = 8192 and 32768): corpus
@@ -18,7 +20,9 @@ import faulthandler; faulthandler.dump_traceback_later(900, exit=True)  # noqa: 
 #          decodes in chunks). K10-K12 at the training shape (B 64, H 8,
 #          S 1024, D 64, bf16, the model's [B, S, H, D] storage) and at
 #          B 16, then S 1000 and 257, D 128, f32 and the [B, H, S, D]
-#          storage.
+#          storage; then bf16 at the tile edges of the tensor-core K10 and
+#          K11, S 1, 63, 64, 65, 127, 128 and 129 at D 64 and 128 in both
+#          storage orders.
 # Phase 2  the main path of each model through its entry points, on the
 #          32 MiB smoke corpus: the CLI at block 4096 (order0n at its
 #          defaults, then --model order1n, order2n and order0c), then
@@ -29,9 +33,12 @@ import faulthandler; faulthandler.dump_traceback_later(900, exit=True)  # noqa: 
 #          coder gives (lac_tpu_torch/smoke.py). The kernels' launch counts
 #          are zeroed just before each path and read just after it.
 #          Then the training path (slice 4), its attention through K10-K12
-#          (ops/csrc/causal_attn.cu): the shipped byte-6l checkpoint's loss
-#          on smoke.lm_windows() through the kernels (_FUSED "flash", then
-#          "splash") and the exact branch, each within 2e-3 nats of
+#          (bf16 K10 and K11 in ops/csrc/causal_attn_sm90.cu, K12 in
+#          ops/csrc/causal_attn.cu; the byte-16l run must launch the
+#          tensor-core entry points, and no scalar K10 or K11): the
+#          shipped byte-6l checkpoint's loss on smoke.lm_windows() through
+#          the kernels (_FUSED "flash", then "splash") and the exact
+#          branch, each within 2e-3 nats of
 #          smoke.GOLDEN_LM; byte-16l at full width (d 512, 16 layers, 8
 #          heads of 64, d_ff 2048; the recipe of tools/train_byte16l.py,
 #          batch 64 x seq 1024, lr 3e-4, seed 0, max_seq 2048) trained 8
@@ -127,7 +134,35 @@ SOURCE = {name: "lac_tpu_torch/ops/csrc/" + (
     else "ctx_nib_rans32.cu") for name in OPS_PER_SYMBOL}
 # K10-K12, the training path's causal attention (ops/attention.py)
 ATTN = ("causal_attn_fwd", "causal_attn_bwd_dkv", "causal_attn_bwd_dq")
-SOURCE.update({name: "lac_tpu_torch/ops/csrc/causal_attn.cu" for name in ATTN})
+# the main path's type is bf16: K10 and K11 run on the tensor cores there
+# (f32 inputs take causal_attn.cu's scalar K10 and K11)
+SOURCE.update({"causal_attn_fwd": "lac_tpu_torch/ops/csrc/causal_attn_sm90.cu",
+               "causal_attn_bwd_dkv": "lac_tpu_torch/ops/csrc/causal_attn_sm90.cu",
+               "causal_attn_bwd_dq": "lac_tpu_torch/ops/csrc/causal_attn.cu"})
+# the entry point each kernel's bf16 run launches
+ATTN_SYMBOL = {"causal_attn_fwd": "lac_attn_fwd_sm90",
+               "causal_attn_bwd_dkv": "lac_attn_bwd_dkv_sm90",
+               "causal_attn_bwd_dq": "lac_attn_bwd_dq"}
+# PR 7's scalar K10 and K11 at the training shape (CUDA events; H100 80GB
+# HBM3, 700.00 W; PERF.md section 6)
+EARLIER_MS = {"causal_attn_fwd": 3.435, "causal_attn_bwd_dkv": 6.082}
+
+
+def sm90_smem_bytes(name: str, d: int) -> int:
+    """Dynamic shared bytes a block of the tensor-core K10 or K11 at head dim
+    d (fwd_smem and dkv_smem of causal_attn_sm90.cu): 1024 of alignment, the
+    bf16 tiles (K10: Q of 128 rows, 2 stages of K and V of 128 keys; K11: K
+    and V of 128 keys, 2 stages of Q and dO of 64 queries with their f32 lse
+    and di) and 5 mbarriers."""
+    if name == "causal_attn_fwd":
+        return 1024 + 128 * d * 2 + 2 * 2 * 128 * d * 2 + 5 * 8
+    return 1024 + 2 * 128 * d * 2 + 2 * (2 * 64 * d * 2 + 2 * 64 * 4) + 5 * 8
+
+
+# kernels that must contain HGMMA: the bf16 K10 and K11 at D 64 and 128
+WGMMA_KERNELS = tuple(f"{k}<{d}>" for k in ("causal_attn_fwd_sm90_kernel",
+                                           "causal_attn_bwd_dkv_sm90_kernel")
+                      for d in (64, 128))
 # the JAX library Pallas kernels that lac_tpu's training attention reaches
 # (JAX 0.9.0, jax/experimental/pallas/ops/tpu/; via lac_tpu/models/
 # transformer.py:706-768); splash's are the same three at scale 1
@@ -147,6 +182,11 @@ ATTN_SHAPES = (
     (4, 4, 257, 128, "bf16", "bshd"),
     (4, 8, 1000, 128, "f32", "bshd"),
     (4, 4, 257, 64, "f32", "bhsd"),
+    # the tile edges of the tensor-core K10 (128 queries, 128-key stages)
+    # and K11 (128 keys, 64-query stages): every case of the causal mask and
+    # of a ragged last tile
+    *((2, 2, s, d, "bf16", layout) for s in (1, 63, 64, 65, 127, 128, 129)
+      for d in (64, 128) for layout in ("bshd", "bhsd")),
 )
 ATTN_TOL = {"bf16": 1e-2, "f32": 1e-4}
 LSE_TOL = 1e-4
@@ -546,7 +586,8 @@ def phase2_train(torch, T, A, ttrain, registry, corpus, work, dev):
             restore()
         torch.cuda.synchronize()
         runs[impl] = dict(params=params, losses=losses, launches=dict(A.launches),
-                          ms=times, peak=torch.cuda.max_memory_allocated())
+                          symbols=dict(A.symbol_launches), ms=times,
+                          peak=torch.cuda.max_memory_allocated())
         med = float(np.median(times[1:]))
         print(f"byte-16l {impl}: losses {[round(x, 5) for x in losses]}; step ms "
               f"{[round(x, 1) for x in times]}, median of steps 1-{len(times) - 1} {med:.1f} "
@@ -569,6 +610,11 @@ def phase2_train(torch, T, A, ttrain, registry, corpus, work, dev):
     want = {"causal_attn_fwd": steps * 2 * n + evals * n, "causal_attn_bwd_dkv": steps * n,
             "causal_attn_bwd_dq": steps * n}
     check(fl["launches"] == want, f"byte-16l launches {fl['launches']}, expected {want}")
+    # bf16 training: K10 and K11 are the tensor-core entry points, all of them
+    want_sym = {ATTN_SYMBOL[k]: n for k, n in want.items()}
+    got_sym = {k: n for k, n in fl["symbols"].items() if n}
+    check(got_sym == want_sym, f"byte-16l entry points {got_sym}, expected {want_sym}")
+    print(f"byte-16l flash entry points: {got_sym}", flush=True)
     check(set(bs["launches"].values()) == {0}, f"bf16s launched kernels: {bs['launches']}")
     lcfg, loaded = ttrain.load_checkpoint(ckpt)
     check(lcfg == dataclasses.replace(cfg, max_seq=TRAIN["seq"]), f"saved config {lcfg}")
@@ -616,7 +662,7 @@ def attn_bounds(b, h, s, d, dtype) -> dict:
         t_ops = 1e3 * flops / PEAK_FLOPS[dtype]
         out[name] = {"bound_ms": max(t_bytes, t_ops),
                      "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-                     "t_bytes": t_bytes, "t_ops": t_ops}
+                     "t_bytes": t_bytes, "t_ops": t_ops, "flops": flops}
     return out
 
 
@@ -656,7 +702,12 @@ def attn_times(torch, A, dev, cfg):
         print(f"kernel {name} B={b} H={h} S={s} D={d} bf16: {ms[name]:.3f} ms, bound "
               f"{bounds[name]['bound_ms']:.4f} ms by {bounds[name]['bound_by']} (bytes "
               f"{bounds[name]['t_bytes']:.4f} ms, ops {bounds[name]['t_ops']:.4f} ms); "
-              f"plain {plain[name]:.1f} ms; sdpa {library[name]:.3f} ms", flush=True)
+              f"{bounds[name]['flops'] / ms[name] / 1e9:.1f} TFLOP/s of the function's "
+              f"{bounds[name]['flops'] / 1e9:.2f} GFLOP; "
+              f"plain {plain[name]:.1f} ms; sdpa {library[name]:.3f} ms"
+              + (f"; PR 7's scalar kernel {EARLIER_MS[name]} ms, "
+                 f"{EARLIER_MS[name] / ms[name]:.2f}x" if name in EARLIER_MS else ""),
+              flush=True)
     print(f"sdpa forward {sdpa_f:.3f} ms, backward {sdpa_b:.3f} ms; K10-K12 "
           f"{sum(ms.values()):.3f} ms", flush=True)
     return out
@@ -700,10 +751,21 @@ def main() -> int:
             print(f"order1n/order2n kernels: {lib.lac_ctx_lanes()} lanes a block, "
                   f"{lib.lac_ctx_shared_bytes(16)} / {lib.lac_ctx_shared_bytes(64)} "
                   f"shared bytes a block")
+            for name in ATTN[:2]:
+                print(f"{name} bf16 (tensor cores): 384 threads, "
+                      f"{sm90_smem_bytes(name, 64)} / {sm90_smem_bytes(name, 128)} dynamic "
+                      f"shared bytes a block at D 64 / 128")
             for kid, name in zip((10, 11, 12), ATTN):
-                print(f"{name}: 256 threads, {lib.lac_attn_smem_bytes(kid, 64)} / "
+                print(f"{name} {'f32' if kid < 12 else 'bf16 and f32'} (scalar): 256 threads, "
+                      f"{lib.lac_attn_smem_bytes(kid, 64)} / "
                       f"{lib.lac_attn_smem_bytes(kid, 128)} dynamic shared bytes a block "
                       f"at D 64 / 128")
+            hgmma = _build.sass_counts(lib, "HGMMA")
+            print(f"HGMMA instructions in each kernel's SASS: {hgmma}")
+            for name in WGMMA_KERNELS:
+                check(hgmma.get(name, 0) > 0, f"{name} has no HGMMA in its SASS")
+            print(f"kernels without HGMMA (K12, the f32 K10 and K11, the codecs): "
+                  f"{sorted(k for k, n in hgmma.items() if n == 0)}")
             corpus = smoke.smoke_corpus()
             check(len(corpus) == smoke.SMOKE_BYTES, "corpus length")
             print(f"corpus {len(corpus)} bytes, crc32 {zlib.crc32(corpus)}")

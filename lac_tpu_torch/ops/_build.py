@@ -3,7 +3,8 @@
 The JAX package has no counterpart: Pallas compiles its kernels inside
 ``jax.jit``. Here the ``csrc/*.cu`` files (plain C entry points, no PyTorch
 header; ``o0n_rans32.cu``, ``ctx_nib_rans32.cu`` and ``o0c_rans32.cu``,
-which share ``nib_model.cuh``, and ``causal_attn.cu``) are compiled on
+which share ``nib_model.cuh``, ``causal_attn.cu``, and
+``causal_attn_sm90.cu`` with its PTX wrappers in ``sm90.cuh``) are compiled on
 first use, one ``nvcc`` process per source, all started together,
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -Xcompiler -fPIC -c
@@ -31,7 +32,7 @@ import subprocess
 import threading
 import time
 
-__all__ = ["load_library", "NVCC_FLAGS"]
+__all__ = ["load_library", "sass_counts", "NVCC_FLAGS"]
 
 _OPS_DIR = os.path.dirname(os.path.abspath(__file__))
 _CSRC = os.path.join(_OPS_DIR, "csrc")
@@ -64,21 +65,28 @@ _SIGNATURES = {
     # bytes a block for a lo-context count
     "lac_ctx_lanes": (),
     "lac_ctx_shared_bytes": (_I,),
-    # q, k, v, o, lse, B, H, S, D, sh, ss, scale, bf16, stream
-    "lac_attn_fwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _F, _I, _P),
-    # q, k, v, dO, lse, di, dk, dv, B, H, S, D, sh, ss, scale, bf16, stream
-    "lac_attn_bwd_dkv": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _F, _I, _P),
+    # f32 K10/K11: q, k, v, o, lse, B, H, S, D, sh, ss, scale, stream
+    "lac_attn_fwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _F, _P),
+    # q, k, v, dO, lse, di, dk, dv, B, H, S, D, sh, ss, scale, stream
+    "lac_attn_bwd_dkv": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _F, _P),
     # q, k, v, dO, lse, di, dq, B, H, S, D, sh, ss, scale, bf16, stream
     "lac_attn_bwd_dq": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _F, _I, _P),
     # dynamic shared bytes a block of K10/K11/K12 (10, 11, 12) at head dim D
     "lac_attn_smem_bytes": (_I, _I),
+    # bf16 K10/K11 on the tensor cores; ss, sh, sb are byte strides
+    # q, k, v, o, lse, B, H, S, D, ss, sh, sb, scale, stream
+    "lac_attn_fwd_sm90": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _L, _F, _P),
+    # q, k, v, dO, lse, di, dk, dv, B, H, S, D, ss, sh, sb, scale, stream
+    "lac_attn_bwd_dkv_sm90": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _L, _F,
+                              _P),
 }
 
 _KERNELS = ("o0n_intervals_kernel", "rans32_encode_kernel", "o0n_decode_kernel",
             "ctx_intervals_kernel", "ctx_decode_kernel",
             "o0c_intervals_kernel", "o0c_decode_kernel",
             "causal_attn_fwd_kernel", "causal_attn_bwd_dkv_kernel",
-            "causal_attn_bwd_dq_kernel")
+            "causal_attn_bwd_dq_kernel", "causal_attn_fwd_sm90_kernel",
+            "causal_attn_bwd_dkv_sm90_kernel")
 
 _lock = threading.Lock()
 _lib = None
@@ -95,23 +103,51 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found (looked on PATH and in $CUDA_HOME/bin)")
 
 
+def _kernel_label(mangled: str) -> str:
+    """A kernel's short name with its template arguments, e.g.
+    ``causal_attn_fwd_kernel<bf16, 64>``, from its mangled symbol."""
+    name = next((k for k in _KERNELS if k in mangled), mangled)
+    # template arguments: <int> or <type, int>
+    tmpl = re.search(r"I(f|13__nv_bfloat16)?Li(\d+)E", mangled)
+    if tmpl:
+        ty = {"f": "float, ", "13__nv_bfloat16": "bf16, "}.get(tmpl.group(1), "")
+        name += f"<{ty}{tmpl.group(2)}>"
+    return name
+
+
 def _ptxas_summary(log: str) -> str:
-    """One line per kernel: registers, shared memory and spill bytes."""
+    """One line per kernel: registers, shared memory and spill bytes; and
+    every ptxas warning (a setmaxnreg that ptxas ignored shows here)."""
     out, name = [], None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
         if m:
-            name = next((k for k in _KERNELS if k in m.group(1)), m.group(1))
-            # template arguments: <int> or <type, int>
-            tmpl = re.search(r"I(f|13__nv_bfloat16)?Li(\d+)E", m.group(1))
-            if tmpl:
-                ty = {"f": "float, ", "13__nv_bfloat16": "bf16, "}.get(tmpl.group(1), "")
-                name += f"<{ty}{tmpl.group(2)}>"
+            name = _kernel_label(m.group(1))
+        if "warning" in line:
+            out.append(f"  {line.strip()}")
         if "spill stores" in line and name:
             out.append(f"  {name}: {line.split('ptxas info    :')[-1].strip()}")
         if "Used" in line and "registers" in line and name:
             out.append(f"  {name}: {line.split('ptxas info    :')[-1].strip()}")
     return "\n".join(out)
+
+
+def sass_counts(lib: ctypes.CDLL, opcode: str) -> dict:
+    """{kernel label: the number of ``opcode`` instructions in its SASS}, for
+    every kernel of the built library ``lib``, from ``cuobjdump -sass``
+    (which comes with the toolkit, beside nvcc)."""
+    tool = os.path.join(os.path.dirname(_nvcc()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", lib._name], capture_output=True, text=True,
+                          timeout=_BUILD_TIMEOUT_S, check=True).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = _kernel_label(m.group(1))
+            counts[name] = 0
+        elif name is not None and re.search(rf"\b{opcode}\b", line):
+            counts[name] += 1
+    return counts
 
 
 def _sources() -> list[str]:

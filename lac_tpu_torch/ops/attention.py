@@ -20,17 +20,26 @@ multiplied by the scale, so it is this function with ``scale = 1``.
   it outside its kernels (``flash_attention.py:273-275``).
 
 Tensors are ``[B, H, S, D]`` with the last dimension contiguous; ``lse`` and
-``di`` are ``[B, H, S]`` f32. The kernels (``csrc/causal_attn.cu``) take
-the ``[B, H, S, D]`` and ``[B, S, H, D]`` storage orders without a copy
-(the model hands them views of its ``[B, S, H, D]`` projections); any
-other layout is copied into ``[B, H, S, D]`` first. Inputs are bf16 or
-f32, head dim 64 or 128 on the card; outputs take the input type.
+``di`` are ``[B, H, S]`` f32. The kernels take the ``[B, H, S, D]`` and
+``[B, S, H, D]`` storage orders without a copy (the model hands them views
+of its ``[B, S, H, D]`` projections); any other layout is copied into
+``[B, H, S, D]`` first. Inputs are bf16 or f32, head dim 64 or 128 on the
+card; outputs take the input type.
+
+Which kernel a CUDA tensor launches is fixed by its type, not tried:
+bf16 K10 and K11 run on the tensor cores (``csrc/causal_attn_sm90.cu``:
+wgmma, TMA, mbarriers), f32 K10 and K11 and K12 of both types on the
+scalar kernels of ``csrc/causal_attn.cu`` (tensor cores on f32 would mean
+TF32). The tensor-core kernels read their operands through TMA maps, whose
+byte strides ``tma_strides`` computes and checks.
 
 A wrapper runs its plain version only for tensors on the CPU, where any
 head dim works. For CUDA tensors it launches its kernel or raises; it
-never falls back. ``launches[name]`` counts the kernel's launches and
-nothing else. The plain versions use explicit f32 math, and the backward
-recomputes ``P = exp(s * scale - lse)`` as the kernels do.
+never falls back. ``launches[name]`` counts the kernel's launches, both
+variants of K10 and K11 alike, and nothing else; ``symbol_launches``
+counts them by the C entry point launched. The plain versions use
+explicit f32 math, and the backward recomputes ``P = exp(s * scale -
+lse)`` as the kernels do.
 """
 
 from __future__ import annotations
@@ -51,7 +60,9 @@ __all__ = [
     "attention_plain_bwd_dkv",
     "attention_plain_bwd_dq",
     "launches",
+    "symbol_launches",
     "reset_launches",
+    "tma_strides",
     "KERNEL_HEAD_DIMS",
 ]
 
@@ -59,11 +70,16 @@ KERNEL_HEAD_DIMS = (64, 128)
 _DTYPES = (torch.float32, torch.bfloat16)
 
 launches = {"causal_attn_fwd": 0, "causal_attn_bwd_dkv": 0, "causal_attn_bwd_dq": 0}
+# by entry point: the scalar kernels (lac_attn_*) and the tensor-core ones
+# (lac_attn_*_sm90)
+symbol_launches = {s: 0 for s in ("lac_attn_fwd", "lac_attn_fwd_sm90", "lac_attn_bwd_dkv",
+                                  "lac_attn_bwd_dkv_sm90", "lac_attn_bwd_dq")}
 
 
 def reset_launches() -> None:
-    for k in launches:
-        launches[k] = 0
+    for counts in (launches, symbol_launches):
+        for k in counts:
+            counts[k] = 0
 
 
 # --------------------------------------------------------------------------
@@ -191,22 +207,44 @@ def _rows(t, shape, name):
     return t.contiguous()
 
 
-def _launch(name: str, device: torch.device, *args) -> None:
-    """Call ``lac_attn_<name>`` on the device's current stream; raise on any
-    non-zero cudaError_t. Counts the launch."""
+def tma_strides(st, q, *ts) -> tuple:
+    """Byte strides (ss, sh, sb) of a position, a head and a batch of ``q``
+    [B, H, S, D], stored as ``st = _strides(q)`` says, for the TMA maps of
+    the tensor-core kernels; ``ts`` share q's storage order. TMA takes only
+    strides that are multiples of 16 bytes and base addresses aligned to 16
+    bytes: anything else raises."""
+    _, h, s, d = q.shape
+    es = q.element_size()
+    out = (st[1] * es, st[0] * es, h * s * d * es)
+    if any(x % 16 for x in out):
+        raise ValueError(f"TMA needs byte strides that are multiples of 16, got (position, "
+                         f"head, batch) = {out}")
+    for x in (q, *ts):
+        if x.data_ptr() % 16:
+            raise ValueError(f"TMA needs 16-byte-aligned tensors, got address {x.data_ptr():#x}")
+    return out
+
+
+def _launch(symbol: str, name: str, device: torch.device, *args) -> None:
+    """Call ``symbol`` on the device's current stream; raise on any non-zero
+    return (a cudaError_t, or 1000 + a CUresult from a TMA map). Counts the
+    launch under kernel ``name`` and under ``symbol``."""
     lib = _build.load_library()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        rc = getattr(lib, f"lac_attn_{name}")(*args, stream)
+        rc = getattr(lib, symbol)(*args, stream)
     if rc != 0:
-        raise RuntimeError(f"causal_attn_{name} kernel launch failed: cudaError_t {rc}")
-    launches[f"causal_attn_{name}"] += 1
+        raise RuntimeError(f"{name} kernel launch ({symbol}) failed: error {rc}")
+    launches[name] += 1
+    symbol_launches[symbol] += 1
 
 
 def _dims(q, st, scale):
-    b, h, s, d = q.shape
-    return (b, h, s, d, st[0], st[1], ctypes.c_float(float(scale)),
-            int(q.dtype == torch.bfloat16))
+    return (*q.shape, *st, ctypes.c_float(float(scale)))
+
+
+def _dims_sm90(q, st, tensors, scale):
+    return (*q.shape, *tma_strides(st, q, *tensors), ctypes.c_float(float(scale)))
 
 
 def causal_attn_fwd(q, k, v, scale: float):
@@ -219,9 +257,14 @@ def causal_attn_fwd(q, k, v, scale: float):
     b, h, s, _ = q.shape
     o = torch.empty_like(q)
     lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
-    if q.numel():
-        _launch("fwd", q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                lse.data_ptr(), *_dims(q, st, scale))
+    if not q.numel():
+        return o, lse
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr())
+    if q.dtype == torch.bfloat16:
+        _launch("lac_attn_fwd_sm90", "causal_attn_fwd", q.device, *ptrs,
+                *_dims_sm90(q, st, (k, v, o), scale))
+    else:
+        _launch("lac_attn_fwd", "causal_attn_fwd", q.device, *ptrs, *_dims(q, st, scale))
     return o, lse
 
 
@@ -233,9 +276,15 @@ def causal_attn_bwd_dkv(q, k, v, do, lse, di, scale: float):
     q, (k, v, do), st = _kernel_args(q, k, v, do)
     lse, di = _rows(lse, q.shape[:3], "lse"), _rows(di, q.shape[:3], "di")
     dk, dv = torch.empty_like(q), torch.empty_like(q)
-    if q.numel():
-        _launch("bwd_dkv", q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-                lse.data_ptr(), di.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+    if not q.numel():
+        return dk, dv
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+            di.data_ptr(), dk.data_ptr(), dv.data_ptr())
+    if q.dtype == torch.bfloat16:
+        _launch("lac_attn_bwd_dkv_sm90", "causal_attn_bwd_dkv", q.device, *ptrs,
+                *_dims_sm90(q, st, (k, v, do, dk, dv), scale))
+    else:
+        _launch("lac_attn_bwd_dkv", "causal_attn_bwd_dkv", q.device, *ptrs,
                 *_dims(q, st, scale))
     return dk, dv
 
@@ -249,8 +298,9 @@ def causal_attn_bwd_dq(q, k, v, do, lse, di, scale: float):
     lse, di = _rows(lse, q.shape[:3], "lse"), _rows(di, q.shape[:3], "di")
     dq = torch.empty_like(q)
     if q.numel():
-        _launch("bwd_dq", q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-                lse.data_ptr(), di.data_ptr(), dq.data_ptr(), *_dims(q, st, scale))
+        _launch("lac_attn_bwd_dq", "causal_attn_bwd_dq", q.device, q.data_ptr(), k.data_ptr(),
+                v.data_ptr(), do.data_ptr(), lse.data_ptr(), di.data_ptr(), dq.data_ptr(),
+                *_dims(q, st, scale), int(q.dtype == torch.bfloat16))
     return dq
 
 

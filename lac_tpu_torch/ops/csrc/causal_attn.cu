@@ -26,14 +26,18 @@
 // caller's, in f32, as the library computes it outside its kernels).
 // A masked score is -inf before the exponential, so it adds exactly 0.
 //
+// Which inputs run here: K12 for bf16 and f32 inputs, K10 and K11 for f32
+// inputs only. bf16 K10 and K11 run on the tensor cores
+// (causal_attn_sm90.cu); f32 stays on these kernels because tensor cores on
+// f32 inputs mean TF32, which the f32 tolerance of 1e-4 does not admit.
+//
 // Bound on this card at the training shape (B 64, H 8, S 1024, D 64, bf16):
 // the operations, 2, 4 and 3 causal products of B H D S (S + 1) flops each
 // at the tensor cores' bf16 rate, against 270-410 MB of traffic (derived in
 // chip_smoke.py); K10 is bound by its bytes, K11 and K12 by operations. These kernels
 // are the simple version: every product is scalar f32 FMAs on the CUDA
 // cores, not wgmma, so they are bound by shared-memory loads and FMA issue,
-// far from that bound. Redesigning them for the tensor cores (wgmma, TMA)
-// is later work.
+// far from that bound. K12's redesign for the tensor cores is later work.
 //
 // Design: a block is 256 threads, a 16 x 16 grid (ty, tx), and works on
 // 64-row tiles. Every product of two tiles in shared memory (f32, rows
@@ -452,35 +456,40 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout, con
   return (int)cudaGetLastError();
 }
 
-// (bf16, D) -> the instantiation; anything else is cudaErrorInvalidValue
-#define LAC_ATTN_DISPATCH(FN, ...)                                              \
+// (T, D) -> the instantiation; any other D, or an empty shape, is
+// cudaErrorInvalidValue
+#define LAC_ATTN_DISPATCH(T, FN, ...)                                           \
   if (S <= 0 || B <= 0 || H <= 0) return (int)cudaErrorInvalidValue;            \
-  if (bf16 && D == 64) return FN<__nv_bfloat16, 64>(__VA_ARGS__);               \
-  if (bf16 && D == 128) return FN<__nv_bfloat16, 128>(__VA_ARGS__);             \
-  if (!bf16 && D == 64) return FN<float, 64>(__VA_ARGS__);                      \
-  if (!bf16 && D == 128) return FN<float, 128>(__VA_ARGS__);                    \
+  if (D == 64) return FN<T, 64>(__VA_ARGS__);                                   \
+  if (D == 128) return FN<T, 128>(__VA_ARGS__);                                 \
   return (int)cudaErrorInvalidValue;
 
 }  // namespace
 
 extern "C" {
 
+// K10 and K11 take f32 only: bf16 K10 and K11 are causal_attn_sm90.cu's
 int lac_attn_fwd(const void* q, const void* k, const void* v, void* o, void* lse, int B, int H,
-                 int S, int D, long long sh, long long ss, float scale, int bf16, void* stream) {
-  LAC_ATTN_DISPATCH(launch_fwd, q, k, v, o, lse, B, H, S, sh, ss, scale, (cudaStream_t)stream)
+                 int S, int D, long long sh, long long ss, float scale, void* stream) {
+  LAC_ATTN_DISPATCH(float, launch_fwd, q, k, v, o, lse, B, H, S, sh, ss, scale,
+                    (cudaStream_t)stream)
 }
 
 int lac_attn_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
                      const void* lse, const void* di, void* dk, void* dv, int B, int H, int S,
-                     int D, long long sh, long long ss, float scale, int bf16, void* stream) {
-  LAC_ATTN_DISPATCH(launch_dkv, q, k, v, dout, lse, di, dk, dv, B, H, S, sh, ss, scale,
+                     int D, long long sh, long long ss, float scale, void* stream) {
+  LAC_ATTN_DISPATCH(float, launch_dkv, q, k, v, dout, lse, di, dk, dv, B, H, S, sh, ss, scale,
                     (cudaStream_t)stream)
 }
 
 int lac_attn_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
                     const void* lse, const void* di, void* dq, int B, int H, int S, int D,
                     long long sh, long long ss, float scale, int bf16, void* stream) {
-  LAC_ATTN_DISPATCH(launch_dq, q, k, v, dout, lse, di, dq, B, H, S, sh, ss, scale,
+  if (bf16) {
+    LAC_ATTN_DISPATCH(__nv_bfloat16, launch_dq, q, k, v, dout, lse, di, dq, B, H, S, sh, ss,
+                      scale, (cudaStream_t)stream)
+  }
+  LAC_ATTN_DISPATCH(float, launch_dq, q, k, v, dout, lse, di, dq, B, H, S, sh, ss, scale,
                     (cudaStream_t)stream)
 }
 

@@ -105,6 +105,30 @@ def test_plain_matches_splash_kernel_interpreted(d):
         assert _rel(got[0], want) <= 1e-4
 
 
+@pytest.mark.parametrize("d", [64, 128])
+def test_plain_matches_splash_kernel_interpreted_bf16(d):
+    """The splash kernel on bf16 inputs rounds P and dS to bf16 before its
+    second products, where the card's tensor-core K10 and K11 round them.
+    Its O, dK and dV stay within the card's bf16 tolerance (chip_smoke.py's
+    ATTN_TOL["bf16"], 1e-2 of max(max |plain|, 1)) of the plain versions,
+    which the card holds K10 and K11 to: so that tolerance admits the
+    reference's rounding points."""
+    h, s = 2, (256 if d == 64 else 128)
+    (qn, kn, vn, don), _ = _inputs(1, h, s, d, torch.bfloat16, seed=d + 1)
+    # splash takes q pre-scaled, in the model's type (transformer.py:715)
+    qn = torch.from_numpy(qn * np.float32(1.0 / d ** 0.5)).to(torch.bfloat16).float().numpy()
+    mask = sm.MultiHeadMask([sm.CausalMask((s, s)) for _ in range(h)])
+    kernel = sk.make_splash_mha_single_device(mask=mask, interpret=True)
+    ro, vjp = jax.vjp(kernel, *(jnp.asarray(x[0], jnp.bfloat16) for x in (qn, kn, vn)))
+    _, rdk, rdv = vjp(jnp.asarray(don[0], jnp.bfloat16))
+    assert ro.dtype == rdk.dtype == jnp.bfloat16
+    q, k, v, do = (torch.from_numpy(x).to(torch.bfloat16) for x in (qn, kn, vn, don))
+    o, lse = A.attention_plain_fwd(q, k, v, 1.0)
+    _, dk, dv = A.attention_plain_bwd(q, k, v, o, lse, do, 1.0)
+    for got, want in ((o, ro), (dk, rdk), (dv, rdv)):
+        assert _rel(got[0], np.asarray(want, np.float32)) <= 1e-2
+
+
 @pytest.mark.parametrize("s", [1, 7, 130])
 def test_plain_backward_matches_autograd(s):
     """The recompute-from-lse backward against torch autograd through a
@@ -157,3 +181,24 @@ def test_kernel_layouts_are_recognised():
     assert A._strides(x.transpose(1, 2)) == (64, 4 * 64)
     assert A._strides(x.transpose(1, 2).contiguous()) == (5 * 64, 64)
     assert A._strides(torch.zeros(3, 4, 64, 5).transpose(2, 3)) is None
+
+
+def test_tma_strides_of_both_storage_orders():
+    """Byte strides (position, head, batch) of the TMA maps that the
+    tensor-core K10 and K11 read through, from the storage order that
+    ``_strides`` finds, and the refusals TMA needs."""
+    def strides(t, *ts):
+        return A.tma_strides(A._strides(t), t, *ts)
+
+    x = torch.zeros(3, 5, 4, 64, dtype=torch.bfloat16)  # [B, S, H, D]
+    assert strides(x.transpose(1, 2)) == (4 * 64 * 2, 64 * 2, 5 * 4 * 64 * 2)
+    assert strides(x.transpose(1, 2).contiguous()) == (64 * 2, 5 * 64 * 2, 4 * 5 * 64 * 2)
+    y = torch.zeros(1, 7, 2, 128, dtype=torch.bfloat16)  # a batch of one: H S D elements
+    assert strides(y.transpose(1, 2)) == (2 * 128 * 2, 128 * 2, 2 * 7 * 128 * 2)
+    with pytest.raises(ValueError, match="multiples of 16"):
+        strides(torch.zeros(1, 2, 8, 4, dtype=torch.bfloat16))  # 8-byte rows
+    off = torch.zeros(2 * 64 + 1, dtype=torch.bfloat16)[1:].view(1, 1, 2, 64)  # 2 bytes off
+    with pytest.raises(ValueError, match="16-byte-aligned"):
+        strides(off)
+    with pytest.raises(ValueError, match="16-byte-aligned"):
+        strides(x.transpose(1, 2), off)

@@ -128,11 +128,18 @@ def _attn_rel(a, b):
     return float((a.float() - b.float()).abs().max() / max(b.float().abs().max().item(), 1.0))
 
 
+# bf16 tile edges of the tensor-core K10 (128-query tiles, 128-key stages)
+# and K11 (128-key tiles, 64-query stages): every case of the mask and of a
+# ragged last tile
+TILE_EDGES = [(1, 2, s, d, torch.bfloat16) for s in (1, 63, 64, 65, 127, 128, 129)
+              for d in (64, 128)]
+
+
 @pytest.mark.parametrize("layout", ["bshd", "bhsd"])
 @pytest.mark.parametrize("b,h,s,d,dtype", [
     (2, 4, 1024, 64, torch.bfloat16), (1, 3, 257, 128, torch.bfloat16),
     (2, 2, 130, 64, torch.float32), (1, 2, 1000, 128, torch.float32),
-    (1, 1, 1, 64, torch.float32), (1, 2, 7, 128, torch.bfloat16),
+    (1, 1, 1, 64, torch.float32), (1, 2, 7, 128, torch.bfloat16), *TILE_EDGES,
 ])
 def test_attention_kernels_equal_plain_versions(cuda, b, h, s, d, dtype, layout):
     from lac_tpu_torch.ops import attention as A
@@ -157,6 +164,61 @@ def test_attention_kernels_equal_plain_versions(cuda, b, h, s, d, dtype, layout)
         "causal_attn_fwd": 1, "causal_attn_bwd_dkv": 1, "causal_attn_bwd_dq": 1}
     # the same bits on a second run: no atomics
     assert torch.equal(A.causal_attn_bwd_dkv(q, k, v, do, plse, di, scale)[0], dk)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_attention_variant_follows_the_type(cuda, d):
+    """bf16 K10 and K11 launch the tensor-core kernels, f32 the scalar ones;
+    K12 is the scalar kernel for both. Both variants count as the kernel."""
+    from lac_tpu_torch.ops import attention as A
+
+    for dtype, fwd, dkv in ((torch.float32, "lac_attn_fwd", "lac_attn_bwd_dkv"),
+                            (torch.bfloat16, "lac_attn_fwd_sm90", "lac_attn_bwd_dkv_sm90")):
+        q, k, v, do = _attn_inputs(1, 2, 200, d, dtype, "bshd", cuda)
+        A.reset_launches()
+        o, lse = A.causal_attn_fwd(q, k, v, d ** -0.5)
+        di = A._di(o, do)
+        A.causal_attn_bwd_dkv(q, k, v, do, lse, di, d ** -0.5)
+        A.causal_attn_bwd_dq(q, k, v, do, lse, di, d ** -0.5)
+        torch.cuda.synchronize()
+        assert {n: c for n, c in A.symbol_launches.items() if c} == {
+            fwd: 1, dkv: 1, "lac_attn_bwd_dq": 1}
+        assert A.launches == {"causal_attn_fwd": 1, "causal_attn_bwd_dkv": 1,
+                              "causal_attn_bwd_dq": 1}
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_attention_bwd_dkv_is_deterministic(cuda, d):
+    """K11 has one writer per dK and dV row (no atomics): two calls on the
+    same inputs give the same bits."""
+    from lac_tpu_torch.ops import attention as A
+
+    q, k, v, do = _attn_inputs(4, 4, 1000, d, torch.bfloat16, "bshd", cuda, seed=5)
+    o, lse = A.causal_attn_fwd(q, k, v, d ** -0.5)
+    di = A._di(o, do)
+    dk, dv = A.causal_attn_bwd_dkv(q, k, v, do, lse, di, d ** -0.5)
+    dk2, dv2 = A.causal_attn_bwd_dkv(q, k, v, do, lse, di, d ** -0.5)
+    torch.cuda.synchronize()
+    assert torch.equal(dk, dk2) and torch.equal(dv, dv2)
+
+
+def test_attention_launch_error_raises_without_fallback(cuda, monkeypatch):
+    """A bf16 tensor whose tensor-core kernel fails raises: no scalar kernel
+    and no plain version runs in its place, and nothing is counted."""
+    from lac_tpu_torch.ops import _build
+    from lac_tpu_torch.ops import attention as A
+
+    lib = _build.load_library()
+    monkeypatch.setattr(lib, "lac_attn_fwd_sm90", lambda *args: 700)
+    monkeypatch.setattr(lib, "lac_attn_bwd_dkv_sm90", lambda *args: 1001)
+    q, k, v, do = _attn_inputs(1, 2, 100, 64, torch.bfloat16, "bshd", cuda)
+    lse = torch.zeros(1, 2, 100, device=cuda)
+    A.reset_launches()
+    with pytest.raises(RuntimeError, match="lac_attn_fwd_sm90.*error 700"):
+        A.causal_attn_fwd(q, k, v, 0.125)
+    with pytest.raises(RuntimeError, match="lac_attn_bwd_dkv_sm90.*error 1001"):
+        A.causal_attn_bwd_dkv(q, k, v, do, lse, lse, 0.125)
+    assert set(A.launches.values()) == {0} and set(A.symbol_launches.values()) == {0}
 
 
 def test_attention_kernels_refuse_other_head_dims(cuda):
