@@ -7,7 +7,7 @@ import faulthandler; faulthandler.dump_traceback_later(900, exit=True)  # noqa: 
 # Phase 0  the card's name and power limit; build the CUDA kernels; the
 #          launch shape of the order1n/order2n kernels; the HGMMA (wgmma)
 #          instructions in each kernel's SASS (cuobjdump -sass): the bf16
-#          K10 and K11 must have some, K12 and the f32 kernels have none.
+#          K10-K12 must have some, the f32 kernels have none.
 # Phase 1  each kernel against its plain PyTorch version on the card, at the
 #          shapes the main path gives it: T = 4096 and 1024 steps, with one
 #          lane per block of the 32 MiB corpus (B = 8192 and 32768): corpus
@@ -20,8 +20,8 @@ import faulthandler; faulthandler.dump_traceback_later(900, exit=True)  # noqa: 
 #          decodes in chunks). K10-K12 at the training shape (B 64, H 8,
 #          S 1024, D 64, bf16, the model's [B, S, H, D] storage) and at
 #          B 16, then S 1000 and 257, D 128, f32 and the [B, H, S, D]
-#          storage; then bf16 at the tile edges of the tensor-core K10 and
-#          K11, S 1, 63, 64, 65, 127, 128 and 129 at D 64 and 128 in both
+#          storage; then bf16 at the tile edges of the tensor-core K10-K12,
+#          S 1, 63, 64, 65, 127, 128 and 129 at D 64 and 128 in both
 #          storage orders.
 # Phase 2  the main path of each model through its entry points, on the
 #          32 MiB smoke corpus: the CLI at block 4096 (order0n at its
@@ -33,9 +33,8 @@ import faulthandler; faulthandler.dump_traceback_later(900, exit=True)  # noqa: 
 #          coder gives (lac_tpu_torch/smoke.py). The kernels' launch counts
 #          are zeroed just before each path and read just after it.
 #          Then the training path (slice 4), its attention through K10-K12
-#          (bf16 K10 and K11 in ops/csrc/causal_attn_sm90.cu, K12 in
-#          ops/csrc/causal_attn.cu; the byte-16l run must launch the
-#          tensor-core entry points, and no scalar K10 or K11): the
+#          (bf16, so ops/csrc/causal_attn_sm90.cu; the byte-16l run must
+#          launch the tensor-core entry points, and no scalar kernel): the
 #          shipped byte-6l checkpoint's loss on smoke.lm_windows() through
 #          the kernels (_FUSED "flash", then "splash") and the exact
 #          branch, each within 2e-3 nats of
@@ -49,7 +48,9 @@ import faulthandler; faulthandler.dump_traceback_later(900, exit=True)  # noqa: 
 #          x seq 256.
 # Phase 3  numbers: end-to-end MB/s, host ms of decode's two parts (the
 #          container parse and the rest) and of the container write, each
-#          kernel's time from CUDA events beside its bound, bits per byte,
+#          kernel's time from CUDA events beside its bound at each block the
+#          main path codes at (4096, 1024; order0c's K8, K2, K9 also at the
+#          fallback's 8192), bits per byte,
 #          peak device memory; for the training path its tokens/s, the
 #          attention kernels' share of a step, their plain versions' and
 #          scaled_dot_product_attention's times at the training shape.
@@ -134,34 +135,42 @@ SOURCE = {name: "lac_tpu_torch/ops/csrc/" + (
     else "ctx_nib_rans32.cu") for name in OPS_PER_SYMBOL}
 # K10-K12, the training path's causal attention (ops/attention.py)
 ATTN = ("causal_attn_fwd", "causal_attn_bwd_dkv", "causal_attn_bwd_dq")
-# the main path's type is bf16: K10 and K11 run on the tensor cores there
-# (f32 inputs take causal_attn.cu's scalar K10 and K11)
-SOURCE.update({"causal_attn_fwd": "lac_tpu_torch/ops/csrc/causal_attn_sm90.cu",
-               "causal_attn_bwd_dkv": "lac_tpu_torch/ops/csrc/causal_attn_sm90.cu",
-               "causal_attn_bwd_dq": "lac_tpu_torch/ops/csrc/causal_attn.cu"})
+# the main path's type is bf16: K10-K12 run on the tensor cores there
+# (f32 inputs take causal_attn.cu's scalar kernels)
+SOURCE.update({name: "lac_tpu_torch/ops/csrc/causal_attn_sm90.cu" for name in ATTN})
 # the entry point each kernel's bf16 run launches
 ATTN_SYMBOL = {"causal_attn_fwd": "lac_attn_fwd_sm90",
                "causal_attn_bwd_dkv": "lac_attn_bwd_dkv_sm90",
-               "causal_attn_bwd_dq": "lac_attn_bwd_dq"}
-# PR 7's scalar K10 and K11 at the training shape (CUDA events; H100 80GB
-# HBM3, 700.00 W; PERF.md section 6)
-EARLIER_MS = {"causal_attn_fwd": 3.435, "causal_attn_bwd_dkv": 6.082}
+               "causal_attn_bwd_dq": "lac_attn_bwd_dq_sm90"}
+# the scalar f32-FMA K10-K12 that bf16 ran on before the tensor-core kernels,
+# at the training shape (CUDA events; H100 80GB HBM3, 700.00 W; PERF.md
+# section 6)
+EARLIER_MS = {"causal_attn_fwd": 3.435, "causal_attn_bwd_dkv": 6.082,
+              "causal_attn_bwd_dq": 4.994}
+# K2 before its redesign (128 lanes a block, loads on the serial chain) at
+# block 4096 and 1024 (CUDA events; H100 80GB HBM3, 700.00 W; PERF.md
+# section 6)
+EARLIER_K2_MS = {4096: 1.819, 1024: 0.670}
 
 
 def sm90_smem_bytes(name: str, d: int) -> int:
-    """Dynamic shared bytes a block of the tensor-core K10 or K11 at head dim
-    d (fwd_smem and dkv_smem of causal_attn_sm90.cu): 1024 of alignment, the
-    bf16 tiles (K10: Q of 128 rows, 2 stages of K and V of 128 keys; K11: K
-    and V of 128 keys, 2 stages of Q and dO of 64 queries with their f32 lse
-    and di) and 5 mbarriers."""
+    """Dynamic shared bytes a block of the tensor-core K10, K11 or K12 at head
+    dim d (fwd_smem, dkv_smem and dq_smem of causal_attn_sm90.cu): 1024 of
+    alignment, the bf16 tiles (K10: Q of 128 rows, 2 stages of K and V of
+    128 keys; K11: K and V of 128 keys, 2 stages of Q and dO of 64 queries
+    with their f32 lse and di; K12: Q and dO of 128 rows, 2 stages of K and
+    V of 128 keys at D 64, 64 at D 128) and 5 mbarriers."""
     if name == "causal_attn_fwd":
         return 1024 + 128 * d * 2 + 2 * 2 * 128 * d * 2 + 5 * 8
+    if name == "causal_attn_bwd_dq":
+        return 1024 + 2 * 128 * d * 2 + 2 * 2 * (128 if d == 64 else 64) * d * 2 + 5 * 8
     return 1024 + 2 * 128 * d * 2 + 2 * (2 * 64 * d * 2 + 2 * 64 * 4) + 5 * 8
 
 
-# kernels that must contain HGMMA: the bf16 K10 and K11 at D 64 and 128
+# kernels that must contain HGMMA: the bf16 K10-K12 at D 64 and 128
 WGMMA_KERNELS = tuple(f"{k}<{d}>" for k in ("causal_attn_fwd_sm90_kernel",
-                                           "causal_attn_bwd_dkv_sm90_kernel")
+                                           "causal_attn_bwd_dkv_sm90_kernel",
+                                           "causal_attn_bwd_dq_sm90_kernel")
                       for d in (64, 128))
 # the JAX library Pallas kernels that lac_tpu's training attention reaches
 # (JAX 0.9.0, jax/experimental/pallas/ops/tpu/; via lac_tpu/models/
@@ -182,9 +191,10 @@ ATTN_SHAPES = (
     (4, 4, 257, 128, "bf16", "bshd"),
     (4, 8, 1000, 128, "f32", "bshd"),
     (4, 4, 257, 64, "f32", "bhsd"),
-    # the tile edges of the tensor-core K10 (128 queries, 128-key stages)
-    # and K11 (128 keys, 64-query stages): every case of the causal mask and
-    # of a ragged last tile
+    # the tile edges of the tensor-core K10 (128 queries, 128-key stages),
+    # K11 (128 keys, 64-query stages) and K12 (128 queries, 128-key stages
+    # at D 64, 64-key at D 128): every case of the causal mask and of a
+    # ragged last tile
     *((2, 2, s, d, "bf16", layout) for s in (1, 63, 64, 65, 127, 128, 129)
       for d in (64, 128) for layout in ("bshd", "bhsd")),
 )
@@ -354,9 +364,10 @@ def phase2_fallback(turbo, container_mod, smoke, corpus):
     return c
 
 
-def phase2(cli, engine, smoke, model, corpus, work):
+def phase2(cli, engine, rk, smoke, model, corpus, work):
     """One model's main path: the CLI at block 4096 (the order0n path at the
-    CLI's defaults), then the engine at block 1024."""
+    CLI's defaults), then the engine at block 1024. Returns the containers
+    and the codec kernels' launches at each block."""
     path = os.path.join(work, f"{model}.bin")
     with open(path, "wb") as f:
         f.write(corpus)
@@ -368,11 +379,13 @@ def phase2(cli, engine, smoke, model, corpus, work):
         check(f.read() == corpus, f"{model}: cli round trip differs from the corpus")
     with open(path + ".lac", "rb") as f:
         c4096 = f.read()
+    at4096 = dict(rk.launches)
     c1024 = engine.compress_bytes(corpus, model_id=model, block_size=1024)
     check(engine.decompress_bytes(c1024) == corpus, f"{model}: block 1024 round trip")
     for bs, c in ((4096, c4096), (1024, c1024)):
         check_container(smoke, model, bs, c, len(corpus))
-    return {4096: c4096, 1024: c1024}
+    by_block = {4096: at4096, 1024: {k: n - at4096[k] for k, n in rk.launches.items()}}
+    return {4096: c4096, 1024: c1024}, by_block
 
 
 def e2e(torch, engine, model, corpus):
@@ -410,10 +423,11 @@ def host_split(torch, turbo, container_mod, c):
     return tuple(float(np.median(v)) for v in (parse, rest, write))
 
 
-def kernel_times(torch, rk, corpus, dev, t_len):
-    """Event times and bounds of every kernel on the main path's inputs at
-    block ``t_len`` (all of the corpus, one lane per block). K2 is timed on
-    order0n's intervals."""
+def kernel_times(torch, rk, corpus, dev, t_len, codecs=tuple(CODECS.values())):
+    """Event times and bounds of the kernels of ``codecs`` and K2 on the main
+    path's inputs at block ``t_len`` (all of the corpus, one lane per block).
+    K2 is timed on the first codec's intervals (order0n's at blocks 4096 and
+    1024, order0c's at the fallback's 8192)."""
     b = len(corpus) // t_len
     syms = torch.from_numpy(
         np.frombuffer(corpus, dtype=np.uint8).reshape(b, t_len).T.copy()).to(dev)
@@ -421,14 +435,14 @@ def kernel_times(torch, rk, corpus, dev, t_len):
     cap = t_len // 2 + 3
     nsym = int(lengths.sum().item())
     ms, moved = {}, {}
-    for c in CODECS.values():
+    for c in codecs:
         intervals = getattr(rk, f"{c}_encode_intervals")
         decode = getattr(rk, f"{c}_rans32_decode")
         lo, fr = intervals(syms, RATE)
         words, nwords = rk.rans32_encode(lo, fr, lengths, cap)
         ms[f"{c}_intervals"] = event_ms(torch, lambda: intervals(syms, RATE))
         moved[f"{c}_intervals"] = t_len * b * (1 + 4 + 4)
-        if c == "o0n":
+        if c == codecs[0]:
             ms["rans32_encode"] = event_ms(
                 torch, lambda: rk.rans32_encode(lo, fr, lengths, cap))
             moved["rans32_encode"] = nsym * 8 + b * 4 + b * cap * 2 + b * 4
@@ -436,7 +450,7 @@ def kernel_times(torch, rk, corpus, dev, t_len):
         words_read = int(torch.clamp(nwords, max=cap).sum().item())
         moved[f"{c}_decode"] = words_read * 2 + b * 4 + t_len * b
     out = {}
-    for name in OPS_PER_SYMBOL:
+    for name in ms:
         t_bytes = 1e3 * moved[name] / HBM_BYTES_PER_S
         t_ops = 1e3 * nsym * OPS_PER_SYMBOL[name] / INT32_OPS_PER_S
         out[name] = {
@@ -444,9 +458,13 @@ def kernel_times(torch, rk, corpus, dev, t_len):
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         }
+        earlier = EARLIER_K2_MS.get(t_len) if name == "rans32_encode" else None
         print(f"kernel {name} T={t_len} B={b}: {ms[name]:.3f} ms, bound "
               f"{out[name]['bound_ms']:.4f} ms by {out[name]['bound_by']} "
-              f"(bytes {t_bytes:.4f} ms, ops {t_ops:.4f} ms)", flush=True)
+              f"(bytes {t_bytes:.4f} ms, ops {t_ops:.4f} ms; "
+              f"{ms[name] / out[name]['bound_ms']:.2f}x the bound)"
+              + (f"; the earlier kernel {earlier} ms, {earlier / ms[name]:.2f}x"
+                 if earlier else ""), flush=True)
     return out
 
 
@@ -705,7 +723,7 @@ def attn_times(torch, A, dev, cfg):
               f"{bounds[name]['flops'] / ms[name] / 1e9:.1f} TFLOP/s of the function's "
               f"{bounds[name]['flops'] / 1e9:.2f} GFLOP; "
               f"plain {plain[name]:.1f} ms; sdpa {library[name]:.3f} ms"
-              + (f"; PR 7's scalar kernel {EARLIER_MS[name]} ms, "
+              + (f"; the earlier scalar kernel {EARLIER_MS[name]} ms, "
                  f"{EARLIER_MS[name] / ms[name]:.2f}x" if name in EARLIER_MS else ""),
               flush=True)
     print(f"sdpa forward {sdpa_f:.3f} ms, backward {sdpa_b:.3f} ms; K10-K12 "
@@ -751,12 +769,12 @@ def main() -> int:
             print(f"order1n/order2n kernels: {lib.lac_ctx_lanes()} lanes a block, "
                   f"{lib.lac_ctx_shared_bytes(16)} / {lib.lac_ctx_shared_bytes(64)} "
                   f"shared bytes a block")
-            for name in ATTN[:2]:
+            for name in ATTN:
                 print(f"{name} bf16 (tensor cores): 384 threads, "
                       f"{sm90_smem_bytes(name, 64)} / {sm90_smem_bytes(name, 128)} dynamic "
                       f"shared bytes a block at D 64 / 128")
             for kid, name in zip((10, 11, 12), ATTN):
-                print(f"{name} {'f32' if kid < 12 else 'bf16 and f32'} (scalar): 256 threads, "
+                print(f"{name} f32 (scalar): 256 threads, "
                       f"{lib.lac_attn_smem_bytes(kid, 64)} / "
                       f"{lib.lac_attn_smem_bytes(kid, 128)} dynamic shared bytes a block "
                       f"at D 64 / 128")
@@ -764,7 +782,7 @@ def main() -> int:
             print(f"HGMMA instructions in each kernel's SASS: {hgmma}")
             for name in WGMMA_KERNELS:
                 check(hgmma.get(name, 0) > 0, f"{name} has no HGMMA in its SASS")
-            print(f"kernels without HGMMA (K12, the f32 K10 and K11, the codecs): "
+            print(f"kernels without HGMMA (the f32 K10-K12, the codecs): "
                   f"{sorted(k for k, n in hgmma.items() if n == 0)}")
             corpus = smoke.smoke_corpus()
             check(len(corpus) == smoke.SMOKE_BYTES, "corpus length")
@@ -777,18 +795,24 @@ def main() -> int:
             plain_ms.update(aplain)
 
         with Phase("phase 2: main path"):
-            counts = {k: 0 for k in OPS_PER_SYMBOL}
+            # launches of each codec kernel at each block the main path codes at
+            shape_counts = {bs: {k: 0 for k in OPS_PER_SYMBOL}
+                            for bs in (*BLOCK_SIZES, FALLBACK[1])}
             containers = {}
             torch.cuda.reset_peak_memory_stats()
             for model, c in CODECS.items():
                 rk.reset_launches()
-                containers[model] = phase2(cli, engine, smoke, model, corpus, work)
-                path_counts = {k: rk.launches[k] for k in path_kernels(c)}
+                containers[model], by_block = phase2(cli, engine, rk, smoke, model, corpus,
+                                                     work)
+                path_counts = {k: sum(by[k] for by in by_block.values())
+                               for k in path_kernels(c)}
                 print(f"{model} path launches {path_counts} over 2 compress + "
                       f"2 decompress calls", flush=True)
                 for name, n in path_counts.items():
                     check(n > 0, f"kernel {name} was not launched on the {model} path")
-                    counts[name] += n
+                for bs, launched in by_block.items():
+                    for name, n in launched.items():
+                        shape_counts[bs][name] += n
             rk.reset_launches()
             c = phase2_fallback(turbo, container, smoke, corpus)
             path_counts = {k: rk.launches[k] for k in path_kernels(CODECS[FALLBACK[2]])}
@@ -796,8 +820,12 @@ def main() -> int:
                   f"compress + 1 decompress call", flush=True)
             for name, n in path_counts.items():
                 check(n > 0, f"kernel {name} was not launched on the fallback path")
-                counts[name] += n
+                shape_counts[FALLBACK[1]][name] += n
+            print("main path launches by block: " + "; ".join(
+                f"{bs}: {{{', '.join(f'{k}: {n}' for k, n in by.items() if n)}}}"
+                for bs, by in shape_counts.items()), flush=True)
             containers[FALLBACK[2]][FALLBACK[1]] = c
+            counts = {k: sum(by[k] for by in shape_counts.values()) for k in OPS_PER_SYMBOL}
             peak = torch.cuda.max_memory_allocated()
             print(f"main path launches {counts}; max_memory_allocated {peak} bytes")
 
@@ -816,6 +844,7 @@ def main() -> int:
                 e2e(torch, engine, model, corpus)
             times = kernel_times(torch, rk, corpus, dev, BLOCK_SIZES[0])
             kernel_times(torch, rk, corpus, dev, BLOCK_SIZES[1])
+            kernel_times(torch, rk, corpus, dev, FALLBACK[1], (CODECS[FALLBACK[2]],))
             for model, by_block in containers.items():
                 for bs, c in by_block.items():
                     print(f"bits/byte {model} block {bs}: {8 * len(c) / len(corpus):.6f}")

@@ -69,16 +69,18 @@ _SIGNATURES = {
     "lac_attn_fwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _F, _P),
     # q, k, v, dO, lse, di, dk, dv, B, H, S, D, sh, ss, scale, stream
     "lac_attn_bwd_dkv": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _F, _P),
-    # q, k, v, dO, lse, di, dq, B, H, S, D, sh, ss, scale, bf16, stream
-    "lac_attn_bwd_dq": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _F, _I, _P),
+    # f32 K12: q, k, v, dO, lse, di, dq, B, H, S, D, sh, ss, scale, stream
+    "lac_attn_bwd_dq": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _F, _P),
     # dynamic shared bytes a block of K10/K11/K12 (10, 11, 12) at head dim D
     "lac_attn_smem_bytes": (_I, _I),
-    # bf16 K10/K11 on the tensor cores; ss, sh, sb are byte strides
+    # bf16 K10-K12 on the tensor cores; ss, sh, sb are byte strides
     # q, k, v, o, lse, B, H, S, D, ss, sh, sb, scale, stream
     "lac_attn_fwd_sm90": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _L, _F, _P),
     # q, k, v, dO, lse, di, dk, dv, B, H, S, D, ss, sh, sb, scale, stream
     "lac_attn_bwd_dkv_sm90": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _L, _F,
                               _P),
+    # q, k, v, dO, lse, di, dq, B, H, S, D, ss, sh, sb, scale, stream
+    "lac_attn_bwd_dq_sm90": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _L, _F, _P),
 }
 
 _KERNELS = ("o0n_intervals_kernel", "rans32_encode_kernel", "o0n_decode_kernel",
@@ -86,7 +88,7 @@ _KERNELS = ("o0n_intervals_kernel", "rans32_encode_kernel", "o0n_decode_kernel",
             "o0c_intervals_kernel", "o0c_decode_kernel",
             "causal_attn_fwd_kernel", "causal_attn_bwd_dkv_kernel",
             "causal_attn_bwd_dq_kernel", "causal_attn_fwd_sm90_kernel",
-            "causal_attn_bwd_dkv_sm90_kernel")
+            "causal_attn_bwd_dkv_sm90_kernel", "causal_attn_bwd_dq_sm90_kernel")
 
 _lock = threading.Lock()
 _lib = None
@@ -104,15 +106,11 @@ def _nvcc() -> str:
 
 
 def _kernel_label(mangled: str) -> str:
-    """A kernel's short name with its template arguments, e.g.
-    ``causal_attn_fwd_kernel<bf16, 64>``, from its mangled symbol."""
+    """A kernel's short name with its template argument, e.g.
+    ``causal_attn_fwd_sm90_kernel<64>``, from its mangled symbol."""
     name = next((k for k in _KERNELS if k in mangled), mangled)
-    # template arguments: <int> or <type, int>
-    tmpl = re.search(r"I(f|13__nv_bfloat16)?Li(\d+)E", mangled)
-    if tmpl:
-        ty = {"f": "float, ", "13__nv_bfloat16": "bf16, "}.get(tmpl.group(1), "")
-        name += f"<{ty}{tmpl.group(2)}>"
-    return name
+    tmpl = re.search(r"ILi(\d+)E", mangled)  # template <int>
+    return f"{name}<{tmpl.group(1)}>" if tmpl else name
 
 
 def _ptxas_summary(log: str) -> str:

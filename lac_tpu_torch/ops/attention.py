@@ -27,16 +27,16 @@ of its ``[B, S, H, D]`` projections); any other layout is copied into
 card; outputs take the input type.
 
 Which kernel a CUDA tensor launches is fixed by its type, not tried:
-bf16 K10 and K11 run on the tensor cores (``csrc/causal_attn_sm90.cu``:
-wgmma, TMA, mbarriers), f32 K10 and K11 and K12 of both types on the
-scalar kernels of ``csrc/causal_attn.cu`` (tensor cores on f32 would mean
-TF32). The tensor-core kernels read their operands through TMA maps, whose
-byte strides ``tma_strides`` computes and checks.
+bf16 K10-K12 run on the tensor cores (``csrc/causal_attn_sm90.cu``:
+wgmma, TMA, mbarriers), f32 K10-K12 on the scalar kernels of
+``csrc/causal_attn.cu`` (tensor cores on f32 would mean TF32). The
+tensor-core kernels read their operands through TMA maps, whose byte
+strides ``tma_strides`` computes and checks.
 
 A wrapper runs its plain version only for tensors on the CPU, where any
 head dim works. For CUDA tensors it launches its kernel or raises; it
 never falls back. ``launches[name]`` counts the kernel's launches, both
-variants of K10 and K11 alike, and nothing else; ``symbol_launches``
+variants alike, and nothing else; ``symbol_launches``
 counts them by the C entry point launched. The plain versions use
 explicit f32 math, and the backward recomputes ``P = exp(s * scale -
 lse)`` as the kernels do.
@@ -73,7 +73,8 @@ launches = {"causal_attn_fwd": 0, "causal_attn_bwd_dkv": 0, "causal_attn_bwd_dq"
 # by entry point: the scalar kernels (lac_attn_*) and the tensor-core ones
 # (lac_attn_*_sm90)
 symbol_launches = {s: 0 for s in ("lac_attn_fwd", "lac_attn_fwd_sm90", "lac_attn_bwd_dkv",
-                                  "lac_attn_bwd_dkv_sm90", "lac_attn_bwd_dq")}
+                                  "lac_attn_bwd_dkv_sm90", "lac_attn_bwd_dq",
+                                  "lac_attn_bwd_dq_sm90")}
 
 
 def reset_launches() -> None:
@@ -297,10 +298,15 @@ def causal_attn_bwd_dq(q, k, v, do, lse, di, scale: float):
     q, (k, v, do), st = _kernel_args(q, k, v, do)
     lse, di = _rows(lse, q.shape[:3], "lse"), _rows(di, q.shape[:3], "di")
     dq = torch.empty_like(q)
-    if q.numel():
-        _launch("lac_attn_bwd_dq", "causal_attn_bwd_dq", q.device, q.data_ptr(), k.data_ptr(),
-                v.data_ptr(), do.data_ptr(), lse.data_ptr(), di.data_ptr(), dq.data_ptr(),
-                *_dims(q, st, scale), int(q.dtype == torch.bfloat16))
+    if not q.numel():
+        return dq
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+            di.data_ptr(), dq.data_ptr())
+    if q.dtype == torch.bfloat16:
+        _launch("lac_attn_bwd_dq_sm90", "causal_attn_bwd_dq", q.device, *ptrs,
+                *_dims_sm90(q, st, (k, v, do, dq), scale))
+    else:
+        _launch("lac_attn_bwd_dq", "causal_attn_bwd_dq", q.device, *ptrs, *_dims(q, st, scale))
     return dq
 
 

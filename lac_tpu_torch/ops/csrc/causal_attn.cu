@@ -26,18 +26,16 @@
 // caller's, in f32, as the library computes it outside its kernels).
 // A masked score is -inf before the exponential, so it adds exactly 0.
 //
-// Which inputs run here: K12 for bf16 and f32 inputs, K10 and K11 for f32
-// inputs only. bf16 K10 and K11 run on the tensor cores
-// (causal_attn_sm90.cu); f32 stays on these kernels because tensor cores on
-// f32 inputs mean TF32, which the f32 tolerance of 1e-4 does not admit.
+// Which inputs run here: f32 inputs only. bf16 K10-K12 run on the tensor
+// cores (causal_attn_sm90.cu); f32 stays on these kernels because tensor
+// cores on f32 inputs mean TF32, which the f32 tolerance of 1e-4 does not
+// admit.
 //
-// Bound on this card at the training shape (B 64, H 8, S 1024, D 64, bf16):
-// the operations, 2, 4 and 3 causal products of B H D S (S + 1) flops each
-// at the tensor cores' bf16 rate, against 270-410 MB of traffic (derived in
-// chip_smoke.py); K10 is bound by its bytes, K11 and K12 by operations. These kernels
-// are the simple version: every product is scalar f32 FMAs on the CUDA
-// cores, not wgmma, so they are bound by shared-memory loads and FMA issue,
-// far from that bound. K12's redesign for the tensor cores is later work.
+// Bound on this card for f32 inputs: the operations, 2, 4 and 3 causal
+// products of B H D S (S + 1) flops each at the CUDA cores' f32 rate,
+// against the traffic (derived in chip_smoke.py). These kernels are the
+// simple version: every product is scalar f32 FMAs from shared memory, so
+// they are bound by shared-memory loads and FMA issue.
 //
 // Design: a block is 256 threads, a 16 x 16 grid (ty, tx), and works on
 // 64-row tiles. Every product of two tiles in shared memory (f32, rows
@@ -59,9 +57,8 @@
 // batch stride H S D and element strides (sh, ss) for head and position,
 // so both [B, H, S, D] and [B, S, H, D] storage pass without a copy; lse
 // and di are [B, H, S] f32. Any S; the last tile is ragged (rows past S
-// load as 0 and are not written). D is 64 or 128. Inputs are bf16 or f32;
-// all sums and statistics are f32; outputs are rounded once to the input
-// type.
+// load as 0 and are not written). D is 64 or 128. All sums and statistics
+// are f32.
 //
 // Built by ops/_build.py with the other csrc/*.cu files into one library
 // (nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3) and bound
@@ -70,7 +67,6 @@
 // header is included.
 
 #include <cstdint>
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -82,14 +78,6 @@ constexpr int kRows = kTile / kSide;       // 4 rows a thread
 constexpr int kPitchT = kTile + 1;         // row pitch of a [64][64] tile
 constexpr unsigned kAll = 0xFFFFFFFFu;
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
 
 // max and sum over the 16 threads of a half-warp (one score row)
 __device__ __forceinline__ float row_max(float x) {
@@ -106,13 +94,13 @@ __device__ __forceinline__ float row_sum(float x) {
 // Rows r0 .. r0 + 63 of one (b, h) slice into a [64][D + 1] f32 tile in
 // shared memory; rows at or past S load as 0. Neighbouring threads read
 // neighbouring elements of a row.
-template <typename T, int D>
-__device__ __forceinline__ void load_tile(float* __restrict__ dst, const T* __restrict__ src,
+template <int D>
+__device__ __forceinline__ void load_tile(float* __restrict__ dst, const float* __restrict__ src,
                                           long long base, long long ss, int r0, int S) {
   for (int e = threadIdx.x; e < kTile * D; e += kThreads) {
     const int r = e / D, c = e % D;
     const int s = r0 + r;
-    dst[r * (D + 1) + c] = s < S ? to_f32(src[base + s * ss + c]) : 0.f;
+    dst[r * (D + 1) + c] = s < S ? src[base + s * ss + c] : 0.f;
   }
 }
 
@@ -164,10 +152,10 @@ constexpr int dq_floats(int d) { return 4 * kTile * (d + 1) + kTile * kPitchT; }
 // pallas_call :1137). Grid: (query tiles, B * H); the heaviest tiles (the
 // last, with the most key tiles under them) are started first.
 // ---------------------------------------------------------------------------
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-causal_attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ o, float* __restrict__ lse,
+causal_attn_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                       const float* __restrict__ v, float* __restrict__ o, float* __restrict__ lse,
                        int H, int S, long long sh, long long ss, float scale) {
   constexpr int P = D + 1;
   constexpr int NJ = D / kSide;
@@ -184,7 +172,7 @@ causal_attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int ty = threadIdx.x / kSide, tx = threadIdx.x % kSide;
   const int q0 = qt * kTile;
 
-  load_tile<T, D>(sq, q, base, ss, q0, S);
+  load_tile<D>(sq, q, base, ss, q0, S);
   float acc[kRows][NJ];
   zero(acc);
   float m[kRows], l[kRows];
@@ -197,8 +185,8 @@ causal_attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int kt = 0; kt <= qt; ++kt) {
     const int k0 = kt * kTile;
     __syncthreads();  // the last tile's readers of sk, sv, sp are done
-    load_tile<T, D>(sk, k, base, ss, k0, S);
-    load_tile<T, D>(sv, v, base, ss, k0, S);
+    load_tile<D>(sk, k, base, ss, k0, S);
+    load_tile<D>(sv, v, base, ss, k0, S);
     __syncthreads();
     float s[kRows][kRows];
     zero(s);
@@ -239,7 +227,7 @@ causal_attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     if (row >= S) continue;
 #pragma unroll
     for (int j = 0; j < NJ; ++j)
-      o[base + row * ss + tx + kSide * j] = from_f32<T>(acc[i][j] / l[i]);
+      o[base + row * ss + tx + kSide * j] = acc[i][j] / l[i];
     if (tx == 0) lse[(long long)bh * S + row] = m[i] + logf(l[i]);
   }
 }
@@ -251,12 +239,12 @@ causal_attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // pallas_call :2196). Grid: (key tiles, B * H); key tile kt visits query
 // tiles kt .. nq - 1, so the first tiles are the heaviest and start first.
 // ---------------------------------------------------------------------------
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-causal_attn_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                           const T* __restrict__ v, const T* __restrict__ dout,
+causal_attn_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                           const float* __restrict__ v, const float* __restrict__ dout,
                            const float* __restrict__ lse, const float* __restrict__ di,
-                           T* __restrict__ dk, T* __restrict__ dv, int H, int S,
+                           float* __restrict__ dk, float* __restrict__ dv, int H, int S,
                            long long sh, long long ss, float scale) {
   constexpr int P = D + 1;
   constexpr int NJ = D / kSide;
@@ -278,8 +266,8 @@ causal_attn_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int ty = threadIdx.x / kSide, tx = threadIdx.x % kSide;
   const int k0 = kt * kTile;
 
-  load_tile<T, D>(sk, k, base, ss, k0, S);
-  load_tile<T, D>(sv, v, base, ss, k0, S);
+  load_tile<D>(sk, k, base, ss, k0, S);
+  load_tile<D>(sv, v, base, ss, k0, S);
   float dk_acc[kRows][NJ], dv_acc[kRows][NJ];  // rows: keys ty + 16 i
   zero(dk_acc);
   zero(dv_acc);
@@ -287,8 +275,8 @@ causal_attn_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int qt = kt; qt < nq; ++qt) {
     const int q0 = qt * kTile;
     __syncthreads();  // the last tile's readers of sq, sdo, sp, sds are done
-    load_tile<T, D>(sq, q, base, ss, q0, S);
-    load_tile<T, D>(sdo, dout, base, ss, q0, S);
+    load_tile<D>(sq, q, base, ss, q0, S);
+    load_tile<D>(sdo, dout, base, ss, q0, S);
     if (threadIdx.x < kTile) {
       const int row = q0 + threadIdx.x;
       slse[threadIdx.x] = row < S ? lse[row0 + row] : 0.f;
@@ -323,8 +311,8 @@ causal_attn_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int j = 0; j < NJ; ++j) {
       const long long at = base + row * ss + tx + kSide * j;
-      dk[at] = from_f32<T>(dk_acc[i][j] * scale);
-      dv[at] = from_f32<T>(dv_acc[i][j]);
+      dk[at] = dk_acc[i][j] * scale;
+      dv[at] = dv_acc[i][j];
     }
   }
 }
@@ -335,12 +323,12 @@ causal_attn_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // :1456) and _splash_attention_bwd_dq (splash_attention_kernel.py:1405,
 // pallas_call :1635). Grid: (query tiles, B * H), heaviest first as in K10.
 // ---------------------------------------------------------------------------
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-causal_attn_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                          const T* __restrict__ v, const T* __restrict__ dout,
+causal_attn_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                          const float* __restrict__ v, const float* __restrict__ dout,
                           const float* __restrict__ lse, const float* __restrict__ di,
-                          T* __restrict__ dq, int H, int S, long long sh, long long ss,
+                          float* __restrict__ dq, int H, int S, long long sh, long long ss,
                           float scale) {
   constexpr int P = D + 1;
   constexpr int NJ = D / kSide;
@@ -359,8 +347,8 @@ causal_attn_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int ty = threadIdx.x / kSide, tx = threadIdx.x % kSide;
   const int q0 = qt * kTile;
 
-  load_tile<T, D>(sq, q, base, ss, q0, S);
-  load_tile<T, D>(sdo, dout, base, ss, q0, S);
+  load_tile<D>(sq, q, base, ss, q0, S);
+  load_tile<D>(sdo, dout, base, ss, q0, S);
   float lse_r[kRows], di_r[kRows];
 #pragma unroll
   for (int i = 0; i < kRows; ++i) {
@@ -374,8 +362,8 @@ causal_attn_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int kt = 0; kt <= qt; ++kt) {
     const int k0 = kt * kTile;
     __syncthreads();  // the last tile's readers of sk, sv, sds are done
-    load_tile<T, D>(sk, k, base, ss, k0, S);
-    load_tile<T, D>(sv, v, base, ss, k0, S);
+    load_tile<D>(sk, k, base, ss, k0, S);
+    load_tile<D>(sv, v, base, ss, k0, S);
     __syncthreads();
     float s[kRows][kRows], dp[kRows][kRows];
     zero(s);
@@ -402,94 +390,90 @@ causal_attn_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     if (row >= S) continue;
 #pragma unroll
     for (int j = 0; j < NJ; ++j)
-      dq[base + row * ss + tx + kSide * j] = from_f32<T>(acc[i][j] * scale);
+      dq[base + row * ss + tx + kSide * j] = acc[i][j] * scale;
   }
 }
 
 // ---------------------------------------------------------------------------
-// Launches: one instantiation per (input type, D).
+// Launches: one instantiation per D, of the f32 kernels.
 // ---------------------------------------------------------------------------
 
-template <typename T, int D>
+template <int D>
 int launch_fwd(const void* q, const void* k, const void* v, void* o, void* lse, int B, int H,
                int S, long long sh, long long ss, float scale, cudaStream_t stream) {
   const size_t bytes = sizeof(float) * fwd_floats(D);
-  auto kern = causal_attn_fwd_kernel<T, D>;
+  auto kern = causal_attn_fwd_kernel<D>;
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)bytes);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((S + kTile - 1) / kTile, B * H);
-  kern<<<grid, kThreads, bytes, stream>>>((const T*)q, (const T*)k, (const T*)v, (T*)o,
-                                          (float*)lse, H, S, sh, ss, scale);
+  kern<<<grid, kThreads, bytes, stream>>>((const float*)q, (const float*)k, (const float*)v,
+                                          (float*)o, (float*)lse, H, S, sh, ss, scale);
   return (int)cudaGetLastError();
 }
 
-template <typename T, int D>
+template <int D>
 int launch_dkv(const void* q, const void* k, const void* v, const void* dout, const void* lse,
                const void* di, void* dk, void* dv, int B, int H, int S, long long sh,
                long long ss, float scale, cudaStream_t stream) {
   const size_t bytes = sizeof(float) * dkv_floats(D);
-  auto kern = causal_attn_bwd_dkv_kernel<T, D>;
+  auto kern = causal_attn_bwd_dkv_kernel<D>;
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)bytes);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((S + kTile - 1) / kTile, B * H);
-  kern<<<grid, kThreads, bytes, stream>>>((const T*)q, (const T*)k, (const T*)v,
-                                          (const T*)dout, (const float*)lse, (const float*)di,
-                                          (T*)dk, (T*)dv, H, S, sh, ss, scale);
+  kern<<<grid, kThreads, bytes, stream>>>((const float*)q, (const float*)k, (const float*)v,
+                                          (const float*)dout, (const float*)lse, (const float*)di,
+                                          (float*)dk, (float*)dv, H, S, sh, ss, scale);
   return (int)cudaGetLastError();
 }
 
-template <typename T, int D>
+template <int D>
 int launch_dq(const void* q, const void* k, const void* v, const void* dout, const void* lse,
               const void* di, void* dq, int B, int H, int S, long long sh, long long ss,
               float scale, cudaStream_t stream) {
   const size_t bytes = sizeof(float) * dq_floats(D);
-  auto kern = causal_attn_bwd_dq_kernel<T, D>;
+  auto kern = causal_attn_bwd_dq_kernel<D>;
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)bytes);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((S + kTile - 1) / kTile, B * H);
-  kern<<<grid, kThreads, bytes, stream>>>((const T*)q, (const T*)k, (const T*)v,
-                                          (const T*)dout, (const float*)lse, (const float*)di,
-                                          (T*)dq, H, S, sh, ss, scale);
+  kern<<<grid, kThreads, bytes, stream>>>((const float*)q, (const float*)k, (const float*)v,
+                                          (const float*)dout, (const float*)lse, (const float*)di,
+                                          (float*)dq, H, S, sh, ss, scale);
   return (int)cudaGetLastError();
 }
 
-// (T, D) -> the instantiation; any other D, or an empty shape, is
+// D -> the instantiation; any other D, or an empty shape, is
 // cudaErrorInvalidValue
-#define LAC_ATTN_DISPATCH(T, FN, ...)                                           \
+#define LAC_ATTN_DISPATCH(FN, ...)                                              \
   if (S <= 0 || B <= 0 || H <= 0) return (int)cudaErrorInvalidValue;            \
-  if (D == 64) return FN<T, 64>(__VA_ARGS__);                                   \
-  if (D == 128) return FN<T, 128>(__VA_ARGS__);                                 \
+  if (D == 64) return FN<64>(__VA_ARGS__);                                      \
+  if (D == 128) return FN<128>(__VA_ARGS__);                                    \
   return (int)cudaErrorInvalidValue;
 
 }  // namespace
 
 extern "C" {
 
-// K10 and K11 take f32 only: bf16 K10 and K11 are causal_attn_sm90.cu's
+// f32 only: bf16 K10-K12 are causal_attn_sm90.cu's
 int lac_attn_fwd(const void* q, const void* k, const void* v, void* o, void* lse, int B, int H,
                  int S, int D, long long sh, long long ss, float scale, void* stream) {
-  LAC_ATTN_DISPATCH(float, launch_fwd, q, k, v, o, lse, B, H, S, sh, ss, scale,
+  LAC_ATTN_DISPATCH(launch_fwd, q, k, v, o, lse, B, H, S, sh, ss, scale,
                     (cudaStream_t)stream)
 }
 
 int lac_attn_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
                      const void* lse, const void* di, void* dk, void* dv, int B, int H, int S,
                      int D, long long sh, long long ss, float scale, void* stream) {
-  LAC_ATTN_DISPATCH(float, launch_dkv, q, k, v, dout, lse, di, dk, dv, B, H, S, sh, ss, scale,
+  LAC_ATTN_DISPATCH(launch_dkv, q, k, v, dout, lse, di, dk, dv, B, H, S, sh, ss, scale,
                     (cudaStream_t)stream)
 }
 
 int lac_attn_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
                     const void* lse, const void* di, void* dq, int B, int H, int S, int D,
-                    long long sh, long long ss, float scale, int bf16, void* stream) {
-  if (bf16) {
-    LAC_ATTN_DISPATCH(__nv_bfloat16, launch_dq, q, k, v, dout, lse, di, dq, B, H, S, sh, ss,
-                      scale, (cudaStream_t)stream)
-  }
-  LAC_ATTN_DISPATCH(float, launch_dq, q, k, v, dout, lse, di, dq, B, H, S, sh, ss, scale,
+                    long long sh, long long ss, float scale, void* stream) {
+  LAC_ATTN_DISPATCH(launch_dq, q, k, v, dout, lse, di, dq, B, H, S, sh, ss, scale,
                     (cudaStream_t)stream)
 }
 

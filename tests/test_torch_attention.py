@@ -108,10 +108,10 @@ def test_plain_matches_splash_kernel_interpreted(d):
 @pytest.mark.parametrize("d", [64, 128])
 def test_plain_matches_splash_kernel_interpreted_bf16(d):
     """The splash kernel on bf16 inputs rounds P and dS to bf16 before its
-    second products, where the card's tensor-core K10 and K11 round them.
-    Its O, dK and dV stay within the card's bf16 tolerance (chip_smoke.py's
+    second products, where the card's tensor-core K10-K12 round them. Its
+    O, dQ, dK and dV stay within the card's bf16 tolerance (chip_smoke.py's
     ATTN_TOL["bf16"], 1e-2 of max(max |plain|, 1)) of the plain versions,
-    which the card holds K10 and K11 to: so that tolerance admits the
+    which the card holds K10-K12 to: so that tolerance admits the
     reference's rounding points."""
     h, s = 2, (256 if d == 64 else 128)
     (qn, kn, vn, don), _ = _inputs(1, h, s, d, torch.bfloat16, seed=d + 1)
@@ -120,12 +120,12 @@ def test_plain_matches_splash_kernel_interpreted_bf16(d):
     mask = sm.MultiHeadMask([sm.CausalMask((s, s)) for _ in range(h)])
     kernel = sk.make_splash_mha_single_device(mask=mask, interpret=True)
     ro, vjp = jax.vjp(kernel, *(jnp.asarray(x[0], jnp.bfloat16) for x in (qn, kn, vn)))
-    _, rdk, rdv = vjp(jnp.asarray(don[0], jnp.bfloat16))
-    assert ro.dtype == rdk.dtype == jnp.bfloat16
+    rdq, rdk, rdv = vjp(jnp.asarray(don[0], jnp.bfloat16))
+    assert ro.dtype == rdq.dtype == rdk.dtype == jnp.bfloat16
     q, k, v, do = (torch.from_numpy(x).to(torch.bfloat16) for x in (qn, kn, vn, don))
     o, lse = A.attention_plain_fwd(q, k, v, 1.0)
-    _, dk, dv = A.attention_plain_bwd(q, k, v, o, lse, do, 1.0)
-    for got, want in ((o, ro), (dk, rdk), (dv, rdv)):
+    dq, dk, dv = A.attention_plain_bwd(q, k, v, o, lse, do, 1.0)
+    for got, want in ((o, ro), (dq, rdq), (dk, rdk), (dv, rdv)):
         assert _rel(got[0], np.asarray(want, np.float32)) <= 1e-2
 
 

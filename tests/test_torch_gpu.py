@@ -54,6 +54,25 @@ def test_kernels_equal_plain_versions(cuda, t_len, b, cap, codec):
         f"{codec}_intervals": 1, "rans32_encode": 1, f"{codec}_decode": 1}
 
 
+@pytest.mark.parametrize("t_len,b,cap", [(1000, 101, 300), (4096, 45, 2051), (70, 33, 2)])
+def test_rans32_encode_exact_at_ragged_empty_and_overflowing_lanes(cuda, t_len, b, cap):
+    """K2 (one warp of lanes a block) on a B that is no multiple of 32:
+    ragged lengths, an empty lane, a single-byte lane, lanes of random
+    bytes whose words overflow cap (the ring's rotation) and lanes that
+    fit; words and nwords exactly those of its plain version."""
+    syms, lengths = _inputs(t_len, b, seed=7)
+    lengths[4], lengths[5] = t_len, 1  # a random lane at full length; one byte
+    s, n = torch.from_numpy(syms).to(cuda), torch.from_numpy(lengths).to(cuda)
+    lo, fr = rk.o0n_encode_intervals(s, RATE)
+    words, nwords = rk.rans32_encode(lo, fr, n, cap)
+    pw, pnw = rk.rans32_encode_plain(lo, fr, n, cap)
+    torch.cuda.synchronize()
+    assert torch.equal(words.to(torch.int32), pw.to(torch.int32))
+    assert torch.equal(nwords, pnw)
+    assert int(nwords[0]) == 2 and int(nwords[1]) <= 3  # the empty and one-byte lanes
+    assert bool((nwords > cap).any()) and bool((nwords <= cap).any())
+
+
 def test_o0c_decode_at_block_8192_cap(cuda):
     """K9 at the cap of block 8192's words (4099), where lac_tpu decodes in
     chunks: one kernel for every cap, equal to its plain version."""
@@ -168,12 +187,14 @@ def test_attention_kernels_equal_plain_versions(cuda, b, h, s, d, dtype, layout)
 
 @pytest.mark.parametrize("d", [64, 128])
 def test_attention_variant_follows_the_type(cuda, d):
-    """bf16 K10 and K11 launch the tensor-core kernels, f32 the scalar ones;
-    K12 is the scalar kernel for both. Both variants count as the kernel."""
+    """bf16 K10-K12 launch the tensor-core kernels, f32 the scalar ones.
+    Both variants count as the kernel."""
     from lac_tpu_torch.ops import attention as A
 
-    for dtype, fwd, dkv in ((torch.float32, "lac_attn_fwd", "lac_attn_bwd_dkv"),
-                            (torch.bfloat16, "lac_attn_fwd_sm90", "lac_attn_bwd_dkv_sm90")):
+    for dtype, fwd, dkv, dq in (
+            (torch.float32, "lac_attn_fwd", "lac_attn_bwd_dkv", "lac_attn_bwd_dq"),
+            (torch.bfloat16, "lac_attn_fwd_sm90", "lac_attn_bwd_dkv_sm90",
+             "lac_attn_bwd_dq_sm90")):
         q, k, v, do = _attn_inputs(1, 2, 200, d, dtype, "bshd", cuda)
         A.reset_launches()
         o, lse = A.causal_attn_fwd(q, k, v, d ** -0.5)
@@ -181,8 +202,7 @@ def test_attention_variant_follows_the_type(cuda, d):
         A.causal_attn_bwd_dkv(q, k, v, do, lse, di, d ** -0.5)
         A.causal_attn_bwd_dq(q, k, v, do, lse, di, d ** -0.5)
         torch.cuda.synchronize()
-        assert {n: c for n, c in A.symbol_launches.items() if c} == {
-            fwd: 1, dkv: 1, "lac_attn_bwd_dq": 1}
+        assert {n: c for n, c in A.symbol_launches.items() if c} == {fwd: 1, dkv: 1, dq: 1}
         assert A.launches == {"causal_attn_fwd": 1, "causal_attn_bwd_dkv": 1,
                               "causal_attn_bwd_dq": 1}
 
@@ -202,6 +222,21 @@ def test_attention_bwd_dkv_is_deterministic(cuda, d):
     assert torch.equal(dk, dk2) and torch.equal(dv, dv2)
 
 
+@pytest.mark.parametrize("d", [64, 128])
+def test_attention_bwd_dq_is_deterministic(cuda, d):
+    """K12 has one writer per dQ row (no atomics): two calls on the same
+    inputs give the same bits."""
+    from lac_tpu_torch.ops import attention as A
+
+    q, k, v, do = _attn_inputs(4, 4, 1000, d, torch.bfloat16, "bshd", cuda, seed=6)
+    o, lse = A.causal_attn_fwd(q, k, v, d ** -0.5)
+    di = A._di(o, do)
+    dq = A.causal_attn_bwd_dq(q, k, v, do, lse, di, d ** -0.5)
+    dq2 = A.causal_attn_bwd_dq(q, k, v, do, lse, di, d ** -0.5)
+    torch.cuda.synchronize()
+    assert torch.equal(dq, dq2)
+
+
 def test_attention_launch_error_raises_without_fallback(cuda, monkeypatch):
     """A bf16 tensor whose tensor-core kernel fails raises: no scalar kernel
     and no plain version runs in its place, and nothing is counted."""
@@ -211,6 +246,7 @@ def test_attention_launch_error_raises_without_fallback(cuda, monkeypatch):
     lib = _build.load_library()
     monkeypatch.setattr(lib, "lac_attn_fwd_sm90", lambda *args: 700)
     monkeypatch.setattr(lib, "lac_attn_bwd_dkv_sm90", lambda *args: 1001)
+    monkeypatch.setattr(lib, "lac_attn_bwd_dq_sm90", lambda *args: 702)
     q, k, v, do = _attn_inputs(1, 2, 100, 64, torch.bfloat16, "bshd", cuda)
     lse = torch.zeros(1, 2, 100, device=cuda)
     A.reset_launches()
@@ -218,6 +254,8 @@ def test_attention_launch_error_raises_without_fallback(cuda, monkeypatch):
         A.causal_attn_fwd(q, k, v, 0.125)
     with pytest.raises(RuntimeError, match="lac_attn_bwd_dkv_sm90.*error 1001"):
         A.causal_attn_bwd_dkv(q, k, v, do, lse, lse, 0.125)
+    with pytest.raises(RuntimeError, match="lac_attn_bwd_dq_sm90.*error 702"):
+        A.causal_attn_bwd_dq(q, k, v, do, lse, lse, 0.125)
     assert set(A.launches.values()) == {0} and set(A.symbol_launches.values()) == {0}
 
 
