@@ -7,7 +7,8 @@ import faulthandler; faulthandler.dump_traceback_later(900, exit=True)  # noqa: 
 # Phase 0  the card's name and power limit; build the CUDA kernels; the
 #          launch shape of the order1n/order2n kernels; the HGMMA (wgmma)
 #          instructions in each kernel's SASS (cuobjdump -sass): the bf16
-#          K10-K12 must have some, the f32 kernels have none.
+#          K10-K12 must have some, the f32 kernels have none; the integer
+#          opcodes of K8's and K9's innermost loop, two steps of the model.
 # Phase 1  each kernel against its plain PyTorch version on the card, at the
 #          shapes the main path gives it: T = 4096 and 1024 steps, with one
 #          lane per block of the 32 MiB corpus (B = 8192 and 32768): corpus
@@ -50,7 +51,7 @@ import faulthandler; faulthandler.dump_traceback_later(900, exit=True)  # noqa: 
 #          container parse and the rest) and of the container write, each
 #          kernel's time from CUDA events beside its bound at each block the
 #          main path codes at (4096, 1024; order0c's K8, K2, K9 also at the
-#          fallback's 8192), bits per byte,
+#          fallback's 8192), beside the earlier K2, K8 and K9, bits per byte,
 #          peak device memory; for the training path its tokens/s, the
 #          attention kernels' share of a step, their plain versions' and
 #          scaled_dot_product_attention's times at the training shape.
@@ -78,43 +79,56 @@ EVENT_REPS = 5
 
 # H100 SXM, dense, from NVIDIA's data sheet:
 HBM_BYTES_PER_S = 3.35e12
-# int32 ops: 64 INT32 lanes per SM against 128 FP32 lanes whose FMA counts
-# two flops, so a quarter of the 67 TFLOP/s float32 (non-tensor) peak.
-INT32_OPS_PER_S = 67e12 / 4
+# Integer lane-ops a second, over every pipe an integer instruction can
+# take. Each of an SM's 4 schedulers issues one warp instruction (32 lanes)
+# a cycle: to the 16-lane INT32 pipe (add, logic, shift, compare, select,
+# min/max, byte permute) or, as IMAD (add, multiply, shift left), to the
+# 16-lane FMA pipe. So no kernel runs more than 128 integer lanes a cycle an
+# SM: 132 SMs x 128 x 1.98 GHz (the boost clock) = 33.45e12, half the 67
+# TFLOP/s float32 peak, which counts an FMA's two flops on the same 128
+# lanes.
+INT_OPS_PER_S = 67e12 / 2
 # Integer ops per coded symbol that the function needs, whatever a kernel
 # spends beyond them, counting each add, shift, multiply, compare and select
-# once (a u32 divide or modulo counts one). A boundary costs 3 to scale from
-# its 15-bit state (multiply, shift, add); a state update costs 4.
-#   K1 (158): split the byte 2; the 4 boundaries either side of the two
-#     nibbles 4 x 3; f_h, f_l 2; compose lo12 3 and f12 1; update the 32
-#     states of the hi table and the visited lo table 32 x 4; two rates 2 x 4
-#     (four compares, four adds); one visit count 2.
-#   K2 (8): compare, shift, select, divide, modulo, shift, 2 adds.
-#   K3 (213): slot and slot >> 8 2; a 4-probe binary search per nibble, each
-#     probe a scaled boundary and a compare and a select (hi 4 x 5, lo scaled
-#     by f_h too 4 x 6); the boundaries either side of the hi nibble 2 x 3,
-#     f_h 1, remainder 2; of the lo nibble 2 x 4, f12 1; the rANS step 4 and
-#     its refill 5; the output byte 2; the same updates, rates and count as
-#     K1 128 + 8 + 2.
-#   K4 (162): K1's 158, plus the hi row's visit count 2 (the hi rate
+# once (a u32 divide or modulo counts one), as (32-bit ops, 16-bit ops). A
+# 16-bit op counts a half: two 16-bit values share a 32-bit lane (packed
+# halves, as K8 and K9 hold them, or the DPX 16x2 forms). A state update
+# (4: a shift and a subtract, or a subtract, a shift and an add, and the
+# select) works on values below 2^16: a nibble state is at most 2^15, an
+# order0c entry at most M = 65280. A nibble boundary scales its 15-bit state
+# by 240 (a 23-bit product, (s * 240) >> 15), and the rANS state is 32
+# bits, so boundaries, the search, intervals and the coder step count at 32.
+#   K1 (30, 128): split the byte 2; the 4 boundaries either side of the two
+#     nibbles 4 x 3; f_h, f_l 2; compose lo12 3 and f12 1; two rates 2 x 4
+#     (four compares, four adds); one visit count 2; 16-bit: update the 32
+#     states of the hi table and the visited lo table 32 x 4.
+#   K2 (8, 0): compare, shift, select, divide, modulo, shift, 2 adds.
+#   K3 (85, 128): slot and slot >> 8 2; a 4-probe binary search per nibble,
+#     each probe a scaled boundary and a compare and a select (hi 4 x 5, lo
+#     scaled by f_h too 4 x 6); the boundaries either side of the hi nibble
+#     2 x 3, f_h 1, remainder 2; of the lo nibble 2 x 4, f12 1; the rANS step
+#     4 and its refill 5; the output byte 2; the same rates and count as K1
+#     8 + 2; 16-bit: K1's 128 updates.
+#   K4 (34, 128): K1's, plus the hi row's visit count 2 (the hi rate
 #     replaces the step rate, so no more rates) and the hi row picked by
 #     prev_h 2 (a shift and an add to its address).
-#   K6 (165): K4's 162, plus the lo context h*4 + (prev_h >> 2) 3.
-#   K5 (217), K7 (220): K3's 213 plus what K4 and K6 add to K1.
+#   K6 (37, 128): K4's, plus the lo context h*4 + (prev_h >> 2) 3.
+#   K5 (89, 128), K7 (92, 128): K3's plus what K4 and K6 add to K1.
 # order0c moves all 256 entries of its joint-byte CDF every step; entry 0
 # stays 0, so 255 move, each the same update toward 0 or toward M as a
 # nibble state's, counted at the same 4.
-#   K8 (1035): the 255 updates 1020; the interval 7 (the two boundaries
-#     either side of the byte, each an entry and an add, the top one an add
-#     more, the s = 255 select, the width); the rate 8.
-#   K9 (1068): slot 1; an 8-probe binary search, each probe a boundary add,
-#     a compare and a select, 24; the interval 4 (the upper boundary 2, the
-#     s = 255 select, the width); the rANS step 4 and its refill 5; the
-#     output byte 2; K8's 1020 updates and rate 8.
+#   K8 (15, 1020): the interval 7 (the two boundaries either side of the
+#     byte, each an entry and an add, the top one an add more, the s = 255
+#     select, the width); the rate 8; 16-bit: the 255 updates 1020.
+#   K9 (48, 1020): slot 1; an 8-probe binary search, each probe a boundary
+#     add, a compare and a select, 24; the interval 4 (the upper boundary 2,
+#     the s = 255 select, the width); the rANS step 4 and its refill 5; the
+#     output byte 2; K8's rate 8; 16-bit: K8's 1020 updates.
 OPS_PER_SYMBOL = {
-    "o0n_intervals": 158, "rans32_encode": 8, "o0n_decode": 213,
-    "o1n_intervals": 162, "o1n_decode": 217, "o2n_intervals": 165, "o2n_decode": 220,
-    "o0c_intervals": 1035, "o0c_decode": 1068,
+    "o0n_intervals": (30, 128), "rans32_encode": (8, 0), "o0n_decode": (85, 128),
+    "o1n_intervals": (34, 128), "o1n_decode": (89, 128),
+    "o2n_intervals": (37, 128), "o2n_decode": (92, 128),
+    "o0c_intervals": (15, 1020), "o0c_decode": (48, 1020),
 }
 
 REPLACES = {
@@ -147,10 +161,15 @@ ATTN_SYMBOL = {"causal_attn_fwd": "lac_attn_fwd_sm90",
 # section 6)
 EARLIER_MS = {"causal_attn_fwd": 3.435, "causal_attn_bwd_dkv": 6.082,
               "causal_attn_bwd_dq": 4.994}
-# K2 before its redesign (128 lanes a block, loads on the serial chain) at
-# block 4096 and 1024 (CUDA events; H100 80GB HBM3, 700.00 W; PERF.md
-# section 6)
-EARLIER_K2_MS = {4096: 1.819, 1024: 0.670}
+# codec kernels before their redesigns, by block (CUDA events; H100 80GB
+# HBM3, 700.00 W; PERF.md section 6): K2 with 128 lanes a block and its
+# loads on the serial chain; K8 and K9 with one 32-bit entry a register and
+# warp reductions for the interval and the search
+EARLIER_CODEC_MS = {
+    "rans32_encode": {4096: 1.819, 1024: 0.670},
+    "o0c_intervals": {4096: 4.574, 1024: 4.510, 8192: 4.693},
+    "o0c_decode": {4096: 6.431, 1024: 6.306, 8192: 6.643},
+}
 
 
 def sm90_smem_bytes(name: str, d: int) -> int:
@@ -452,13 +471,14 @@ def kernel_times(torch, rk, corpus, dev, t_len, codecs=tuple(CODECS.values())):
     out = {}
     for name in ms:
         t_bytes = 1e3 * moved[name] / HBM_BYTES_PER_S
-        t_ops = 1e3 * nsym * OPS_PER_SYMBOL[name] / INT32_OPS_PER_S
+        ops32, ops16 = OPS_PER_SYMBOL[name]
+        t_ops = 1e3 * nsym * (ops32 + ops16 / 2) / INT_OPS_PER_S
         out[name] = {
             "ms": ms[name],
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         }
-        earlier = EARLIER_K2_MS.get(t_len) if name == "rans32_encode" else None
+        earlier = EARLIER_CODEC_MS.get(name, {}).get(t_len)
         print(f"kernel {name} T={t_len} B={b}: {ms[name]:.3f} ms, bound "
               f"{out[name]['bound_ms']:.4f} ms by {out[name]['bound_by']} "
               f"(bytes {t_bytes:.4f} ms, ops {t_ops:.4f} ms; "
@@ -778,12 +798,17 @@ def main() -> int:
                       f"{lib.lac_attn_smem_bytes(kid, 64)} / "
                       f"{lib.lac_attn_smem_bytes(kid, 128)} dynamic shared bytes a block "
                       f"at D 64 / 128")
-            hgmma = _build.sass_counts(lib, "HGMMA")
+            hgmma = {k: v["HGMMA"] for k, v in _build.sass_counts(lib, ("HGMMA",)).items()}
             print(f"HGMMA instructions in each kernel's SASS: {hgmma}")
             for name in WGMMA_KERNELS:
                 check(hgmma.get(name, 0) > 0, f"{name} has no HGMMA in its SASS")
             print(f"kernels without HGMMA (the f32 K10-K12, the codecs): "
                   f"{sorted(k for k, n in hgmma.items() if n == 0)}")
+            loops = _build.sass_counts(lib, _build.INT_OPCODES, inner_loop=True)
+            for name in ("o0c_intervals_kernel", "o0c_decode_kernel"):
+                check(loops[name]["all"] > 0, f"{name}: no loop found in its SASS")
+                print(f"{name} innermost loop (two steps of the model, 8 entries a "
+                      f"thread): {loops[name]}", flush=True)
             corpus = smoke.smoke_corpus()
             check(len(corpus) == smoke.SMOKE_BYTES, "corpus length")
             print(f"corpus {len(corpus)} bytes, crc32 {zlib.crc32(corpus)}")

@@ -15,7 +15,15 @@ The linker writes to a temporary name that is then renamed into place, so
 no lock file is needed and a build that was cut off leaves nothing that a
 later build waits on. The first build prints its seconds and what
 ``-Xptxas -v`` says of each kernel's registers, static shared memory and
-spills.
+spills. ``sass_counts`` counts opcodes in each kernel's SASS, in the whole
+kernel or in its innermost loop.
+
+    python -m lac_tpu_torch.ops._build [CSRC_DIR]
+
+builds the sources of ``CSRC_DIR`` (default: this package's) into a
+temporary directory under ``ops/build/`` and prints the ptxas summary and
+the codec kernels' innermost-loop opcode counts, so that two trees'
+kernels can be compared.
 
 Nothing here runs when the module is imported.
 """
@@ -29,6 +37,8 @@ import os
 import re
 import shutil
 import subprocess
+import sys
+import tempfile
 import threading
 import time
 
@@ -130,34 +140,77 @@ def _ptxas_summary(log: str) -> str:
     return "\n".join(out)
 
 
-def sass_counts(lib: ctypes.CDLL, opcode: str) -> dict:
-    """{kernel label: the number of ``opcode`` instructions in its SASS}, for
-    every kernel of the built library ``lib``, from ``cuobjdump -sass``
+# the opcodes of the codec kernels' inner loops that phase 0 of
+# chip_smoke.py prints for K8 and K9: the integer ones, then those of the
+# shared-memory and warp units
+INT_OPCODES = ("IADD3", "VIADD", "LOP3", "SHF", "ISETP", "SEL", "IMNMX", "VIMNMX", "VIADDMNMX",
+               "PRMT", "IMAD", "POPC", "REDUX", "SHFL", "VOTE", "LDS", "STS")
+
+
+def _sass_functions(so_path: str) -> dict:
+    """{kernel label: [(address, opcode, text)]} from ``cuobjdump -sass``
     (which comes with the toolkit, beside nvcc)."""
     tool = os.path.join(os.path.dirname(_nvcc()), "cuobjdump")
-    sass = subprocess.run([tool, "-sass", lib._name], capture_output=True, text=True,
+    sass = subprocess.run([tool, "-sass", so_path], capture_output=True, text=True,
                           timeout=_BUILD_TIMEOUT_S, check=True).stdout
-    counts, name = {}, None
+    funcs, cur = {}, None
     for line in sass.splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
-            name = _kernel_label(m.group(1))
-            counts[name] = 0
-        elif name is not None and re.search(rf"\b{opcode}\b", line):
-            counts[name] += 1
-    return counts
+            cur = funcs[_kernel_label(m.group(1))] = []
+            continue
+        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", line)
+        if m and cur is not None:
+            toks = m.group(2).split()
+            op = toks[1] if toks[0].startswith("@") and len(toks) > 1 else toks[0]
+            cur.append((int(m.group(1), 16), op.split(".")[0], m.group(2)))
+    return funcs
 
 
-def _sources() -> list[str]:
-    return sorted(glob.glob(os.path.join(_CSRC, "*.cu")) + glob.glob(os.path.join(_CSRC, "*.cuh")))
+def _innermost_loop(instrs: list) -> list:
+    """The instructions from a backward branch's target (``BRA 0x3a0``) to
+    the branch, for the shortest such span that holds no EXIT: the
+    innermost loop (empty if there is none). The branch to itself after
+    EXIT, and the jump from a divergent slow path past EXIT back into a
+    loop, are no loops."""
+    exits = [addr for addr, op, _ in instrs if op == "EXIT"]
+    best = None
+    for addr, op, text in instrs:
+        m = re.search(r"BRA\S*\s+0x([0-9a-f]+)", text) if op == "BRA" else None
+        target = int(m.group(1), 16) if m else None
+        if (target is None or target >= addr or any(target <= e <= addr for e in exits)
+                or (best is not None and addr - target >= best[1] - best[0])):
+            continue
+        best = (target, addr)
+    return [] if best is None else [i for i in instrs if best[0] <= i[0] <= best[1]]
 
 
-def _build(so_path: str) -> None:
-    """One nvcc per source, all at once, then one link into ``so_path``."""
-    os.makedirs(_BUILD_DIR, exist_ok=True)
+def sass_counts(lib, opcodes, inner_loop: bool = False) -> dict:
+    """{kernel label: {opcode: count, "all": instructions}} for every kernel
+    of the built library ``lib`` (a loaded CDLL or a path), over the whole
+    kernel or, with ``inner_loop``, over its innermost loop. An opcode
+    counts with its modifiers (``SHF`` counts ``SHF.R.U32``)."""
+    out = {}
+    for name, instrs in _sass_functions(getattr(lib, "_name", lib)).items():
+        if inner_loop:
+            instrs = _innermost_loop(instrs)
+        out[name] = {op: sum(1 for i in instrs if i[1] == op) for op in opcodes}
+        out[name]["all"] = len(instrs)
+    return out
+
+
+def _sources(csrc: str = _CSRC) -> list[str]:
+    return sorted(glob.glob(os.path.join(csrc, "*.cu")) + glob.glob(os.path.join(csrc, "*.cuh")))
+
+
+def _build(so_path: str, csrc: str = _CSRC) -> None:
+    """One nvcc per source of ``csrc``, all at once, then one link into
+    ``so_path``."""
+    build_dir = os.path.dirname(so_path)
+    os.makedirs(build_dir, exist_ok=True)
     tag = f"tmp{os.getpid()}"
-    units = [p for p in _sources() if p.endswith(".cu")]
-    objs = [os.path.join(_BUILD_DIR, f"{os.path.basename(u)[:-3]}.{tag}.o") for u in units]
+    units = [p for p in _sources(csrc) if p.endswith(".cu")]
+    objs = [os.path.join(build_dir, f"{os.path.basename(u)[:-3]}.{tag}.o") for u in units]
     tmp = f"{so_path}.{tag}"
     t0 = time.perf_counter()
     try:
@@ -216,3 +269,20 @@ def load_library() -> ctypes.CDLL:
             fn.restype = ctypes.c_int
         _lib = lib
         return lib
+
+
+def main(argv: list[str]) -> int:
+    csrc = os.path.abspath(argv[0]) if argv else _CSRC
+    os.makedirs(_BUILD_DIR, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=_BUILD_DIR) as tmp:
+        so_path = os.path.join(tmp, "lac_kernels.so")
+        _build(so_path, csrc)
+        loops = sass_counts(so_path, INT_OPCODES, inner_loop=True)
+    for name, counts in loops.items():
+        if any(name.startswith(k) for k in _KERNELS[:7]):
+            print(f"{name} innermost loop: {counts}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

@@ -92,6 +92,41 @@ def test_o0c_decode_at_block_8192_cap(cuda):
     assert bool(((out == s) | ~live | ~fits[None, :]).all())
 
 
+def _o0c_lanes(t_len, b, seed):
+    """``_inputs`` with a lane of byte 255 (hi = 2^16 at every step) and a
+    lane of byte 0 (lo = 0 at every step), both at full length, and lane 7
+    of random bytes at full length (about 8 bits a byte, so T / 2 words)."""
+    syms, lengths = _inputs(t_len, b, seed)
+    syms[:, 4], syms[:, 5] = 255, 0
+    lengths[4] = lengths[5] = lengths[7] = t_len
+    return syms, lengths
+
+
+@pytest.mark.parametrize("rate", range(13))
+def test_o0c_kernels_exact_at_every_base_rate(cuda, rate):
+    """K8 and K9, which hold the CDF as packed 16-bit pairs, bit-equal to
+    their plain versions at base rates 0-12, so r runs from 0 (the one-hot
+    jump) to 16 (a half's shift empties it): B 13 (odd, so one of K9's
+    warps codes a single lane, and no multiple of K8's 8 lanes a block or
+    K9's 16), T 300 (no multiple of 32 or 16); ragged, empty, single-byte,
+    all-255, all-0 and cap-overflowing lanes."""
+    t_len, b, cap = 300, 13, 140
+    syms, lengths = _o0c_lanes(t_len, b, seed=rate)
+    s, n = torch.from_numpy(syms).to(cuda), torch.from_numpy(lengths).to(cuda)
+    lo, fr = rk.o0c_encode_intervals(s, rate)
+    plo, pfr = rk.o0c_intervals_plain(s, rate)
+    assert torch.equal(lo, plo) and torch.equal(fr, pfr)
+    assert bool((lo[:, 4] + fr[:, 4] == 1 << 16).all()) and bool((lo[:, 5] == 0).all())
+    words, nwords = rk.rans32_encode(lo, fr, n, cap)
+    out = rk.o0c_rans32_decode(words, n, t_len, rate)
+    assert torch.equal(out, rk.o0c_decode_plain(words, n, t_len, rate))
+    fits = nwords <= cap
+    assert bool((~fits).any()) and bool(fits[[0, 1, 3, 4, 5]].all())
+    live = torch.arange(t_len, device=cuda)[:, None] < n[None, :]
+    assert bool(((out == s) | ~live | ~fits[None, :]).all())
+    assert bool(((out == 0) | live).all())
+
+
 @pytest.mark.parametrize("model", ["order0n", "order1n", "order2n", "order0c"])
 @pytest.mark.parametrize("block", [1024, 4096])
 def test_turbo_on_card_equals_cpu(cuda, block, model):

@@ -18,6 +18,7 @@ from lac_tpu.ops import pallas_rans as ref_ops
 from lac_tpu.stream.container import read_container as ref_read
 from lac_tpu_torch import convert
 from lac_tpu_torch.coder import rans as port_rans
+from lac_tpu_torch.models import functional as F
 from lac_tpu_torch.models.functional import Order0CDF
 from lac_tpu_torch.ops import rans_kernels as rk
 from lac_tpu_torch.runtime import engine, turbo
@@ -212,3 +213,123 @@ def test_wrappers_check_arguments_and_count_no_plain_launches():
                                    RATE, 18)
     rk.o0c_rans32_decode(words, torch.full((2,), 16, dtype=torch.int32), 16, RATE)
     assert rk.launches == before  # CPU tensors run the plain versions
+
+
+# --------------------------------------------------------------------------
+# The packed-pair arithmetic of K8 and K9 (ops/csrc/o0c_rans32.cu), written
+# out on int64 tensors holding the kernels' 32-bit words: word g of a lane's
+# 128 holds entry 2g in its low half and 2g + 1 in its high half (K8's
+# thread i holds words 4i .. 4i+3, K9's words 8i .. 8i+7). No card is
+# needed for it.
+# --------------------------------------------------------------------------
+
+M = (1 << 16) - V
+# every r the rate schedule reaches from base rates 0-12: 0 .. 16
+SCHEDULE_RATES = sorted({F.adaptive_rate(base, t) for base in range(13) for t in range(0, 129, 16)})
+
+
+def _half_signs(x):
+    """prmt.b32 with selector 0xBB99: each half's bit 15 over the half."""
+    return torch.where(x & 0x8000 != 0, 0xFFFF, 0) | torch.where(x & 0x80000000 != 0, 0xFFFF << 16, 0)
+
+
+def _down_masks(s):
+    """K8's [R, 128] down masks for bytes s [R]: s * 0x10001 plus each
+    word's offset 0x7FFF8000 - k * 0x10001 (k = 2g), as a 32-bit sum, then
+    each half's bit 15 over the half."""
+    k = 2 * torch.arange(V // 2, dtype=torch.int64)
+    return _half_signs((s[:, None] * 0x10001 + (0x7FFF8000 - k * 0x10001)) & 0xFFFFFFFF)
+
+
+def _table_masks(s):
+    """K9's [R, 128] down masks: thread i (16 entries) takes row n =
+    clamp(s + 1 - 16i, 0, 16) of a 17-row table whose word p has its low
+    half if n > 2p and its high half if n > 2p + 1."""
+    n_, p = torch.arange(17)[:, None], torch.arange(8)[None, :]
+    table = torch.where(n_ > 2 * p, 0xFFFF, 0) | torch.where(n_ > 2 * p + 1, 0xFFFF << 16, 0)
+    n = torch.clamp(s[:, None] + 1 - 16 * torch.arange(16)[None, :], 0, 16)  # [R, 16]
+    return table[n].reshape(len(s), V // 2)
+
+
+def _packed_update(w, down, r):
+    """state_update on words w with down masks ``down`` at rate r: q = st
+    or M - st, x = ((q >> r) & mask) ^ down, then st + x - down."""
+    mask = (0xFFFF >> r) * 0x10001 if r < 16 else 0
+    q = (w & down) | ((M * 0x10001 - w) & ~down & 0xFFFFFFFF)
+    return (w + (((q >> min(r, 16)) & mask) ^ down) - down) & 0xFFFFFFFF
+
+
+def _pack(state):
+    return state[:, 0:V:2] | (state[:, 1:V:2] << 16)
+
+
+def _unpack(w):
+    return torch.stack([w & 0xFFFF, w >> 16], 2).reshape(w.shape[0], V)
+
+
+def test_schedule_rates_run_from_0_to_16():
+    assert SCHEDULE_RATES == list(range(17))
+
+
+@pytest.mark.parametrize("r", SCHEDULE_RATES)
+def test_packed_pair_update_equals_cdf_state_update(r):
+    """Every state value in [0, M] sits in a low half and in a high half,
+    moving toward 0 (byte 255: every k <= s), toward M (byte 0: every k > 0)
+    and on both sides of every byte s; K8's and K9's down masks are k <= s,
+    and the words after one packed step equal functional.cdf_state_update's
+    entries."""
+    rows = torch.arange(256, dtype=torch.int64)
+    k = torch.arange(V, dtype=torch.int64)
+    states, syms = [], []
+    for shift in (0, 1):  # each value in an even column, then in an odd one
+        vals = (rows[:, None] * V + k[None, :] + shift) % (M + 1)
+        for s in (rows, torch.full((256,), 255), torch.zeros(256, dtype=torch.int64)):
+            states.append(vals)
+            syms.append(s)
+    state = torch.cat(states)
+    s = torch.cat(syms)
+    assert bool((torch.bincount(state[:, 0::2].flatten(), minlength=M + 1) > 0).all())
+    assert bool((torch.bincount(state[:, 1::2].flatten(), minlength=M + 1) > 0).all())
+    full = torch.cat([state, torch.full((state.shape[0], 1), M)], 1).to(torch.int32)
+    want = F.cdf_state_update(full, s, r)
+    for down in (_down_masks(s), _table_masks(s)):
+        assert torch.equal(_unpack(down) == 0xFFFF, k[None, :] <= s[:, None])
+        assert bool(((_unpack(down) == 0) | (_unpack(down) == 0xFFFF)).all())
+        got = _unpack(_packed_update(_pack(state), down, r))
+        assert torch.equal(got, want[:, :V].to(torch.int64)) and bool((want[:, V] == M).all())
+
+
+def test_two_ballot_search_equals_the_plain_search():
+    """K9's search, on half a warp: the owner is the last of 16 threads
+    whose first boundary (entry 16i) is <= slot; its 16 boundaries go to
+    the half's 16 lanes, and the count c of those <= slot gives s = 16 *
+    owner + c - 1, lane c - 1 the interval's low end and lane c its high end,
+    or entry 16 * owner + 16 when c = 16 (2^16 after byte 255). Held to the
+    plain search on states the model reaches at base rates 0, 4 and 12, for
+    slots across [0, 2^16)."""
+    rng = np.random.default_rng(15)
+    slots = torch.from_numpy(np.concatenate([[0, 1, 65534, 65535], rng.integers(0, 1 << 16, 252)]))
+    syms = torch.from_numpy(np.stack([rng.integers(0, 256, 300), np.full(300, 255),
+                                      np.zeros(300, np.int64), rng.integers(60, 70, 300)], 1))
+    hl = torch.arange(16)
+    counts = set()
+    for rate in (0, 4, 12):
+        model = Order0CDF(rate)
+        state = model.init_state(4)
+        for t in range(300):
+            if t % 50 == 49:
+                for lane in range(4):
+                    st = (state[0][lane][None, :].expand(len(slots), -1), t)
+                    eff = model.cdf(st).to(torch.int64)  # eff[:, 256] = 2^16
+                    base = 16 * ((eff[:, 0:V:16] <= slots[:, None]).sum(1) - 1)
+                    look = eff.gather(1, base[:, None] + hl[None, :])
+                    after = eff.gather(1, base[:, None] + 16)[:, 0]
+                    c = (look <= slots[:, None]).sum(1)
+                    lo = look.gather(1, (c - 1)[:, None])[:, 0]
+                    hi = torch.where(c < 16, look.gather(1, (c % 16)[:, None])[:, 0], after)
+                    ps, plo, pfr = rk._o0c_search(model, st, slots)
+                    assert torch.equal(base + c - 1, ps) and torch.equal(lo, plo.to(torch.int64))
+                    assert torch.equal(hi - lo, pfr.to(torch.int64))
+                    counts.update(c.tolist())
+            state = model.update_(state, syms[t])
+    assert {1, 16} <= counts  # the owner's first entry, and its last
