@@ -5,10 +5,11 @@ import faulthandler; faulthandler.dump_traceback_later(900, exit=True)  # noqa: 
 #   python3 chip_smoke.py
 #
 # Phase 0  the card's name and power limit; build the CUDA kernels; the
-#          launch shape of the order1n/order2n kernels; the HGMMA (wgmma)
-#          instructions in each kernel's SASS (cuobjdump -sass): the bf16
-#          K10-K12 must have some, the f32 kernels have none; the integer
-#          opcodes of K8's and K9's innermost loop, two steps of the model.
+#          launch shapes of the order1n (K4, K5) and order2n (K6, K7)
+#          kernels; the HGMMA (wgmma) instructions in each kernel's SASS
+#          (cuobjdump -sass): the bf16 K10-K12 must have some, the f32
+#          kernels have none; the integer opcodes of K6's and K7's innermost
+#          loop (four steps of a lane) and of K8's and K9's (two steps).
 # Phase 1  each kernel against its plain PyTorch version on the card, at the
 #          shapes the main path gives it: T = 4096 and 1024 steps, with one
 #          lane per block of the 32 MiB corpus (B = 8192 and 32768): corpus
@@ -51,10 +52,11 @@ import faulthandler; faulthandler.dump_traceback_later(900, exit=True)  # noqa: 
 #          container parse and the rest) and of the container write, each
 #          kernel's time from CUDA events beside its bound at each block the
 #          main path codes at (4096, 1024; order0c's K8, K2, K9 also at the
-#          fallback's 8192), beside the earlier K2, K8 and K9, bits per byte,
-#          peak device memory; for the training path its tokens/s, the
-#          attention kernels' share of a step, their plain versions' and
-#          scaled_dot_product_attention's times at the training shape.
+#          fallback's 8192), beside the earlier K2, K6, K7, K8 and K9, bits
+#          per byte, peak device memory; for the training path its
+#          tokens/s, the attention kernels' share of a step, their plain
+#          versions' and scaled_dot_product_attention's times at the
+#          training shape.
 #
 # It imports the standard library, numpy, torch and lac_tpu_torch only. A
 # hang ends in a traceback and a non-zero exit (faulthandler above). Without
@@ -90,45 +92,51 @@ HBM_BYTES_PER_S = 3.35e12
 INT_OPS_PER_S = 67e12 / 2
 # Integer ops per coded symbol that the function needs, whatever a kernel
 # spends beyond them, counting each add, shift, multiply, compare and select
-# once (a u32 divide or modulo counts one), as (32-bit ops, 16-bit ops). A
-# 16-bit op counts a half: two 16-bit values share a 32-bit lane (packed
-# halves, as K8 and K9 hold them, or the DPX 16x2 forms). A state update
-# (4: a shift and a subtract, or a subtract, a shift and an add, and the
-# select) works on values below 2^16: a nibble state is at most 2^15, an
-# order0c entry at most M = 65280. A nibble boundary scales its 15-bit state
-# by 240 (a 23-bit product, (s * 240) >> 15), and the rANS state is 32
-# bits, so boundaries, the search, intervals and the coder step count at 32.
-#   K1 (30, 128): split the byte 2; the 4 boundaries either side of the two
-#     nibbles 4 x 3; f_h, f_l 2; compose lo12 3 and f12 1; two rates 2 x 4
-#     (four compares, four adds); one visit count 2; 16-bit: update the 32
-#     states of the hi table and the visited lo table 32 x 4.
-#   K2 (8, 0): compare, shift, select, divide, modulo, shift, 2 adds.
-#   K3 (85, 128): slot and slot >> 8 2; a 4-probe binary search per nibble,
-#     each probe a scaled boundary and a compare and a select (hi 4 x 5, lo
-#     scaled by f_h too 4 x 6); the boundaries either side of the hi nibble
-#     2 x 3, f_h 1, remainder 2; of the lo nibble 2 x 4, f12 1; the rANS step
-#     4 and its refill 5; the output byte 2; the same rates and count as K1
-#     8 + 2; 16-bit: K1's 128 updates.
-#   K4 (34, 128): K1's, plus the hi row's visit count 2 (the hi rate
+# once, but a multiply and the add it feeds once (IMAD, IMAD.HI), and a u32
+# divide or modulo once, as (32-bit ops, 16-bit ops). A 16-bit op counts a
+# half: two 16-bit values share a 32-bit lane (packed halves, as K6-K9 hold
+# them, or the DPX 16x2 forms). A state update (4: a shift and a subtract,
+# or a subtract, a shift and an add, and the select) works on values below
+# 2^16: a nibble state is at most 2^15, an order0c entry at most M = 65280.
+# A nibble row's 17 states have constant ends (st[0] = 0 moves toward 0,
+# st[16] = 2^15 toward 2^15), so 15 move. A nibble boundary
+# ((st * 240) >> 15) + k is a shift (the state to the top half) and one
+# IMAD.HI (times 480, plus k): 2. The rANS state is 32 bits, so boundaries,
+# the search, intervals and the coder step count at 32.
+#   K1 (25, 120): split the byte 2; the 4 boundaries either side of the two
+#     nibbles 4 x 2; f_h, f_l 2; compose lo12 2 (a shift and an IMAD) and
+#     f12 1; two rates 2 x 4 (four compares, four adds); one visit count 2;
+#     16-bit: update the 15 moving states of the hi row and the visited lo
+#     row 2 x 15 x 4.
+#   K2 (7, 0): compare, shift, select, divide, modulo, rem + lo, and
+#     q * 2^16 + that (an IMAD).
+#   K3 (71, 120): slot and slot >> 8 2; a 4-probe binary search per nibble,
+#     each probe a boundary and a compare and a select (hi 4 x 4, lo scaled
+#     by f_h too 4 x 5); the boundaries either side of the hi nibble 2 x 2,
+#     f_h 1, remainder 2; of the lo nibble 2 x 3, f12 1; the rANS step 3
+#     (a shift, a subtract, an IMAD) and its refill 5; the output byte 1
+#     (h * 16 + l); the same rates and count as K1 8 + 2; 16-bit: K1's 120
+#     updates.
+#   K4 (28, 120): K1's, plus the hi row's visit count 2 (the hi rate
 #     replaces the step rate, so no more rates) and the hi row picked by
-#     prev_h 2 (a shift and an add to its address).
-#   K6 (37, 128): K4's, plus the lo context h*4 + (prev_h >> 2) 3.
-#   K5 (89, 128), K7 (92, 128): K3's plus what K4 and K6 add to K1.
+#     prev_h 1 (an IMAD to its address).
+#   K6 (30, 120): K4's, plus the lo context h*4 + (prev_h >> 2) 2.
+#   K5 (74, 120), K7 (76, 120): K3's plus what K4 and K6 add to K1.
 # order0c moves all 256 entries of its joint-byte CDF every step; entry 0
 # stays 0, so 255 move, each the same update toward 0 or toward M as a
 # nibble state's, counted at the same 4.
 #   K8 (15, 1020): the interval 7 (the two boundaries either side of the
 #     byte, each an entry and an add, the top one an add more, the s = 255
 #     select, the width); the rate 8; 16-bit: the 255 updates 1020.
-#   K9 (48, 1020): slot 1; an 8-probe binary search, each probe a boundary
+#   K9 (47, 1020): slot 1; an 8-probe binary search, each probe a boundary
 #     add, a compare and a select, 24; the interval 4 (the upper boundary 2,
-#     the s = 255 select, the width); the rANS step 4 and its refill 5; the
+#     the s = 255 select, the width); the rANS step 3 and its refill 5; the
 #     output byte 2; K8's rate 8; 16-bit: K8's 1020 updates.
 OPS_PER_SYMBOL = {
-    "o0n_intervals": (30, 128), "rans32_encode": (8, 0), "o0n_decode": (85, 128),
-    "o1n_intervals": (34, 128), "o1n_decode": (89, 128),
-    "o2n_intervals": (37, 128), "o2n_decode": (92, 128),
-    "o0c_intervals": (15, 1020), "o0c_decode": (48, 1020),
+    "o0n_intervals": (25, 120), "rans32_encode": (7, 0), "o0n_decode": (71, 120),
+    "o1n_intervals": (28, 120), "o1n_decode": (74, 120),
+    "o2n_intervals": (30, 120), "o2n_decode": (76, 120),
+    "o0c_intervals": (15, 1020), "o0c_decode": (47, 1020),
 }
 
 REPLACES = {
@@ -145,6 +153,7 @@ REPLACES = {
 }
 SOURCE = {name: "lac_tpu_torch/ops/csrc/" + (
     "o0c_rans32.cu" if name.startswith("o0c")
+    else "o2n_rans32.cu" if name.startswith("o2n")
     else "o0n_rans32.cu" if name in ("o0n_intervals", "rans32_encode", "o0n_decode")
     else "ctx_nib_rans32.cu") for name in OPS_PER_SYMBOL}
 # K10-K12, the training path's causal attention (ops/attention.py)
@@ -164,9 +173,12 @@ EARLIER_MS = {"causal_attn_fwd": 3.435, "causal_attn_bwd_dkv": 6.082,
 # codec kernels before their redesigns, by block (CUDA events; H100 80GB
 # HBM3, 700.00 W; PERF.md section 6): K2 with 128 lanes a block and its
 # loads on the serial chain; K8 and K9 with one 32-bit entry a register and
-# warp reductions for the interval and the search
+# warp reductions for the interval and the search; K6 and K7 with one
+# thread a lane
 EARLIER_CODEC_MS = {
     "rans32_encode": {4096: 1.819, 1024: 0.670},
+    "o2n_intervals": {4096: 2.952, 1024: 3.146},
+    "o2n_decode": {4096: 2.948, 1024: 2.966},
     "o0c_intervals": {4096: 4.574, 1024: 4.510, 8192: 4.693},
     "o0c_decode": {4096: 6.431, 1024: 6.306, 8192: 6.643},
 }
@@ -786,9 +798,11 @@ def main() -> int:
             t0 = time.perf_counter()
             lib = _build.load_library()
             print(f"kernels built and loaded in {time.perf_counter() - t0:.2f} s")
-            print(f"order1n/order2n kernels: {lib.lac_ctx_lanes()} lanes a block, "
-                  f"{lib.lac_ctx_shared_bytes(16)} / {lib.lac_ctx_shared_bytes(64)} "
-                  f"shared bytes a block")
+            print(f"order1n kernels (K4, K5): {lib.lac_ctx_lanes()} threads and lanes a "
+                  f"block, {lib.lac_ctx_shared_bytes(16)} shared bytes a block")
+            print(f"order2n kernels (K6, K7): {lib.lac_o2n_lanes()} lanes of 4 threads a "
+                  f"block, {lib.lac_o2n_intervals_shared_bytes()} / "
+                  f"{lib.lac_o2n_decode_shared_bytes()} shared bytes a block")
             for name in ATTN:
                 print(f"{name} bf16 (tensor cores): 384 threads, "
                       f"{sm90_smem_bytes(name, 64)} / {sm90_smem_bytes(name, 128)} dynamic "
@@ -805,10 +819,14 @@ def main() -> int:
             print(f"kernels without HGMMA (the f32 K10-K12, the codecs): "
                   f"{sorted(k for k, n in hgmma.items() if n == 0)}")
             loops = _build.sass_counts(lib, _build.INT_OPCODES, inner_loop=True)
-            for name in ("o0c_intervals_kernel", "o0c_decode_kernel"):
+            for name, what in (("o2n_intervals_kernel", "four steps of a lane, 4 threads"),
+                               ("o2n_decode_kernel", "four steps of a lane, 4 threads"),
+                               ("o0c_intervals_kernel", "two steps of the model, 8 entries "
+                                                        "a thread"),
+                               ("o0c_decode_kernel", "two steps of the model, 16 entries "
+                                                     "a thread")):
                 check(loops[name]["all"] > 0, f"{name}: no loop found in its SASS")
-                print(f"{name} innermost loop (two steps of the model, 8 entries a "
-                      f"thread): {loops[name]}", flush=True)
+                print(f"{name} innermost loop ({what}): {loops[name]}", flush=True)
             corpus = smoke.smoke_corpus()
             check(len(corpus) == smoke.SMOKE_BYTES, "corpus length")
             print(f"corpus {len(corpus)} bytes, crc32 {zlib.crc32(corpus)}")

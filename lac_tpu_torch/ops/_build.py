@@ -3,7 +3,7 @@
 The JAX package has no counterpart: Pallas compiles its kernels inside
 ``jax.jit``. Here the ``csrc/*.cu`` files (plain C entry points, no PyTorch
 header; ``o0n_rans32.cu``, ``ctx_nib_rans32.cu`` and ``o0c_rans32.cu``,
-which share ``nib_model.cuh``, ``causal_attn.cu``, and
+which share ``nib_model.cuh``, ``o2n_rans32.cu``, ``causal_attn.cu``, and
 ``causal_attn_sm90.cu`` with its PTX wrappers in ``sm90.cuh``) are compiled on
 first use, one ``nvcc`` process per source, all started together,
 
@@ -69,10 +69,15 @@ _SIGNATURES = {
     "lac_o1n_decode": (_P, _P, _P, _I, _I, _I, _I, _P),
     "lac_o2n_intervals": (_P, _P, _P, _I, _I, _I, _P),
     "lac_o2n_decode": (_P, _P, _P, _I, _I, _I, _I, _P),
+    # launch shape of K6 and K7: lanes a block (4 threads each); K6's and
+    # K7's shared bytes a block
+    "lac_o2n_lanes": (),
+    "lac_o2n_intervals_shared_bytes": (),
+    "lac_o2n_decode_shared_bytes": (),
     "lac_o0c_intervals": (_P, _P, _P, _I, _I, _I, _P),
     "lac_o0c_decode": (_P, _P, _P, _I, _I, _I, _I, _P),
-    # launch shape of the order1n/order2n kernels: lanes a block; shared
-    # bytes a block for a lo-context count
+    # launch shape of the order1n kernels: lanes a block; shared bytes a
+    # block for a lo-context count (16)
     "lac_ctx_lanes": (),
     "lac_ctx_shared_bytes": (_I,),
     # f32 K10/K11: q, k, v, o, lse, B, H, S, D, sh, ss, scale, stream
@@ -93,10 +98,11 @@ _SIGNATURES = {
     "lac_attn_bwd_dq_sm90": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _L, _F, _P),
 }
 
-_KERNELS = ("o0n_intervals_kernel", "rans32_encode_kernel", "o0n_decode_kernel",
-            "ctx_intervals_kernel", "ctx_decode_kernel",
-            "o0c_intervals_kernel", "o0c_decode_kernel",
-            "causal_attn_fwd_kernel", "causal_attn_bwd_dkv_kernel",
+_CODEC_KERNELS = ("o0n_intervals_kernel", "rans32_encode_kernel", "o0n_decode_kernel",
+                  "ctx_intervals_kernel", "ctx_decode_kernel",
+                  "o2n_intervals_kernel", "o2n_decode_kernel",
+                  "o0c_intervals_kernel", "o0c_decode_kernel")
+_KERNELS = (*_CODEC_KERNELS, "causal_attn_fwd_kernel", "causal_attn_bwd_dkv_kernel",
             "causal_attn_bwd_dq_kernel", "causal_attn_fwd_sm90_kernel",
             "causal_attn_bwd_dkv_sm90_kernel", "causal_attn_bwd_dq_sm90_kernel")
 
@@ -169,20 +175,24 @@ def _sass_functions(so_path: str) -> dict:
 
 def _innermost_loop(instrs: list) -> list:
     """The instructions from a backward branch's target (``BRA 0x3a0``) to
-    the branch, for the shortest such span that holds no EXIT: the
-    innermost loop (empty if there is none). The branch to itself after
-    EXIT, and the jump from a divergent slow path past EXIT back into a
-    loop, are no loops."""
+    the branch, for the longest such span that holds no EXIT and no other
+    such span: the kernel's hot innermost loop, not a short set-up or
+    zero-fill loop beside it (empty if there is none). The branch to itself
+    after EXIT, and the jump from a divergent slow path past EXIT back into
+    a loop, are no loops."""
     exits = [addr for addr, op, _ in instrs if op == "EXIT"]
-    best = None
+    loops = []
     for addr, op, text in instrs:
         m = re.search(r"BRA\S*\s+0x([0-9a-f]+)", text) if op == "BRA" else None
         target = int(m.group(1), 16) if m else None
-        if (target is None or target >= addr or any(target <= e <= addr for e in exits)
-                or (best is not None and addr - target >= best[1] - best[0])):
-            continue
-        best = (target, addr)
-    return [] if best is None else [i for i in instrs if best[0] <= i[0] <= best[1]]
+        if target is not None and target < addr and not any(target <= e <= addr for e in exits):
+            loops.append((target, addr))
+    inner = [a for a in loops
+             if not any(b != a and a[0] <= b[0] and b[1] <= a[1] for b in loops)]
+    if not inner:
+        return []
+    best = max(inner, key=lambda span: span[1] - span[0])
+    return [i for i in instrs if best[0] <= i[0] <= best[1]]
 
 
 def sass_counts(lib, opcodes, inner_loop: bool = False) -> dict:
@@ -279,7 +289,7 @@ def main(argv: list[str]) -> int:
         _build(so_path, csrc)
         loops = sass_counts(so_path, INT_OPCODES, inner_loop=True)
     for name, counts in loops.items():
-        if any(name.startswith(k) for k in _KERNELS[:7]):
+        if any(name.startswith(k) for k in _CODEC_KERNELS):
             print(f"{name} innermost loop: {counts}")
     return 0
 

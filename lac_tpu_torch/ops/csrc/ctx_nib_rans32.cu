@@ -1,12 +1,12 @@
-// order1n and order2n byte codec kernels for Hopper (sm_90a): each model's
-// forward pass, and its fused model + decoder. The rANS encode that follows
-// a forward pass is K2 (rans32_encode in o0n_rans32.cu), which all three
-// nibble codecs share.
+// order1n byte codec kernels for Hopper (sm_90a): the model's forward pass
+// (K4) and its fused model + decoder (K5). The rANS encode that follows a
+// forward pass is K2 (rans32_encode in o0n_rans32.cu), which all three
+// nibble codecs share. order2n's kernels, K6 and K7, are in o2n_rans32.cu.
 //
-// Ports the order1n and order2n kernels of lac_tpu/ops/pallas_rans.py. The
-// spec is models/functional.py (Order1NibCDF, Order2NibCDF); the plain
-// PyTorch versions in ops/rans_kernels.py step the same models, and the
-// tests hold both to the JAX package.
+// Ports the order1n kernels of lac_tpu/ops/pallas_rans.py. The spec is
+// models/functional.py (Order1NibCDF); the plain PyTorch versions in
+// ops/rans_kernels.py step the same model, and the tests hold both to the
+// JAX package.
 //
 // As in o0n_rans32.cu, one thread codes one lane (one block of the file)
 // from its first symbol to its last; symbols, intervals and decoded bytes
@@ -19,8 +19,8 @@
 // the previous byte's hi nibble prev_h (16 contexts); the lo row by h
 // (order1n, 16 contexts) or by h*4 + (prev_h >> 2) (order2n, 64 contexts),
 // computed before prev_h moves on. Both rows adapt on their own context's
-// visit count, not on the step. One template over the number of lo contexts
-// gives both models.
+// visit count, not on the step. The template is over the number of lo
+// contexts; only order1n's instantiation is launched.
 //
 // Each lane's state lives in dynamic shared memory, the lane the fastest
 // index, so the 32 lanes of a warp touch 32 neighbouring u16s (two lanes a
@@ -28,13 +28,10 @@
 // [kLoCtx x 16][kLanes] u16, visit counts [16][kLanes] and [kLoCtx][kLanes]
 // u8. A count saturates at 255 and does not wrap: the rate stops growing at
 // a count of 128, so a saturated count gives the true count's rate. With 32
-// lanes a block that is 33,792 bytes (order1n) and 84,480 bytes (order2n),
-// above the 48 KB of static shared memory for order2n, so the launch raises
-// the block's limit first; B = 8192 lanes (block 4096 on 32 MiB) make 256
-// blocks over the 132 SMs.
+// lanes a block that is 33,792 bytes (order1n).
 //
-// Built by ops/_build.py with o0n_rans32.cu into one library, bound with
-// ctypes. Each entry point launches on the given stream, does not
+// Built by ops/_build.py with the other csrc/*.cu files into one library,
+// bound with ctypes. Each entry point launches on the given stream, does not
 // synchronise, and returns the first non-zero cudaError_t of its set-up and
 // launch. No PyTorch header is included.
 
@@ -118,11 +115,9 @@ __device__ __forceinline__ void interval(const int st[kNV], int n, int& lo, int&
 }
 
 // ---------------------------------------------------------------------------
-// K4 o1n_intervals (kLoCtx 16) and K6 o2n_intervals (kLoCtx 64)
-// Replace _o1n_intervals_kernel (lac_tpu/ops/pallas_rans.py:1044-1107),
-// called through o1n_encode_intervals (:1110, pallas_call :1120), and
-// _o2n_intervals_kernel (:1277-1341), through o2n_encode_intervals (:1344,
-// pallas_call :1353).
+// K4 o1n_intervals (kLoCtx 16)
+// Replaces _o1n_intervals_kernel (lac_tpu/ops/pallas_rans.py:1044-1107),
+// called through o1n_encode_intervals (:1110, pallas_call :1120).
 // Bound on this card: each lane is a chain of T dependent model updates, so
 // the kernel is bound by that per-lane serial dependence (latency), not by
 // its 9 bytes of traffic per symbol. Design: a step reads the hi row that
@@ -165,11 +160,10 @@ ctx_intervals_kernel(const uint8_t* __restrict__ syms, int T, int B, int rate,
 }
 
 // ---------------------------------------------------------------------------
-// K5 o1n_decode (kLoCtx 16) and K7 o2n_decode (kLoCtx 64)
-// Replace _o1n_decode_fused_kernel (lac_tpu/ops/pallas_rans.py:1148-1226),
-// called through _o1n_decode_fused (:1240) / o1n_rans32_decode (:1254), and
-// _o2n_decode_fused_kernel (:1382-1462), through _o2n_decode_fused (:1477) /
-// o2n_rans32_decode (:1491); pallas_call in _nib_decode_call (:951).
+// K5 o1n_decode (kLoCtx 16)
+// Replaces _o1n_decode_fused_kernel (lac_tpu/ops/pallas_rans.py:1148-1226),
+// called through _o1n_decode_fused (:1240) / o1n_rans32_decode (:1254);
+// pallas_call in _nib_decode_call (:951).
 // Bound on this card: per-lane serial dependence (each symbol's search needs
 // the state the previous symbol left, and the lo row is known only once the
 // hi nibble is found), then the uncoalesced reads of each lane's word row.
@@ -269,31 +263,19 @@ int launch_decode(const void* words, const void* lengths, void* syms, int T, int
 extern "C" {
 
 // the launch shape of these kernels: lanes a block, and shared bytes a
-// block for a model with lo_ctx lo contexts (-1 for another count)
+// block for order1n's lo_ctx = 16 lo contexts (-1 for another count)
 int lac_ctx_lanes() { return kLanes; }
 
-int lac_ctx_shared_bytes(int lo_ctx) {
-  return lo_ctx == 16 ? CtxTables<16>::kBytes : lo_ctx == 64 ? CtxTables<64>::kBytes : -1;
-}
+int lac_ctx_shared_bytes(int lo_ctx) { return lo_ctx == 16 ? CtxTables<16>::kBytes : -1; }
 
 int lac_o1n_intervals(const void* syms, void* lo, void* fr, int T, int B, int rate,
                       void* stream) {
   return launch_intervals<16>(syms, lo, fr, T, B, rate, stream);
 }
 
-int lac_o2n_intervals(const void* syms, void* lo, void* fr, int T, int B, int rate,
-                      void* stream) {
-  return launch_intervals<64>(syms, lo, fr, T, B, rate, stream);
-}
-
 int lac_o1n_decode(const void* words, const void* lengths, void* syms, int T, int B,
                    int cap, int rate, void* stream) {
   return launch_decode<16>(words, lengths, syms, T, B, cap, rate, stream);
-}
-
-int lac_o2n_decode(const void* words, const void* lengths, void* syms, int T, int B,
-                   int cap, int rate, void* stream) {
-  return launch_decode<64>(words, lengths, syms, T, B, cap, rate, stream);
 }
 
 }  // extern "C"

@@ -35,9 +35,9 @@ order0c's (``Order0CDF``) on its 257-entry CDF, at the reference turbo
 path's fixed ``v = 256`` and ``prob_bits = 16``.
 
 A wrapper runs the plain version only for a tensor on the CPU. For a CUDA
-tensor it launches the kernel (``csrc/o0n_rans32.cu``,
-``csrc/ctx_nib_rans32.cu``, ``csrc/o0c_rans32.cu``) or raises; it never
-falls back.
+tensor it launches the kernel (``csrc/o0n_rans32.cu``: K1-K3;
+``csrc/ctx_nib_rans32.cu``: K4, K5; ``csrc/o2n_rans32.cu``: K6, K7;
+``csrc/o0c_rans32.cu``: K8, K9) or raises; it never falls back.
 ``launches[name]`` counts the kernel's launches and nothing else.
 """
 

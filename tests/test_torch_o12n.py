@@ -190,3 +190,187 @@ def test_wrappers_count_no_plain_launches():
         with pytest.raises(TypeError):
             getattr(rk, f"{codec}_rans32_decode")(words.to(torch.int32), n, 16, RATE)
     assert rk.launches == before  # CPU tensors run the plain versions
+
+
+# --------------------------------------------------------------------------
+# K6 and K7 (ops/csrc/o2n_rans32.cu) mirrored in torch on int64 tensors that
+# hold the kernels' 32-bit words: a thread of a lane's group holds words 2j
+# and 2j + 1 of a row, word p holding st[2p] in its low half and st[2p + 1]
+# in its high half; the half of st[0] holds the row's visit count. No card
+# is needed for these.
+# --------------------------------------------------------------------------
+
+NIB_TOP = 1 << 15
+# every r the visit-count rates reach from base rates 0-12: 0 .. 16
+NIB_RATES = sorted({functional.adaptive_rate(base, c) for base in range(13)
+                    for c in (0, 16, 32, 64, 128)})
+
+
+def _half_signs(x):
+    """prmt.b32 with selector 0xBB99: each half's bit 15 over the half."""
+    return (torch.where(x & 0x8000 != 0, 0xFFFF, 0)
+            | torch.where(x & 0x80000000 != 0, 0xFFFF << 16, 0))
+
+
+def _pair_update(w, n, k0, r):
+    """row_update on words w whose low half is state k0 and high half
+    k0 + 1, toward nibble n at shift r: the down mask is the halves' sign
+    bits of n * 0x10001 + 0x7FFF8000 - k0 * 0x10001; q = st or 2^15 - st;
+    st + (((q >> r) & mask) ^ down) - down."""
+    down = _half_signs(torch.tensor((n * 0x10001 + 0x7FFF8000 - k0 * 0x10001) & 0xFFFFFFFF))
+    mask = (0xFFFF >> r) * 0x10001 if r < 16 else 0
+    q = (w & down) | ((0x80008000 - w) & ~down & 0xFFFFFFFF)
+    return (w + (((q >> min(r, 16)) & mask) ^ down) - down) & 0xFFFFFFFF
+
+
+def _popc(x, bits=32):
+    return sum((x >> i) & 1 for i in range(bits))
+
+
+def _funnel_r(lo, hi, s):
+    return ((hi << 32 | lo) >> s) & 0xFFFFFFFF
+
+
+def test_nibble_rates_run_from_0_to_16():
+    assert NIB_RATES == list(range(17))
+
+
+@pytest.mark.parametrize("r", NIB_RATES)
+def test_nibble_pair_update_equals_nib_state_update(r):
+    """Every state value in [0, 2^15] sits in a low half and in a high half,
+    in a word that moves toward 0 (both k <= n), toward 2^15 (both k > n)
+    and split (k0 = n: the low half down, the high half up); the words after
+    one packed step equal functional.nib_state_update's states."""
+    v = torch.arange(NIB_TOP + 1, dtype=torch.int64)
+    other = (v * 7919) % (NIB_TOP + 1)
+    for k0, n in ((0, 15), (4, 9), (14, 0), (6, 6), (14, 14)):
+        for lo, hi in ((v, other), (other, v)):
+            state = torch.zeros((len(v), 17), dtype=torch.int64)
+            state[:, 16] = NIB_TOP
+            state[:, k0], state[:, k0 + 1] = lo, hi
+            nib = torch.full((len(v),), n)
+            want = functional.nib_state_update(state.to(torch.int32), nib.to(torch.int32), r)
+            got = _pair_update(lo | hi << 16, n, k0, r)
+            assert torch.equal(got & 0xFFFF, want[:, k0].to(torch.int64))
+            assert torch.equal(got >> 16, want[:, k0 + 1].to(torch.int64))
+
+
+@pytest.mark.parametrize("rate", [0, 4, 12])
+def test_count_slot_stands_for_entry_0(rate):
+    """st[0] starts at 0 and moves toward 0, so it is always 0 (and st[16]
+    always 2^15): the kernels keep the row's visit count in its half. The
+    count stops at 128, where the rate stops growing, so rate_at(base, count)
+    = base + the bit length of count >> 4 (shift_of) is the true count's;
+    the packed update leaves the high half exact with the count in the low
+    one, and the count's boundary reads as st[0]'s: ((c * 240) >> 15) = 0."""
+    for r in NIB_RATES:
+        for n in range(16):
+            st = torch.zeros((1, 17), dtype=torch.int32)
+            st[0, 16] = NIB_TOP
+            out = functional.nib_state_update(st, torch.tensor([n], dtype=torch.int32), r)
+            assert int(out[0, 0]) == 0 and int(out[0, 16]) == NIB_TOP
+    visits = torch.arange(5000)
+    c = torch.clamp(visits, max=128)
+    bitlen = torch.tensor([int(x).bit_length() for x in (c >> 4)])
+    assert torch.equal(torch.clamp(rate + bitlen, max=16),
+                       torch.clamp(functional.adaptive_rate(rate, visits), max=16))
+    assert not ((c * 240) >> 15).any()
+    hi = torch.arange(0, NIB_TOP + 1, 97, dtype=torch.int64)
+    for count in (0, 1, 127, 128):
+        for n in range(16):
+            r = min(rate + (count >= 16) + (count >= 32) + (count >= 64) + (count >= 128), 16)
+            got = _pair_update(count | hi << 16, n, 0, r)
+            st = torch.zeros((len(hi), 17), dtype=torch.int32)
+            st[:, 1], st[:, 16] = hi.to(torch.int32), NIB_TOP
+            want = functional.nib_state_update(st, torch.full((len(hi),), n, dtype=torch.int32), r)
+            assert torch.equal(got >> 16, want[:, 1].to(torch.int64))
+            assert bool(((got & 0xFFFF) <= count).all())  # no borrow into st[1]
+
+
+def _row_pair(words, n):
+    """K6's (st[n], st[n+1]) from a row's 8 words [R, 8]: the owner n >> 2
+    picks word n >> 1 and the one after it (2^15 after word 7) and shifts
+    by 16 for odd n."""
+    nb = torch.cat([words[:, 1:], torch.full_like(words[:, :1], NIB_TOP)], 1)
+    p = n >> 1
+    a = words.gather(1, p[:, None])[:, 0]
+    b = nb.gather(1, p[:, None])[:, 0]
+    return _funnel_r(a, b, (n & 1) * 16)
+
+
+def _row_search(eff, v):
+    """K7's search of a boundary row eff [R, 17] (eff[:, 16] = 256) for v
+    [R] in [0, 255]: the owner is the last of 4 threads whose first
+    boundary eff[4j] is <= v; it counts its e1..e3 <= v as the guard bits of
+    three 10-bit fields of v + 512 less e, and funnel-shifts (eff[4o + c],
+    eff[4o + c + 1]) out of its five boundaries packed at 9 bits."""
+    owner = (eff[:, 0:16:4] <= v[:, None]).sum(1) - 1
+    e = eff.gather(1, 4 * owner[:, None] + torch.arange(5)[None, :])
+    fields = e[:, 1] + (e[:, 2] << 10) + (e[:, 3] << 20)
+    le = (v * 0x100401 + 0x20080200 - fields) & 0xFFFFFFFF
+    c = _popc(le & 0x20080200)
+    lo = (e[:, 0] + (e[:, 1] << 9) + (e[:, 2] << 18) + (e[:, 3] << 27)) & 0xFFFFFFFF
+    hi = (e[:, 3] >> 5) + (e[:, 4] << 4)
+    pair = _funnel_r(lo, hi, 9 * c) & 0x3FFFF
+    return 4 * owner + c, pair & 511, pair >> 9
+
+
+def test_guard_bit_fields_count_boundaries_up_to_v():
+    """Each 10-bit field of (v + 512) * 0x100401 less (e1, e2, e3) keeps its
+    bit 9 exactly where e <= v, for every v in [0, 255] and e in [0, 256]."""
+    v = torch.arange(256)[:, None]
+    e = torch.arange(257)[None, :]
+    for shift in (0, 10, 20):
+        le = (v * 0x100401 + 0x20080200 - (e << shift)) & 0xFFFFFFFF
+        assert torch.equal((le >> (shift + 9)) & 1 == 1, e <= v)
+        others = le & (0x20080200 & ~(1 << (shift + 9)))
+        assert torch.equal(others, torch.full_like(others, 0x20080200 & ~(1 << (shift + 9))))
+
+
+def test_reciprocal_table_divides_exactly():
+    """floor(r / f) = the high word of 2r * ceil(2^31 / f) for f in 1..256
+    and every r < 256 f, the remainders K7's lo search divides."""
+    for f in range(1, 257):
+        r = torch.arange(256 * f, dtype=torch.int64)
+        rcp = (0x80000000 + f - 1) // f
+        assert torch.equal(((2 * r) * rcp) >> 32, r // f)
+
+
+@pytest.mark.parametrize("rate", [0, 4, 12])
+def test_group_search_and_pairs_equal_the_plain_versions(rate):
+    """K7's two searches (the hi nibble on slot >> 8, the lo nibble on
+    floor(r / f_h) through the reciprocal table) give rk._nib_search's
+    byte and interval, and K6's pairs give the states either side of each
+    nibble, on order2n states at base rates 0, 4 and 12 (random, skewed and
+    repeated-byte lanes, whose counts pass 128) for slots across [0, 2^16)."""
+    rng = np.random.default_rng(rate)
+    slots = torch.from_numpy(np.concatenate([[0, 1, 255, 256, 65534, 65535],
+                                             rng.integers(0, 1 << 16, 250)]))
+    syms = torch.from_numpy(_syms(30 + rate, 8, 400).T.copy())  # [B, T]
+    model = functional.Order2NibCDF(rate)
+    state = model.init_state(8)
+    counts = set()
+    for t in range(400):
+        if t % 100 == 99:
+            for lane in range(8):
+                st = tuple(a[lane:lane + 1].expand(len(slots), *a.shape[1:]) for a in state)
+                want = rk._nib_search(model, st, slots)
+                effh = functional.nib_state_to_coder(model.hi_row(st)).to(torch.int64)
+                h, loh, hih = _row_search(effh, slots >> 8)
+                fh = hih - loh
+                r = slots - (loh << 8)
+                q = ((2 * r) * ((0x80000000 + fh - 1) // fh)) >> 32
+                lo_row = model.lo_row(st, h)
+                effl = functional.nib_state_to_coder(lo_row).to(torch.int64)
+                l, lol, hil = _row_search(effl, q)
+                assert torch.equal((h << 4) | l, want[0].to(torch.int64))
+                assert torch.equal((loh << 8) + fh * lol, want[1].to(torch.int64))
+                assert torch.equal(fh * (hil - lol), want[2].to(torch.int64))
+                words = lo_row[:, 0:16:2].to(torch.int64) | lo_row[:, 1:17:2].to(torch.int64) << 16
+                nib = torch.arange(len(slots)) % 16
+                pair = _row_pair(words, nib)
+                assert torch.equal(pair & 0xFFFF, lo_row.gather(1, nib[:, None])[:, 0])
+                assert torch.equal(pair >> 16, lo_row.gather(1, nib[:, None] + 1)[:, 0])
+                counts.update(h.tolist())
+        state = model.update_(state, syms[:, t])
+    assert len(counts) > 8
