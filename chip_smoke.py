@@ -8,8 +8,9 @@ import faulthandler; faulthandler.dump_traceback_later(900, exit=True)  # noqa: 
 #          launch shapes of the order1n (K4, K5) and order2n (K6, K7)
 #          kernels; the HGMMA (wgmma) instructions in each kernel's SASS
 #          (cuobjdump -sass): the bf16 K10-K12 must have some, the f32
-#          kernels have none; the integer opcodes of K6's and K7's innermost
-#          loop (four steps of a lane) and of K8's and K9's (two steps).
+#          kernels have none; the integer opcodes of the innermost loops of
+#          K4, K5, K6 and K7 (four steps of a lane; one template, at 16 and
+#          64 lo contexts) and of K8 and K9 (two steps).
 # Phase 1  each kernel against its plain PyTorch version on the card, at the
 #          shapes the main path gives it: T = 4096 and 1024 steps, with one
 #          lane per block of the 32 MiB corpus (B = 8192 and 32768): corpus
@@ -52,8 +53,8 @@ import faulthandler; faulthandler.dump_traceback_later(900, exit=True)  # noqa: 
 #          container parse and the rest) and of the container write, each
 #          kernel's time from CUDA events beside its bound at each block the
 #          main path codes at (4096, 1024; order0c's K8, K2, K9 also at the
-#          fallback's 8192), beside the earlier K2, K6, K7, K8 and K9, bits
-#          per byte, peak device memory; for the training path its
+#          fallback's 8192), beside the earlier K2 and K4-K9, bits per
+#          byte, peak device memory; for the training path its
 #          tokens/s, the attention kernels' share of a step, their plain
 #          versions' and scaled_dot_product_attention's times at the
 #          training shape.
@@ -94,7 +95,7 @@ INT_OPS_PER_S = 67e12 / 2
 # spends beyond them, counting each add, shift, multiply, compare and select
 # once, but a multiply and the add it feeds once (IMAD, IMAD.HI), and a u32
 # divide or modulo once, as (32-bit ops, 16-bit ops). A 16-bit op counts a
-# half: two 16-bit values share a 32-bit lane (packed halves, as K6-K9 hold
+# half: two 16-bit values share a 32-bit lane (packed halves, as K4-K9 hold
 # them, or the DPX 16x2 forms). A state update (4: a shift and a subtract,
 # or a subtract, a shift and an add, and the select) works on values below
 # 2^16: a nibble state is at most 2^15, an order0c entry at most M = 65280.
@@ -153,9 +154,8 @@ REPLACES = {
 }
 SOURCE = {name: "lac_tpu_torch/ops/csrc/" + (
     "o0c_rans32.cu" if name.startswith("o0c")
-    else "o2n_rans32.cu" if name.startswith("o2n")
-    else "o0n_rans32.cu" if name in ("o0n_intervals", "rans32_encode", "o0n_decode")
-    else "ctx_nib_rans32.cu") for name in OPS_PER_SYMBOL}
+    else "o12n_rans32.cu" if name.startswith(("o1n", "o2n"))
+    else "o0n_rans32.cu") for name in OPS_PER_SYMBOL}
 # K10-K12, the training path's causal attention (ops/attention.py)
 ATTN = ("causal_attn_fwd", "causal_attn_bwd_dkv", "causal_attn_bwd_dq")
 # the main path's type is bf16: K10-K12 run on the tensor cores there
@@ -173,10 +173,12 @@ EARLIER_MS = {"causal_attn_fwd": 3.435, "causal_attn_bwd_dkv": 6.082,
 # codec kernels before their redesigns, by block (CUDA events; H100 80GB
 # HBM3, 700.00 W; PERF.md section 6): K2 with 128 lanes a block and its
 # loads on the serial chain; K8 and K9 with one 32-bit entry a register and
-# warp reductions for the interval and the search; K6 and K7 with one
-# thread a lane
+# warp reductions for the interval and the search; K4-K7 with one thread a
+# lane
 EARLIER_CODEC_MS = {
     "rans32_encode": {4096: 1.819, 1024: 0.670},
+    "o1n_intervals": {4096: 2.846, 1024: 1.452},
+    "o1n_decode": {4096: 3.005, 1024: 1.615},
     "o2n_intervals": {4096: 2.952, 1024: 3.146},
     "o2n_decode": {4096: 2.948, 1024: 2.966},
     "o0c_intervals": {4096: 4.574, 1024: 4.510, 8192: 4.693},
@@ -798,11 +800,11 @@ def main() -> int:
             t0 = time.perf_counter()
             lib = _build.load_library()
             print(f"kernels built and loaded in {time.perf_counter() - t0:.2f} s")
-            print(f"order1n kernels (K4, K5): {lib.lac_ctx_lanes()} threads and lanes a "
-                  f"block, {lib.lac_ctx_shared_bytes(16)} shared bytes a block")
-            print(f"order2n kernels (K6, K7): {lib.lac_o2n_lanes()} lanes of 4 threads a "
-                  f"block, {lib.lac_o2n_intervals_shared_bytes()} / "
-                  f"{lib.lac_o2n_decode_shared_bytes()} shared bytes a block")
+            for model, c in (("order1n", "o1n"), ("order2n", "o2n")):
+                print(f"{model} kernels ({c}_intervals, {c}_decode): {lib.lac_o12n_lanes()} "
+                      f"lanes of 4 threads a block, "
+                      f"{getattr(lib, f'lac_{c}_intervals_shared_bytes')()} / "
+                      f"{getattr(lib, f'lac_{c}_decode_shared_bytes')()} shared bytes a block")
             for name in ATTN:
                 print(f"{name} bf16 (tensor cores): 384 threads, "
                       f"{sm90_smem_bytes(name, 64)} / {sm90_smem_bytes(name, 128)} dynamic "
@@ -819,13 +821,17 @@ def main() -> int:
             print(f"kernels without HGMMA (the f32 K10-K12, the codecs): "
                   f"{sorted(k for k, n in hgmma.items() if n == 0)}")
             loops = _build.sass_counts(lib, _build.INT_OPCODES, inner_loop=True)
-            for name, what in (("o2n_intervals_kernel", "four steps of a lane, 4 threads"),
-                               ("o2n_decode_kernel", "four steps of a lane, 4 threads"),
+            group = "four steps of a lane, 4 threads"
+            for name, what in (("o12n_intervals_kernel<16>", f"K4, {group}"),
+                               ("o12n_decode_kernel<16>", f"K5, {group}"),
+                               ("o12n_intervals_kernel<64>", f"K6, {group}"),
+                               ("o12n_decode_kernel<64>", f"K7, {group}"),
                                ("o0c_intervals_kernel", "two steps of the model, 8 entries "
                                                         "a thread"),
                                ("o0c_decode_kernel", "two steps of the model, 16 entries "
                                                      "a thread")):
-                check(loops[name]["all"] > 0, f"{name}: no loop found in its SASS")
+                check(loops.get(name, {}).get("all", 0) > 0,
+                      f"{name}: no loop found in its SASS")
                 print(f"{name} innermost loop ({what}): {loops[name]}", flush=True)
             corpus = smoke.smoke_corpus()
             check(len(corpus) == smoke.SMOKE_BYTES, "corpus length")

@@ -2,8 +2,8 @@
 
 The JAX package has no counterpart: Pallas compiles its kernels inside
 ``jax.jit``. Here the ``csrc/*.cu`` files (plain C entry points, no PyTorch
-header; ``o0n_rans32.cu``, ``ctx_nib_rans32.cu`` and ``o0c_rans32.cu``,
-which share ``nib_model.cuh``, ``o2n_rans32.cu``, ``causal_attn.cu``, and
+header; ``o0n_rans32.cu`` and ``o0c_rans32.cu``, which share
+``nib_model.cuh``, ``o12n_rans32.cu``, ``causal_attn.cu``, and
 ``causal_attn_sm90.cu`` with its PTX wrappers in ``sm90.cuh``) are compiled on
 first use, one ``nvcc`` process per source, all started together,
 
@@ -69,17 +69,15 @@ _SIGNATURES = {
     "lac_o1n_decode": (_P, _P, _P, _I, _I, _I, _I, _P),
     "lac_o2n_intervals": (_P, _P, _P, _I, _I, _I, _P),
     "lac_o2n_decode": (_P, _P, _P, _I, _I, _I, _I, _P),
-    # launch shape of K6 and K7: lanes a block (4 threads each); K6's and
-    # K7's shared bytes a block
-    "lac_o2n_lanes": (),
+    # launch shape of K4-K7: lanes a block (4 threads each); each kernel's
+    # shared bytes a block
+    "lac_o12n_lanes": (),
+    "lac_o1n_intervals_shared_bytes": (),
+    "lac_o1n_decode_shared_bytes": (),
     "lac_o2n_intervals_shared_bytes": (),
     "lac_o2n_decode_shared_bytes": (),
     "lac_o0c_intervals": (_P, _P, _P, _I, _I, _I, _P),
     "lac_o0c_decode": (_P, _P, _P, _I, _I, _I, _I, _P),
-    # launch shape of the order1n kernels: lanes a block; shared bytes a
-    # block for a lo-context count (16)
-    "lac_ctx_lanes": (),
-    "lac_ctx_shared_bytes": (_I,),
     # f32 K10/K11: q, k, v, o, lse, B, H, S, D, sh, ss, scale, stream
     "lac_attn_fwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _F, _P),
     # q, k, v, dO, lse, di, dk, dv, B, H, S, D, sh, ss, scale, stream
@@ -98,14 +96,6 @@ _SIGNATURES = {
     "lac_attn_bwd_dq_sm90": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _L, _F, _P),
 }
 
-_CODEC_KERNELS = ("o0n_intervals_kernel", "rans32_encode_kernel", "o0n_decode_kernel",
-                  "ctx_intervals_kernel", "ctx_decode_kernel",
-                  "o2n_intervals_kernel", "o2n_decode_kernel",
-                  "o0c_intervals_kernel", "o0c_decode_kernel")
-_KERNELS = (*_CODEC_KERNELS, "causal_attn_fwd_kernel", "causal_attn_bwd_dkv_kernel",
-            "causal_attn_bwd_dq_kernel", "causal_attn_fwd_sm90_kernel",
-            "causal_attn_bwd_dkv_sm90_kernel", "causal_attn_bwd_dq_sm90_kernel")
-
 _lock = threading.Lock()
 _lib = None
 
@@ -123,8 +113,16 @@ def _nvcc() -> str:
 
 def _kernel_label(mangled: str) -> str:
     """A kernel's short name with its template argument, e.g.
-    ``causal_attn_fwd_sm90_kernel<64>``, from its mangled symbol."""
-    name = next((k for k in _KERNELS if k in mangled), mangled)
+    ``causal_attn_fwd_sm90_kernel<64>``, from its mangled symbol: the first
+    of its length-prefixed names (``_ZN<len><name>...``) that is not its
+    anonymous namespace (``_GLOBAL__N_...``), so that another tree's kernels
+    get their names too."""
+    name, pos = mangled, 3 if mangled.startswith("_ZN") else 2
+    while mangled.startswith("_Z") and (m := re.compile(r"\d+").match(mangled, pos)):
+        pos = m.end() + int(m.group())
+        if not mangled[m.end():].startswith("_GLOBAL__N"):
+            name = mangled[m.end():pos]
+            break
     tmpl = re.search(r"ILi(\d+)E", mangled)  # template <int>
     return f"{name}<{tmpl.group(1)}>" if tmpl else name
 
@@ -147,7 +145,7 @@ def _ptxas_summary(log: str) -> str:
 
 
 # the opcodes of the codec kernels' inner loops that phase 0 of
-# chip_smoke.py prints for K8 and K9: the integer ones, then those of the
+# chip_smoke.py prints for K4-K9: the integer ones, then those of the
 # shared-memory and warp units
 INT_OPCODES = ("IADD3", "VIADD", "LOP3", "SHF", "ISETP", "SEL", "IMNMX", "VIMNMX", "VIADDMNMX",
                "PRMT", "IMAD", "POPC", "REDUX", "SHFL", "VOTE", "LDS", "STS")
@@ -289,7 +287,7 @@ def main(argv: list[str]) -> int:
         _build(so_path, csrc)
         loops = sass_counts(so_path, INT_OPCODES, inner_loop=True)
     for name, counts in loops.items():
-        if any(name.startswith(k) for k in _CODEC_KERNELS):
+        if not name.startswith("causal_attn"):  # the codec kernels
             print(f"{name} innermost loop: {counts}")
     return 0
 

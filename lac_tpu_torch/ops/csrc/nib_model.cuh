@@ -1,5 +1,5 @@
-// The nibble models' per-state arithmetic, shared by the order0n kernels
-// (o0n_rans32.cu) and the order1n/order2n kernels (ctx_nib_rans32.cu).
+// The nibble models' per-state arithmetic, used by the order0n kernels
+// (o0n_rans32.cu); order0c's (o0c_rans32.cu) take rate_at.
 // The spec is lac_tpu_torch/models/functional.py.
 
 #pragma once

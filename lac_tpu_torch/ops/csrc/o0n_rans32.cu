@@ -19,7 +19,7 @@
 // rows are lane-major [B, cap]: each thread walks its own row, which is not
 // coalesced across the warp (K2 turns its rows with the whole warp).
 //
-// Built by ops/_build.py, with ctx_nib_rans32.cu, into one library with
+// Built by ops/_build.py, with the other csrc/*.cu files, into one library with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared -Xcompiler -fPIC
 // and bound with ctypes. Each entry point launches on the given stream,
 // does not synchronise, and returns cudaGetLastError() after its launch.

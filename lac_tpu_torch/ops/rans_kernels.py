@@ -36,7 +36,7 @@ path's fixed ``v = 256`` and ``prob_bits = 16``.
 
 A wrapper runs the plain version only for a tensor on the CPU. For a CUDA
 tensor it launches the kernel (``csrc/o0n_rans32.cu``: K1-K3;
-``csrc/ctx_nib_rans32.cu``: K4, K5; ``csrc/o2n_rans32.cu``: K6, K7;
+``csrc/o12n_rans32.cu``: K4-K7, one template at 16 and 64 lo contexts;
 ``csrc/o0c_rans32.cu``: K8, K9) or raises; it never falls back.
 ``launches[name]`` counts the kernel's launches and nothing else.
 """

@@ -2,6 +2,8 @@
 lac_tpu_torch.ops._build, on listings written out by hand in the form
 ``_sass_functions`` parses (address, opcode, text)."""
 
+import pytest
+
 from lac_tpu_torch.ops import _build
 
 
@@ -30,3 +32,26 @@ def test_innermost_loop_skips_a_jump_back_past_exit():
     ins = _listing("IADD3 R1", "LDS R2", "BRA 0x0", "EXIT", "MOV R3", "BRA 0x10")
     assert [i[0] for i in _build._innermost_loop(ins)] == [0x0, 0x10, 0x20]
     assert _build._innermost_loop(_listing("MOV R1", "EXIT", "BRA 0x20")) == []
+
+
+_NVCC_NS = "_GLOBAL__N__4c0d71_14_o12n_rans32_cu_a4f4f290"
+
+
+@pytest.mark.parametrize("ns", [f"_ZN{len(_NVCC_NS)}{_NVCC_NS}", "_ZN12_GLOBAL__N_1"],
+                         ids=["nvcc", "host"])
+def test_kernel_label_comes_from_the_mangled_symbol(ns):
+    """Labels come from the mangled symbol itself, past its anonymous
+    namespace (nvcc's names the source and a hash; the host compiler's is
+    ``_GLOBAL__N_1``): a template's argument is kept, and a kernel of
+    another tree (the one-thread order1n kernel, or order2n's before its
+    template) gets its own name too."""
+    for mangled, label in (
+            (f"{ns}21o12n_intervals_kernelILi16EEEvPKhiiiPiS3_", "o12n_intervals_kernel<16>"),
+            (f"{ns}18o12n_decode_kernelILi64EEEvPKtPKiiiiiPh", "o12n_decode_kernel<64>"),
+            (f"{ns}20ctx_intervals_kernelILi16EEEvPKhiiiPiS3_", "ctx_intervals_kernel<16>"),
+            (f"{ns}20o2n_intervals_kernelEPKhiiiPiS2_", "o2n_intervals_kernel"),
+            (f"{ns}27causal_attn_fwd_sm90_kernelILi128EEEv14CUtensorMap_st",
+             "causal_attn_fwd_sm90_kernel<128>"),
+            ("_Z17o0n_decode_kernelPKt", "o0n_decode_kernel"),
+            ("no_kernel_here", "no_kernel_here")):
+        assert _build._kernel_label(mangled) == label

@@ -193,11 +193,11 @@ def test_wrappers_count_no_plain_launches():
 
 
 # --------------------------------------------------------------------------
-# K6 and K7 (ops/csrc/o2n_rans32.cu) mirrored in torch on int64 tensors that
-# hold the kernels' 32-bit words: a thread of a lane's group holds words 2j
-# and 2j + 1 of a row, word p holding st[2p] in its low half and st[2p + 1]
-# in its high half; the half of st[0] holds the row's visit count. No card
-# is needed for these.
+# K4-K7 (ops/csrc/o12n_rans32.cu, one template over the number of lo
+# contexts) mirrored in torch on int64 tensors that hold the kernels' 32-bit
+# words: a thread of a lane's group holds words 2j and 2j + 1 of a row, word
+# p holding st[2p] in its low half and st[2p + 1] in its high half; the half
+# of st[0] holds the row's visit count. No card is needed for these.
 # --------------------------------------------------------------------------
 
 NIB_TOP = 1 << 15
@@ -256,13 +256,16 @@ def test_nibble_pair_update_equals_nib_state_update(r):
 
 
 @pytest.mark.parametrize("rate", [0, 4, 12])
-def test_count_slot_stands_for_entry_0(rate):
+@pytest.mark.parametrize("codec", CODECS)
+def test_count_slot_stands_for_entry_0(codec, rate):
     """st[0] starts at 0 and moves toward 0, so it is always 0 (and st[16]
     always 2^15): the kernels keep the row's visit count in its half. The
     count stops at 128, where the rate stops growing, so rate_at(base, count)
     = base + the bit length of count >> 4 (shift_of) is the true count's;
     the packed update leaves the high half exact with the count in the low
-    one, and the count's boundary reads as st[0]'s: ((c * 240) >> 15) = 0."""
+    one, and the count's boundary reads as st[0]'s: ((c * 240) >> 15) = 0.
+    In each model a one-byte lane visits its hi row and its lo row past 255
+    times, and the capped counts give the true counts' rates."""
     for r in NIB_RATES:
         for n in range(16):
             st = torch.zeros((1, 17), dtype=torch.int32)
@@ -285,6 +288,16 @@ def test_count_slot_stands_for_entry_0(rate):
             want = functional.nib_state_update(st, torch.full((len(hi),), n, dtype=torch.int32), r)
             assert torch.equal(got >> 16, want[:, 1].to(torch.int64))
             assert bool(((got & 0xFFFF) <= count).all())  # no borrow into st[1]
+    model = getattr(functional, MODEL[codec])(rate)
+    state = model.init_state(1)
+    for _ in range(300):
+        state = model.update_(state, torch.tensor([ord("e")]))
+    for cnt in state[2:4]:  # the hi rows' and the lo rows' visit counts
+        true = int(cnt.max())
+        assert true > 255
+        capped = min(true, 128)
+        assert min(rate + (capped >> 4).bit_length(), 16) == min(
+            int(functional.adaptive_rate(rate, torch.tensor(true))), 16)
 
 
 def _row_pair(words, n):
@@ -337,17 +350,19 @@ def test_reciprocal_table_divides_exactly():
 
 
 @pytest.mark.parametrize("rate", [0, 4, 12])
-def test_group_search_and_pairs_equal_the_plain_versions(rate):
-    """K7's two searches (the hi nibble on slot >> 8, the lo nibble on
-    floor(r / f_h) through the reciprocal table) give rk._nib_search's
-    byte and interval, and K6's pairs give the states either side of each
-    nibble, on order2n states at base rates 0, 4 and 12 (random, skewed and
-    repeated-byte lanes, whose counts pass 128) for slots across [0, 2^16)."""
+@pytest.mark.parametrize("codec", CODECS)
+def test_group_search_and_pairs_equal_the_plain_versions(codec, rate):
+    """K5's and K7's two searches (the hi nibble on slot >> 8, the lo nibble
+    on floor(r / f_h) through the reciprocal table) give rk._nib_search's
+    byte and interval, and K4's and K6's pairs give the states either side
+    of each nibble, on order1n and order2n states at base rates 0, 4 and 12
+    (random, skewed and repeated-byte lanes, whose counts pass 128) for
+    slots across [0, 2^16)."""
     rng = np.random.default_rng(rate)
     slots = torch.from_numpy(np.concatenate([[0, 1, 255, 256, 65534, 65535],
                                              rng.integers(0, 1 << 16, 250)]))
     syms = torch.from_numpy(_syms(30 + rate, 8, 400).T.copy())  # [B, T]
-    model = functional.Order2NibCDF(rate)
+    model = getattr(functional, MODEL[codec])(rate)
     state = model.init_state(8)
     counts = set()
     for t in range(400):
@@ -374,3 +389,32 @@ def test_group_search_and_pairs_equal_the_plain_versions(rate):
                 counts.update(h.tolist())
         state = model.update_(state, syms[:, t])
     assert len(counts) > 8
+
+
+def _lo_row(codec, h, ph):
+    """The kernels' kHiRows + lo_ctx<kLoCtx>(h, ph): the row of a lane's
+    tables (its 16 hi rows, then its lo rows) that byte (h, .) uses after hi
+    nibble ph."""
+    return 16 + (h if codec == "o1n" else h * 4 + (ph >> 2))
+
+
+@pytest.mark.parametrize("codec", CODECS)
+def test_template_lo_row_picks_the_models_lo_row(codec):
+    """A lane's tables in the kernels are its hi rows, then its lo rows
+    (16 + kLoCtx of them, kLoCtx 16 or 64). For every hi nibble h after
+    every previous hi nibble ph, row ph is the row model.hi_row returns and
+    row 16 + lo_ctx(h, ph), never a hi row, the one model.lo_row returns;
+    every table entry is distinct, so no other row can stand in for it."""
+    model = getattr(functional, MODEL[codec])(RATE)
+    sh, sl, cnth, cntl, prev_h = model.init_state(3)
+    sh = torch.arange(sh.numel(), dtype=torch.int32).reshape(sh.shape)
+    sl = sh.numel() + torch.arange(sl.numel(), dtype=torch.int32).reshape(sl.shape)
+    tables = torch.cat([sh, sl], 1)
+    assert tables.shape[1] == 16 + (16 if codec == "o1n" else 64)
+    for ph in range(16):
+        st = (sh, sl, cnth, cntl, torch.full_like(prev_h, ph))
+        assert torch.equal(tables[:, ph], model.hi_row(st))
+        for h in range(16):
+            row = _lo_row(codec, h, ph)
+            assert 16 <= row < tables.shape[1]
+            assert torch.equal(tables[:, row], model.lo_row(st, torch.full_like(prev_h, h)))
