@@ -5,12 +5,14 @@ import faulthandler; faulthandler.dump_traceback_later(900, exit=True)  # noqa: 
 #   python3 chip_smoke.py
 #
 # Phase 0  the card's name and power limit; build the CUDA kernels; the
-#          launch shapes of the order1n (K4, K5) and order2n (K6, K7)
-#          kernels; the HGMMA (wgmma) instructions in each kernel's SASS
-#          (cuobjdump -sass): the bf16 K10-K12 must have some, the f32
-#          kernels have none; the integer opcodes of the innermost loops of
-#          K4, K5, K6 and K7 (four steps of a lane; one template, at 16 and
-#          64 lo contexts) and of K8 and K9 (two steps).
+#          launch shapes of the order0n (K1, K3), order1n (K4, K5) and
+#          order2n (K6, K7) kernels; the HGMMA (wgmma) instructions in each
+#          kernel's SASS (cuobjdump -sass): the bf16 K10-K12 must have some,
+#          the f32 kernels have none; the integer opcodes of the innermost
+#          loops of K1, K3, K4, K5, K6 and K7 (four steps of a lane; one
+#          template over the hi rows and lo contexts: 1 and 16 for order0n,
+#          16 and 16 for order1n, 16 and 64 for order2n) and of K8 and K9
+#          (two steps).
 # Phase 1  each kernel against its plain PyTorch version on the card, at the
 #          shapes the main path gives it: T = 4096 and 1024 steps, with one
 #          lane per block of the 32 MiB corpus (B = 8192 and 32768): corpus
@@ -53,7 +55,7 @@ import faulthandler; faulthandler.dump_traceback_later(900, exit=True)  # noqa: 
 #          container parse and the rest) and of the container write, each
 #          kernel's time from CUDA events beside its bound at each block the
 #          main path codes at (4096, 1024; order0c's K8, K2, K9 also at the
-#          fallback's 8192), beside the earlier K2 and K4-K9, bits per
+#          fallback's 8192), beside the earlier K1-K9, bits per
 #          byte, peak device memory; for the training path its
 #          tokens/s, the attention kernels' share of a step, their plain
 #          versions' and scaled_dot_product_attention's times at the
@@ -95,8 +97,8 @@ INT_OPS_PER_S = 67e12 / 2
 # spends beyond them, counting each add, shift, multiply, compare and select
 # once, but a multiply and the add it feeds once (IMAD, IMAD.HI), and a u32
 # divide or modulo once, as (32-bit ops, 16-bit ops). A 16-bit op counts a
-# half: two 16-bit values share a 32-bit lane (packed halves, as K4-K9 hold
-# them, or the DPX 16x2 forms). A state update (4: a shift and a subtract,
+# half: two 16-bit values share a 32-bit lane (packed halves, as K1 and
+# K3-K9 hold them, or the DPX 16x2 forms). A state update (4: a shift and a subtract,
 # or a subtract, a shift and an add, and the select) works on values below
 # 2^16: a nibble state is at most 2^15, an order0c entry at most M = 65280.
 # A nibble row's 17 states have constant ends (st[0] = 0 moves toward 0,
@@ -154,8 +156,8 @@ REPLACES = {
 }
 SOURCE = {name: "lac_tpu_torch/ops/csrc/" + (
     "o0c_rans32.cu" if name.startswith("o0c")
-    else "o12n_rans32.cu" if name.startswith(("o1n", "o2n"))
-    else "o0n_rans32.cu") for name in OPS_PER_SYMBOL}
+    else "rans32_encode.cu" if name == "rans32_encode"
+    else "nib_rans32.cu") for name in OPS_PER_SYMBOL}
 # K10-K12, the training path's causal attention (ops/attention.py)
 ATTN = ("causal_attn_fwd", "causal_attn_bwd_dkv", "causal_attn_bwd_dq")
 # the main path's type is bf16: K10-K12 run on the tensor cores there
@@ -173,9 +175,11 @@ EARLIER_MS = {"causal_attn_fwd": 3.435, "causal_attn_bwd_dkv": 6.082,
 # codec kernels before their redesigns, by block (CUDA events; H100 80GB
 # HBM3, 700.00 W; PERF.md section 6): K2 with 128 lanes a block and its
 # loads on the serial chain; K8 and K9 with one 32-bit entry a register and
-# warp reductions for the interval and the search; K4-K7 with one thread a
-# lane
+# warp reductions for the interval and the search; K1 and K3-K7 with one
+# thread a lane
 EARLIER_CODEC_MS = {
+    "o0n_intervals": {4096: 2.811, 1024: 0.836},
+    "o0n_decode": {4096: 3.050, 1024: 1.103},
     "rans32_encode": {4096: 1.819, 1024: 0.670},
     "o1n_intervals": {4096: 2.846, 1024: 1.452},
     "o1n_decode": {4096: 3.005, 1024: 1.615},
@@ -800,8 +804,8 @@ def main() -> int:
             t0 = time.perf_counter()
             lib = _build.load_library()
             print(f"kernels built and loaded in {time.perf_counter() - t0:.2f} s")
-            for model, c in (("order1n", "o1n"), ("order2n", "o2n")):
-                print(f"{model} kernels ({c}_intervals, {c}_decode): {lib.lac_o12n_lanes()} "
+            for model, c in (("order0n", "o0n"), ("order1n", "o1n"), ("order2n", "o2n")):
+                print(f"{model} kernels ({c}_intervals, {c}_decode): {lib.lac_nib_lanes()} "
                       f"lanes of 4 threads a block, "
                       f"{getattr(lib, f'lac_{c}_intervals_shared_bytes')()} / "
                       f"{getattr(lib, f'lac_{c}_decode_shared_bytes')()} shared bytes a block")
@@ -822,10 +826,12 @@ def main() -> int:
                   f"{sorted(k for k, n in hgmma.items() if n == 0)}")
             loops = _build.sass_counts(lib, _build.INT_OPCODES, inner_loop=True)
             group = "four steps of a lane, 4 threads"
-            for name, what in (("o12n_intervals_kernel<16>", f"K4, {group}"),
-                               ("o12n_decode_kernel<16>", f"K5, {group}"),
-                               ("o12n_intervals_kernel<64>", f"K6, {group}"),
-                               ("o12n_decode_kernel<64>", f"K7, {group}"),
+            for name, what in (("nib_intervals_kernel<1, 16>", f"K1, {group}"),
+                               ("nib_decode_kernel<1, 16>", f"K3, {group}"),
+                               ("nib_intervals_kernel<16, 16>", f"K4, {group}"),
+                               ("nib_decode_kernel<16, 16>", f"K5, {group}"),
+                               ("nib_intervals_kernel<16, 64>", f"K6, {group}"),
+                               ("nib_decode_kernel<16, 64>", f"K7, {group}"),
                                ("o0c_intervals_kernel", "two steps of the model, 8 entries "
                                                         "a thread"),
                                ("o0c_decode_kernel", "two steps of the model, 16 entries "

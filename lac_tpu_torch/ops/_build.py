@@ -2,10 +2,10 @@
 
 The JAX package has no counterpart: Pallas compiles its kernels inside
 ``jax.jit``. Here the ``csrc/*.cu`` files (plain C entry points, no PyTorch
-header; ``o0n_rans32.cu`` and ``o0c_rans32.cu``, which share
-``nib_model.cuh``, ``o12n_rans32.cu``, ``causal_attn.cu``, and
-``causal_attn_sm90.cu`` with its PTX wrappers in ``sm90.cuh``) are compiled on
-first use, one ``nvcc`` process per source, all started together,
+header; ``nib_rans32.cu``, ``rans32_encode.cu``, ``o0c_rans32.cu``,
+``causal_attn.cu``, and ``causal_attn_sm90.cu`` with its PTX wrappers in
+``sm90.cuh``) are compiled on first use, one ``nvcc`` process per source,
+all started together,
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -Xcompiler -fPIC -c
 
@@ -69,9 +69,11 @@ _SIGNATURES = {
     "lac_o1n_decode": (_P, _P, _P, _I, _I, _I, _I, _P),
     "lac_o2n_intervals": (_P, _P, _P, _I, _I, _I, _P),
     "lac_o2n_decode": (_P, _P, _P, _I, _I, _I, _I, _P),
-    # launch shape of K4-K7: lanes a block (4 threads each); each kernel's
-    # shared bytes a block
-    "lac_o12n_lanes": (),
+    # launch shape of K1, K3-K7: lanes a block (4 threads each); each
+    # kernel's shared bytes a block
+    "lac_nib_lanes": (),
+    "lac_o0n_intervals_shared_bytes": (),
+    "lac_o0n_decode_shared_bytes": (),
     "lac_o1n_intervals_shared_bytes": (),
     "lac_o1n_decode_shared_bytes": (),
     "lac_o2n_intervals_shared_bytes": (),
@@ -112,19 +114,23 @@ def _nvcc() -> str:
 
 
 def _kernel_label(mangled: str) -> str:
-    """A kernel's short name with its template argument, e.g.
-    ``causal_attn_fwd_sm90_kernel<64>``, from its mangled symbol: the first
-    of its length-prefixed names (``_ZN<len><name>...``) that is not its
-    anonymous namespace (``_GLOBAL__N_...``), so that another tree's kernels
-    get their names too."""
+    """A kernel's short name with every template argument, e.g.
+    ``causal_attn_fwd_sm90_kernel<64>`` or ``nib_decode_kernel<1, 16>``,
+    from its mangled symbol: the first of its length-prefixed names
+    (``_ZN<len><name>...``) that is not its anonymous namespace
+    (``_GLOBAL__N_...``), so that another tree's kernels get their names
+    too."""
     name, pos = mangled, 3 if mangled.startswith("_ZN") else 2
     while mangled.startswith("_Z") and (m := re.compile(r"\d+").match(mangled, pos)):
         pos = m.end() + int(m.group())
         if not mangled[m.end():].startswith("_GLOBAL__N"):
             name = mangled[m.end():pos]
             break
-    tmpl = re.search(r"ILi(\d+)E", mangled)  # template <int>
-    return f"{name}<{tmpl.group(1)}>" if tmpl else name
+    tmpl = re.search(r"I((?:Li\d+E)+)E", mangled)  # template <int, ...>
+    if not tmpl:
+        return name
+    args = re.findall(r"Li(\d+)E", tmpl.group(1))
+    return f"{name}<{', '.join(args)}>"
 
 
 def _ptxas_summary(log: str) -> str:
@@ -145,7 +151,7 @@ def _ptxas_summary(log: str) -> str:
 
 
 # the opcodes of the codec kernels' inner loops that phase 0 of
-# chip_smoke.py prints for K4-K9: the integer ones, then those of the
+# chip_smoke.py prints for K1 and K3-K9: the integer ones, then those of the
 # shared-memory and warp units
 INT_OPCODES = ("IADD3", "VIADD", "LOP3", "SHF", "ISETP", "SEL", "IMNMX", "VIMNMX", "VIADDMNMX",
                "PRMT", "IMAD", "POPC", "REDUX", "SHFL", "VOTE", "LDS", "STS")

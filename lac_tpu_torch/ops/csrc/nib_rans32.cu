@@ -1,20 +1,22 @@
-// order1n and order2n byte codec kernels for Hopper (sm_90a): each model's
-// forward pass (K4, K6) and its fused model + rANS-32/16 decoder (K5, K7),
-// one template over the number of lo contexts, kLoCtx: 16 for order1n, 64
-// for order2n. Encode chains K4 or K6 with K2 (rans32_encode_kernel,
-// o0n_rans32.cu), unchanged.
+// The nibble models' byte codec kernels for Hopper (sm_90a): the forward
+// pass (K1, K4, K6) and the fused model + rANS-32/16 decoder (K3, K5, K7) of
+// order0n, order1n and order2n, one template over the number of hi rows,
+// kHiRows (1 for order0n, 16 for order1n and order2n), and of lo contexts,
+// kLoCtx (16 for order0n and order1n, 64 for order2n). Encode chains K1, K4
+// or K6 with K2 (rans32_encode_kernel, rans32_encode.cu), unchanged.
 //
-// Ports the order1n and order2n kernels of lac_tpu/ops/pallas_rans.py. The
-// spec is models/functional.py (Order1NibCDF, Order2NibCDF); the plain
-// PyTorch versions in ops/rans_kernels.py step the same models, and the
-// tests hold both to the JAX package.
+// Ports the nibble models' kernels of lac_tpu/ops/pallas_rans.py. The spec
+// is models/functional.py (Order0NibCDF, Order1NibCDF, Order2NibCDF); the
+// plain PyTorch versions in ops/rans_kernels.py step the same models, and
+// the tests hold both to the JAX package.
 //
-// The model. A byte s = 16h + l codes as P(h) P(l | h). Each lane holds 16
-// hi rows (picked by the previous byte's hi nibble ph) and kLoCtx lo rows
-// (picked by h in order1n, by h*4 + (ph >> 2) in order2n: lo_ctx below,
-// the one place the two models differ) of 17 nibble states st[0..16] in
-// [0, 2^15], st[0] = 0 and st[16] = 2^15 always (entry 0 moves toward 0
-// from 0, entry 16 toward 2^15 from 2^15). Nibble k's coding boundary is
+// The model. A byte s = 16h + l codes as P(h) P(l | h). Each lane holds
+// kHiRows hi rows (order1n and order2n pick one by the previous byte's hi
+// nibble ph; order0n has one: hi_ctx below) and kLoCtx lo rows (picked by h
+// in order0n and order1n, by h*4 + (ph >> 2) in order2n: lo_ctx below) of
+// 17 nibble states st[0..16] in [0, 2^15], st[0] = 0 and st[16] = 2^15
+// always (entry 0 moves toward 0 from 0, entry 16 toward 2^15 from 2^15).
+// Nibble k's coding boundary is
 // eff(st[k], k) = ((st[k] * 240) >> 15) + k, and a byte's interval is the
 // hi interval composed with the lo one scaled by the hi width. After each
 // byte both rows move toward their nibble's one-hot CDF (st - (st >> r) for
@@ -53,28 +55,36 @@
 // eff(count, 0) = (128 * 240) >> 15 = 0 = eff(st[0], 0), so the boundaries
 // read the half as st[0] without a mask. After the update thread 0 puts the
 // count back into the half (one prmt on a per-thread selector that is the
-// identity for the other threads).
+// identity for the other threads). order0n's hi row adapts at the step's
+// rate, rate_at(base, t); it is its lane's one hi row, visited at every
+// step, so its visit count before step t is t, and its count half carries
+// the step, capped at 128 like any count: the same rate, with no logic of
+// its own.
 //
 // Tables. A row is 8 words (32 bytes); a warp's lanes keep their rows
 // interleaved, [row][lane of the warp][word], so the words a warp reads at
 // once lie in distinct banks whatever rows its lanes pick. A block is one
-// warp, 8 lanes. A lane's tables are 16 + kLoCtx rows: order2n's 80 rows
-// are 2,560 bytes, 20,480 a block (K7 adds a 1,040-byte table), and an SM
-// holds 10 such blocks (228 KB less 1 KB a block), 80 lanes; order1n's 32
-// rows are 1,024 bytes, 8,192 a block (K5 9,232), so an SM holds 25 K4
-// blocks or 22 K5 blocks, 200 or 176 lanes.
+// warp, 8 lanes. A lane's tables are kHiRows + kLoCtx rows: order2n's 80
+// rows are 2,560 bytes, 20,480 a block (K7 adds a 1,040-byte table), and an
+// SM holds 10 such blocks (228 KB less 1 KB a block), 80 lanes; order1n's
+// 32 rows are 1,024 bytes, 8,192 a block (K5 9,232), so an SM holds 25 K4
+// blocks or 22 K5 blocks, 200 or 176 lanes; order0n's 17 rows are 544
+// bytes, 4,352 a block (K3 5,392), so the SM's limit of 32 blocks binds
+// before shared memory does: 256 lanes.
 //
 // Each thread reads and writes only its own words of a row, so no warp
 // barrier orders the tables: a thread's shared-memory accesses keep their
 // order. A row the next step also uses stays in registers (and is stored
 // once it leaves them); the loads of the next step's rows are issued a step
 // ahead, before this step's stores, and are dropped for a row that repeats.
-// Hi rows (0-15) and lo rows (from 16) never alias. In order1n the lo row
-// repeats whenever two neighbouring bytes share a hi nibble; K5 and K7 load
-// and store the lo row every step, which program order keeps right when it
-// repeats.
+// Hi rows (below kHiRows) and lo rows (from kHiRows) never alias. order0n's
+// one hi row repeats at every step, known at compile time, so it stays in
+// registers from step 0 on: no hi row is loaded, stored or selected in its
+// loops. In order0n and order1n the lo row repeats whenever two
+// neighbouring bytes share a hi nibble; K3, K5 and K7 load and store the lo
+// row every step, which program order keeps right when it repeats.
 //
-// K4, K6 (intervals): the step's byte is known before the step, so the
+// K1, K4, K6 (intervals): the step's byte is known before the step, so the
 // interval needs only st[n] and st[n+1] of each row: the thread that holds
 // st[n] forms the pair from its words and its neighbour's first word, and
 // one shuffle hands the pair to the group. Thread j keeps the pairs of step
@@ -82,16 +92,17 @@
 // steps at a time, byte i of a thread's word holding step t0 + 4i + j,
 // loaded 16 steps ahead.
 //
-// K5, K7 (decode): each nibble is found by one ballot over the group: the
+// K3, K5, K7 (decode): each nibble is found by one ballot over the group: the
 // owner of the slot is the last thread whose first boundary is <= it (a
 // prefix, since boundaries increase), and the owner's boundaries, counted,
 // give the nibble and its interval, handed to the group in one shuffle
 // (row_search). The lo nibble's boundaries are scaled by f_h; the search
 // compares them unscaled with floor(r / f_h), which a table of 2^31 / f
 // gives exactly. The lo row and that table entry are loaded as soon as h
-// is known, the next hi row (picked by h) too. Each step loads the word at
-// the lane's pointer as it starts and takes it at its end if the state needs
-// a refill: the load has the step's search to arrive, and no step waits on
+// is known, the next hi row (picked by h in order1n and order2n) too. Each
+// step loads the word at the lane's pointer as it starts and takes it at
+// its end if the state needs a refill: the load has the step's search to
+// arrive, and no step waits on
 // a load of the step before (loading at a refill, for the next one, put
 // that wait on every step after a refill: 16 % slower on the card).
 //
@@ -99,7 +110,7 @@
 // masked to the group): with a mask known only at run time, the compiler
 // checks the named threads' convergence before each one (MATCH.ANY and
 // REDUX.OR, then a branch), and those checks cost more than the step. So
-// the groups of a warp step together: K5 and K7 run the warp's longest
+// the groups of a warp step together: the decoders run the warp's longest
 // lane, a group past its lane's length stepping on without effect (it
 // writes 0 for those steps), and a group past B (in the grid's last warp)
 // codes nothing, reads no symbol or word and writes nothing. Steps go 4 at
@@ -122,15 +133,15 @@ namespace {
 
 constexpr int kG = 4;                         // threads a lane, two words of a row each
 constexpr int kL = 32 / kG;                   // lanes a warp, and a block
-constexpr int kHiRows = 16;                   // hi rows, then kLoCtx lo rows
 constexpr int kRowWords = 8;                  // 16 states a row, two a word
 constexpr int kRowStride = kL * kRowWords;    // words from one row to the next
 constexpr int kRcp = 260;                     // K5's, K7's table of 2^31 / f, f = 1 .. 256, padded
-// a block's tables; the decoders add the table of 2^31 / f
-template <int kLoCtx>
+// a block's tables, kHiRows hi rows then kLoCtx lo rows; the decoders add
+// the table of 2^31 / f
+template <int kHiRows, int kLoCtx>
 constexpr int kTableBytes = (kHiRows + kLoCtx) * kRowStride * 4;
-template <int kLoCtx>
-constexpr int kDecodeBytes = kTableBytes<kLoCtx> + kRcp * 4;
+template <int kHiRows, int kLoCtx>
+constexpr int kDecodeBytes = kTableBytes<kHiRows, kLoCtx> + kRcp * 4;
 constexpr uint32_t kTop = 0x8000u;            // 2^15: st[16], and M of the update
 constexpr uint32_t kTopPair = 0x80008000u;    // 2^15 in both halves
 constexpr uint32_t kCountMax = 128;           // a count stops where the rate does
@@ -210,17 +221,26 @@ __device__ __forceinline__ void store_row(uint32_t* p, const uint32_t (&w)[2]) {
   *reinterpret_cast<uint2*>(p) = make_uint2(w[0], w[1]);
 }
 
+// the hi row of a byte after a byte whose hi nibble was ph: ph in order1n
+// and order2n; in order0n the one row 0, so that two steps' hi rows are the
+// same at compile time
+template <int kHiRows>
+__device__ __forceinline__ uint32_t hi_ctx(uint32_t ph) {
+  static_assert(kHiRows == 1 || kHiRows == 16, "order0n, or order1n and order2n");
+  return kHiRows == 1 ? 0u : ph;
+}
+
 // the lo context of byte (h, .) after a byte whose hi nibble was ph: h in
-// order1n, h*4 + (ph >> 2) in order2n; its row is kHiRows + that
+// order0n and order1n, h*4 + (ph >> 2) in order2n; its row is kHiRows + that
 template <int kLoCtx>
 __device__ __forceinline__ uint32_t lo_ctx(uint32_t h, uint32_t ph) {
-  static_assert(kLoCtx == 16 || kLoCtx == 64, "order1n or order2n");
+  static_assert(kLoCtx == 16 || kLoCtx == 64, "order0n and order1n, or order2n");
   return kLoCtx == 16 ? h : h * 4u + (ph >> 2);
 }
 
 // one warp a block: the place of thread `ln`, whose lane is b, and its
 // tables initialised uniform (st[k] = k << 11, count 0)
-template <int kLoCtx>
+template <int kHiRows, int kLoCtx>
 __device__ __forceinline__ Thread thread_init(uint32_t* tables, int ln, int b, int B) {
   Thread th;
   th.live = b < B;
@@ -265,10 +285,13 @@ __device__ __forceinline__ uint32_t counts(const uint32_t (&a)[2], const uint32_
 }
 
 // ---------------------------------------------------------------------------
-// K4  o1n_intervals (kLoCtx 16)
+// K1  o0n_intervals (kHiRows 1, kLoCtx 16)
+// Replaces _o0n_intervals_kernel (lac_tpu/ops/pallas_rans.py:742-791),
+// called through o0n_encode_intervals (:794, pallas_call :804).
+// K4  o1n_intervals (kHiRows 16, kLoCtx 16)
 // Replaces _o1n_intervals_kernel (lac_tpu/ops/pallas_rans.py:1044-1107),
 // called through o1n_encode_intervals (:1110, pallas_call :1120).
-// K6  o2n_intervals (kLoCtx 64)
+// K6  o2n_intervals (kHiRows 16, kLoCtx 64)
 // Replaces _o2n_intervals_kernel (lac_tpu/ops/pallas_rans.py:1277-1341),
 // called through o2n_encode_intervals (:1344, pallas_call :1353).
 // Bound on this card: the instructions a lane-step issues on the INT32 pipe
@@ -291,14 +314,14 @@ __device__ __forceinline__ uint32_t row_pair(const uint32_t (&w)[2], uint32_t n,
                      (int)(n >> 2), kG);
 }
 
-template <int kLoCtx>
+template <int kHiRows, int kLoCtx>
 __global__ void __launch_bounds__(32)
-o12n_intervals_kernel(const uint8_t* __restrict__ syms, int T, int B, int rate,
-                      int32_t* __restrict__ lo_out, int32_t* __restrict__ fr_out) {
+nib_intervals_kernel(const uint8_t* __restrict__ syms, int T, int B, int rate,
+                     int32_t* __restrict__ lo_out, int32_t* __restrict__ fr_out) {
   extern __shared__ __align__(16) uint32_t tables[];
   const int ln = threadIdx.x & 31;
   const int b = blockIdx.x * kL + ln / kG;
-  const Thread th = thread_init<kLoCtx>(tables, ln, b, B);
+  const Thread th = thread_init<kHiRows, kLoCtx>(tables, ln, b, B);
   constexpr int kChunk = 4 * kG;  // steps a word of symbols covers
 
   // byte i of the word: the symbol of step t0 + G i + j (0 from T on)
@@ -314,7 +337,7 @@ o12n_intervals_kernel(const uint8_t* __restrict__ syms, int T, int B, int rate,
   };
   uint32_t cur = chunk(0), nxt = chunk(kChunk);
 
-  // step 0: after ph = 0, its rows
+  // step 0: after ph = 0, its rows (the hi row is row 0 in every model)
   uint32_t s = __shfl_sync(kAll, cur, 0, kG) & 0xFFu;
   uint32_t ph = 0, h = s >> 4, l = s & 15u, lrow = kHiRows + lo_ctx<kLoCtx>(h, 0u);
   uint32_t rh[2], rl[2];
@@ -330,9 +353,9 @@ o12n_intervals_kernel(const uint8_t* __restrict__ syms, int T, int B, int rate,
       const uint32_t sx = __shfl_sync(kAll, cur, u + 1 < kG ? u + 1 : 0, kG);
       const uint32_t s1 = (u + 1 < kG ? sx : sx >> 8) & 0xFFu;
       const uint32_t lrow1 = kHiRows + lo_ctx<kLoCtx>(s1 >> 4, h);
-      const bool same_h = h == ph, same_l = lrow1 == lrow;
+      const bool same_h = hi_ctx<kHiRows>(h) == hi_ctx<kHiRows>(ph), same_l = lrow1 == lrow;
       uint32_t nh[2], nl[2];
-      if (!same_h) load_row(th.row((int)h), nh);
+      if (!same_h) load_row(th.row((int)hi_ctx<kHiRows>(h)), nh);
       if (!same_l) load_row(th.row((int)lrow1), nl);
 
       const uint32_t pair_h = row_pair(rh, h, th), pair_l = row_pair(rl, l, th);
@@ -343,7 +366,7 @@ o12n_intervals_kernel(const uint8_t* __restrict__ syms, int T, int B, int rate,
       const uint32_t c = counts(rh, rl);
       row_update(rh, th, h, shift_of(rate, c & 0xFFFFu), c & 0xFFFFu);
       row_update(rl, th, l, shift_of(rate, c >> 16), c >> 16);
-      if (!same_h) store_row(th.row((int)ph), rh);
+      if (!same_h) store_row(th.row((int)hi_ctx<kHiRows>(ph)), rh);
       if (!same_l) store_row(th.row((int)lrow), rl);
 #pragma unroll
       for (int i = 0; i < 2; ++i) {
@@ -371,11 +394,15 @@ o12n_intervals_kernel(const uint8_t* __restrict__ syms, int T, int B, int rate,
 }
 
 // ---------------------------------------------------------------------------
-// K5  o1n_decode (kLoCtx 16)
+// K3  o0n_decode (kHiRows 1, kLoCtx 16)
+// Replaces _o0n_decode_fused_kernel (lac_tpu/ops/pallas_rans.py:849-918),
+// called through _o0n_decode_fused (:1012) / o0n_rans32_decode (:1024);
+// pallas_call in _nib_decode_call (:951).
+// K5  o1n_decode (kHiRows 16, kLoCtx 16)
 // Replaces _o1n_decode_fused_kernel (lac_tpu/ops/pallas_rans.py:1148-1226),
 // called through _o1n_decode_fused (:1240) / o1n_rans32_decode (:1254);
 // pallas_call in _nib_decode_call (:951).
-// K7  o2n_decode (kLoCtx 64)
+// K7  o2n_decode (kHiRows 16, kLoCtx 64)
 // Replaces _o2n_decode_fused_kernel (lac_tpu/ops/pallas_rans.py:1382-1462),
 // called through _o2n_decode_fused (:1477) / o2n_rans32_decode (:1491);
 // pallas_call in _nib_decode_call (:951).
@@ -414,14 +441,14 @@ __device__ __forceinline__ Found row_search(const uint32_t (&w)[2], uint32_t v,
   return {4u * (uint32_t)owner + (got >> 18), got & 511u, (got >> 9) & 511u};
 }
 
-template <int kLoCtx>
+template <int kHiRows, int kLoCtx>
 __global__ void __launch_bounds__(32)
-o12n_decode_kernel(const uint16_t* __restrict__ words, const int32_t* __restrict__ lengths,
-                   int T, int B, int cap, int rate, uint8_t* __restrict__ syms) {
+nib_decode_kernel(const uint16_t* __restrict__ words, const int32_t* __restrict__ lengths,
+                  int T, int B, int cap, int rate, uint8_t* __restrict__ syms) {
   extern __shared__ __align__(16) uint32_t tables[];
   const int ln = threadIdx.x & 31;
   const int b = blockIdx.x * kL + ln / kG;
-  const Thread th = thread_init<kLoCtx>(tables, ln, b, B);
+  const Thread th = thread_init<kHiRows, kLoCtx>(tables, ln, b, B);
   // rcp[f] = ceil(2^31 / f): floor(r / f) = the high word of 2r * rcp[f]
   // for r < 2^16 and f <= 256 (the error, under r / 2^31, is below the
   // 1 / f that separates r / f from the next integer)
@@ -452,10 +479,11 @@ o12n_decode_kernel(const uint16_t* __restrict__ words, const int32_t* __restrict
         const uint32_t slot = x & 0xFFFFu;
         const Found fh = row_search(rh, slot >> 8, th);
         const uint32_t h = fh.k, f_h = fh.hi - fh.lo, r = slot - (fh.lo << 8);
-        // the next step's hi row is row h: loaded now, unless it is this one
-        const bool same_h = h == ph;
+        // the next step's hi row (row h in order1n and order2n): loaded now,
+        // unless it is this one
+        const bool same_h = hi_ctx<kHiRows>(h) == hi_ctx<kHiRows>(ph);
         uint32_t nh[2];
-        if (!same_h) load_row(th.row((int)h), nh);
+        if (!same_h) load_row(th.row((int)hi_ctx<kHiRows>(h)), nh);
         const int lrow = kHiRows + (int)lo_ctx<kLoCtx>(h, ph);
         uint32_t rl[2];
         load_row(th.row(lrow), rl);
@@ -471,7 +499,7 @@ o12n_decode_kernel(const uint16_t* __restrict__ words, const int32_t* __restrict
         const uint32_t c = counts(rh, rl);
         row_update(rh, th, h, shift_of(rate, c & 0xFFFFu), c & 0xFFFFu);
         row_update(rl, th, fl.k, shift_of(rate, c >> 16), c >> 16);
-        if (!same_h) store_row(th.row((int)ph), rh);
+        if (!same_h) store_row(th.row((int)hi_ctx<kHiRows>(ph)), rh);
         store_row(th.row(lrow), rl);
 #pragma unroll
         for (int i = 0; i < 2; ++i) rh[i] = same_h ? rh[i] : nh[i];
@@ -483,20 +511,20 @@ o12n_decode_kernel(const uint16_t* __restrict__ words, const int32_t* __restrict
   }
 }
 
-template <int kLoCtx>
+template <int kHiRows, int kLoCtx>
 int launch_intervals(const void* syms, void* lo, void* fr, int T, int B, int rate,
                      void* stream) {
-  o12n_intervals_kernel<kLoCtx>
-      <<<(B + kL - 1) / kL, 32, kTableBytes<kLoCtx>, (cudaStream_t)stream>>>(
+  nib_intervals_kernel<kHiRows, kLoCtx>
+      <<<(B + kL - 1) / kL, 32, kTableBytes<kHiRows, kLoCtx>, (cudaStream_t)stream>>>(
           (const uint8_t*)syms, T, B, rate, (int32_t*)lo, (int32_t*)fr);
   return (int)cudaGetLastError();
 }
 
-template <int kLoCtx>
+template <int kHiRows, int kLoCtx>
 int launch_decode(const void* words, const void* lengths, void* syms, int T, int B, int cap,
                   int rate, void* stream) {
-  o12n_decode_kernel<kLoCtx>
-      <<<(B + kL - 1) / kL, 32, kDecodeBytes<kLoCtx>, (cudaStream_t)stream>>>(
+  nib_decode_kernel<kHiRows, kLoCtx>
+      <<<(B + kL - 1) / kL, 32, kDecodeBytes<kHiRows, kLoCtx>, (cudaStream_t)stream>>>(
           (const uint16_t*)words, (const int32_t*)lengths, T, B, cap, rate, (uint8_t*)syms);
   return (int)cudaGetLastError();
 }
@@ -505,36 +533,50 @@ int launch_decode(const void* words, const void* lengths, void* syms, int T, int
 
 extern "C" {
 
-// the launch shape of K4-K7: lanes a block (kG threads each, one warp), and
-// each kernel's dynamic shared bytes a block
-int lac_o12n_lanes() { return kL; }
+// the launch shape of K1, K3-K7: lanes a block (kG threads each, one warp),
+// and each kernel's dynamic shared bytes a block
+int lac_nib_lanes() { return kL; }
 
-int lac_o1n_intervals_shared_bytes() { return kTableBytes<16>; }
+int lac_o0n_intervals_shared_bytes() { return kTableBytes<1, 16>; }
 
-int lac_o1n_decode_shared_bytes() { return kDecodeBytes<16>; }
+int lac_o0n_decode_shared_bytes() { return kDecodeBytes<1, 16>; }
 
-int lac_o2n_intervals_shared_bytes() { return kTableBytes<64>; }
+int lac_o1n_intervals_shared_bytes() { return kTableBytes<16, 16>; }
 
-int lac_o2n_decode_shared_bytes() { return kDecodeBytes<64>; }
+int lac_o1n_decode_shared_bytes() { return kDecodeBytes<16, 16>; }
+
+int lac_o2n_intervals_shared_bytes() { return kTableBytes<16, 64>; }
+
+int lac_o2n_decode_shared_bytes() { return kDecodeBytes<16, 64>; }
+
+int lac_o0n_intervals(const void* syms, void* lo, void* fr, int T, int B, int rate,
+                      void* stream) {
+  return launch_intervals<1, 16>(syms, lo, fr, T, B, rate, stream);
+}
+
+int lac_o0n_decode(const void* words, const void* lengths, void* syms, int T, int B,
+                   int cap, int rate, void* stream) {
+  return launch_decode<1, 16>(words, lengths, syms, T, B, cap, rate, stream);
+}
 
 int lac_o1n_intervals(const void* syms, void* lo, void* fr, int T, int B, int rate,
                       void* stream) {
-  return launch_intervals<16>(syms, lo, fr, T, B, rate, stream);
+  return launch_intervals<16, 16>(syms, lo, fr, T, B, rate, stream);
 }
 
 int lac_o1n_decode(const void* words, const void* lengths, void* syms, int T, int B,
                    int cap, int rate, void* stream) {
-  return launch_decode<16>(words, lengths, syms, T, B, cap, rate, stream);
+  return launch_decode<16, 16>(words, lengths, syms, T, B, cap, rate, stream);
 }
 
 int lac_o2n_intervals(const void* syms, void* lo, void* fr, int T, int B, int rate,
                       void* stream) {
-  return launch_intervals<64>(syms, lo, fr, T, B, rate, stream);
+  return launch_intervals<16, 64>(syms, lo, fr, T, B, rate, stream);
 }
 
 int lac_o2n_decode(const void* words, const void* lengths, void* syms, int T, int B,
                    int cap, int rate, void* stream) {
-  return launch_decode<64>(words, lengths, syms, T, B, cap, rate, stream);
+  return launch_decode<16, 64>(words, lengths, syms, T, B, cap, rate, stream);
 }
 
 }  // extern "C"

@@ -1,6 +1,6 @@
 // order0c byte codec kernels for Hopper (sm_90a): the joint-byte model's
 // forward pass (K8) and the fused model + rANS-32/16 decoder (K9). Encode
-// chains K8 with K2 (rans32_encode_kernel, o0n_rans32.cu), unchanged.
+// chains K8 with K2 (rans32_encode_kernel, rans32_encode.cu), unchanged.
 //
 // Ports the order0c kernels of lac_tpu/ops/pallas_rans.py. The bitstream is
 // the spec of lac_tpu_torch/coder/rans.py and models/functional.py
@@ -93,11 +93,13 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
-#include "nib_model.cuh"  // rate_at
-
 namespace {
 
-using lac_nib::rate_at;
+// adaptive_rate (models/functional.py): the base rate, slowed as the step
+// grows
+__device__ __forceinline__ int rate_at(int base, int t) {
+  return base + (t >= 16) + (t >= 32) + (t >= 64) + (t >= 128);
+}
 
 constexpr int kV = 256;                            // the byte alphabet
 constexpr int kM = (1 << 16) - kV;                 // 65280: state range

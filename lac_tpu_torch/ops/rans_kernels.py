@@ -35,8 +35,9 @@ order0c's (``Order0CDF``) on its 257-entry CDF, at the reference turbo
 path's fixed ``v = 256`` and ``prob_bits = 16``.
 
 A wrapper runs the plain version only for a tensor on the CPU. For a CUDA
-tensor it launches the kernel (``csrc/o0n_rans32.cu``: K1-K3;
-``csrc/o12n_rans32.cu``: K4-K7, one template at 16 and 64 lo contexts;
+tensor it launches the kernel (``csrc/nib_rans32.cu``: K1 and K3-K7, one
+template over the hi rows and lo contexts, 1 and 16 for order0n, 16 and 16
+for order1n, 16 and 64 for order2n; ``csrc/rans32_encode.cu``: K2;
 ``csrc/o0c_rans32.cu``: K8, K9) or raises; it never falls back.
 ``launches[name]`` counts the kernel's launches and nothing else.
 """

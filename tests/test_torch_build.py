@@ -42,10 +42,15 @@ _NVCC_NS = "_GLOBAL__N__4c0d71_14_o12n_rans32_cu_a4f4f290"
 def test_kernel_label_comes_from_the_mangled_symbol(ns):
     """Labels come from the mangled symbol itself, past its anonymous
     namespace (nvcc's names the source and a hash; the host compiler's is
-    ``_GLOBAL__N_1``): a template's argument is kept, and a kernel of
-    another tree (the one-thread order1n kernel, or order2n's before its
-    template) gets its own name too."""
+    ``_GLOBAL__N_1``): a template's arguments are all kept, so that the
+    nibble template's instances stay distinct, and a kernel of another tree
+    (the one-thread order1n kernel, order2n's before its template, or the
+    template over lo contexts alone) gets its own name too."""
     for mangled, label in (
+            (f"{ns}20nib_intervals_kernelILi1ELi16EEEvPKhiiiPiS3_",
+             "nib_intervals_kernel<1, 16>"),
+            (f"{ns}17nib_decode_kernelILi16ELi16EEEvPKtPKiiiiiPh", "nib_decode_kernel<16, 16>"),
+            (f"{ns}17nib_decode_kernelILi16ELi64EEEvPKtPKiiiiiPh", "nib_decode_kernel<16, 64>"),
             (f"{ns}21o12n_intervals_kernelILi16EEEvPKhiiiPiS3_", "o12n_intervals_kernel<16>"),
             (f"{ns}18o12n_decode_kernelILi64EEEvPKtPKiiiiiPh", "o12n_decode_kernel<64>"),
             (f"{ns}20ctx_intervals_kernelILi16EEEvPKhiiiPiS3_", "ctx_intervals_kernel<16>"),

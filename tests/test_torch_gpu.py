@@ -128,11 +128,11 @@ def test_o0c_kernels_exact_at_every_base_rate(cuda, rate):
 
 
 # every (h, prev_h >> 2) pair, so every one of order2n's 64 lo contexts
-# (and every h, so every one of order1n's 16): a byte of hi nibble 4q
-# (class q), then a byte of hi nibble h
+# (and every h, so every one of order0n's and order1n's 16): a byte of hi
+# nibble 4q (class q), then a byte of hi nibble h
 _ALL_LO_CONTEXTS = np.array([x for q in range(4) for h in range(16)
                              for x in (q << 6 | h, h << 4 | (q * 5 + h) % 16)], np.uint8)
-_LO_CONTEXTS = {"o1n": 16, "o2n": 64}
+_LO_CONTEXTS = {"o0n": 16, "o1n": 16, "o2n": 64}
 
 
 def _o12n_lanes(t_len, b, seed):
@@ -146,9 +146,9 @@ def _o12n_lanes(t_len, b, seed):
 
 
 def _o12n_exact(cuda, codec, syms, lengths, cap, rate):
-    """K4 and K5 (o1n) or K6 and K7 (o2n) against their plain versions, and
-    the round trip of the lanes whose words fit cap; returns the words'
-    counts."""
+    """K1 and K3 (o0n), K4 and K5 (o1n) or K6 and K7 (o2n) against their
+    plain versions, and the round trip of the lanes whose words fit cap;
+    returns the words' counts."""
     t_len = syms.shape[0]
     s, n = torch.from_numpy(syms).to(cuda), torch.from_numpy(lengths).to(cuda)
     lo, fr = getattr(rk, f"{codec}_encode_intervals")(s, rate)
@@ -165,25 +165,26 @@ def _o12n_exact(cuda, codec, syms, lengths, cap, rate):
 
 
 def _lo_contexts(codec, syms):
-    """The lo contexts of order1n (h) or order2n (h*4 + (prev_h >> 2)) that
-    a [T] lane visits, and how often."""
+    """The lo contexts of order0n and order1n (h) or order2n
+    (h*4 + (prev_h >> 2)) that a [T] lane visits, and how often."""
     h = syms.astype(np.int64) >> 4
     prev = np.concatenate([[0], h[:-1]])
-    ctx = h if codec == "o1n" else h * 4 + (prev >> 2)
+    ctx = h * 4 + (prev >> 2) if codec == "o2n" else h
     return np.bincount(ctx, minlength=_LO_CONTEXTS[codec])
 
 
 @pytest.mark.parametrize("rate", range(13))
-@pytest.mark.parametrize("codec", ["o1n", "o2n"])
+@pytest.mark.parametrize("codec", ["o0n", "o1n", "o2n"])
 def test_o2n_kernels_exact_at_every_base_rate(cuda, codec, rate):
-    """K4 and K5 (order1n), K6 and K7 (order2n), which spread a lane over 4
-    threads and keep each row's visit count in the half of its state 0,
-    bit-equal to their plain versions at base rates 0-12 (r from 0 to 16):
-    B 13 (no multiple of the 8 lanes a block, so the last block's warp has
-    lanes past B), T 300 (no multiple of the 4 steps a turn); an empty, a
-    one-byte and ragged lanes, lanes that overflow cap, a lane through all
-    16 or 64 lo contexts and one of a single byte, whose contexts count past
-    255 visits and whose lo row repeats at every step."""
+    """K1 and K3 (order0n), K4 and K5 (order1n), K6 and K7 (order2n), which
+    spread a lane over 4 threads and keep each row's visit count (order0n's
+    hi row: the step) in the half of its state 0, bit-equal to their plain
+    versions at base rates 0-12 (r from 0 to 16): B 13 (no multiple of the
+    8 lanes a block, so the last block's warp has lanes past B), T 300 (no
+    multiple of the 4 steps a turn); an empty, a one-byte and ragged lanes,
+    lanes that overflow cap, a lane through all 16 hi nibbles and all 16 or
+    64 lo contexts and one of a single byte, whose contexts count past 255
+    visits and whose lo row repeats at every step."""
     t_len, b, cap = 300, 13, 140
     syms, lengths = _o12n_lanes(t_len, b, seed=rate)
     assert bool((_lo_contexts(codec, syms[:, 4]) > 0).all())
@@ -193,14 +194,15 @@ def test_o2n_kernels_exact_at_every_base_rate(cuda, codec, rate):
 
 
 @pytest.mark.parametrize("t_len,b,cap", [(1000, 130, 515), (8192, 21, 4099)])
-@pytest.mark.parametrize("codec", ["o1n", "o2n"])
+@pytest.mark.parametrize("codec", ["o0n", "o1n", "o2n"])
 def test_o2n_kernels_exact_at_block_8192_and_ragged_widths(cuda, codec, t_len, b, cap):
-    """K4-K7 at B 130 (16 blocks and 2 lanes) and at T 8192 with cap 4099,
-    equal to their plain versions. order2n's codec gate admits that block
-    (o2n_decode_fits); order1n's records order0c there at the corpus's
-    widths, so for K4 and K5 it is a test of the kernels alone."""
+    """K1 and K3-K7 at B 130 (16 blocks and 2 lanes) and at T 8192 with cap
+    4099, equal to their plain versions. order2n's codec gate admits that
+    block (o2n_decode_fits); order0n's and order1n's record order0c there at
+    the corpus's widths, so for K1, K3, K4 and K5 it is a test of the
+    kernels alone (T 8192 steps of order0n's hi row, its count half capped)."""
     syms, lengths = _o12n_lanes(t_len, b, seed=5)
-    assert codec == "o1n" or rk.o2n_decode_fits(cap, b) or t_len != 8192
+    assert codec != "o2n" or rk.o2n_decode_fits(cap, b) or t_len != 8192
     nwords = _o12n_exact(cuda, codec, syms, lengths, cap, RATE)
     assert bool((nwords > cap).any()) and bool((nwords <= cap).any())
 

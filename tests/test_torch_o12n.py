@@ -1,7 +1,9 @@
 """The port's order1n and order2n models and the plain versions of their four
 kernels (lac_tpu_torch.ops.rans_kernels), held exactly to lac_tpu: the
 Pallas kernels in interpret mode, the functional models and the codec
-gates. Inputs come from a numpy seed and go to both packages."""
+gates. Inputs come from a numpy seed and go to both packages. Then the
+arithmetic of the nibble kernels' template, for order0n too (its Pallas
+comparisons are in test_torch_o0n.py)."""
 
 import numpy as np
 import pytest
@@ -20,7 +22,9 @@ from lac_tpu_torch.ops import rans_kernels as rk
 RATE = 4
 B, T = 8, 256
 CODECS = ("o1n", "o2n")
-MODEL = {"o1n": "Order1NibCDF", "o2n": "Order2NibCDF"}
+MODEL = {"o0n": "Order0NibCDF", "o1n": "Order1NibCDF", "o2n": "Order2NibCDF"}
+# the models of the nibble kernels' template (K1 and K3-K7)
+TEMPLATE_CODECS = ("o0n", *CODECS)
 # ragged, with 0 and 1; lanes 0 and 4 are random bytes and overflow CAP_OVER
 LENGTHS = np.array([256, 0, 1, 137, 256, 200, 256, 60], np.int32)
 CAP_OVER = 100
@@ -193,11 +197,12 @@ def test_wrappers_count_no_plain_launches():
 
 
 # --------------------------------------------------------------------------
-# K4-K7 (ops/csrc/o12n_rans32.cu, one template over the number of lo
-# contexts) mirrored in torch on int64 tensors that hold the kernels' 32-bit
-# words: a thread of a lane's group holds words 2j and 2j + 1 of a row, word
-# p holding st[2p] in its low half and st[2p + 1] in its high half; the half
-# of st[0] holds the row's visit count. No card is needed for these.
+# K1 and K3-K7 (ops/csrc/nib_rans32.cu, one template over the numbers of hi
+# rows and lo contexts) mirrored in torch on int64 tensors that hold the
+# kernels' 32-bit words: a thread of a lane's group holds words 2j and
+# 2j + 1 of a row, word p holding st[2p] in its low half and st[2p + 1] in
+# its high half; the half of st[0] holds the row's visit count (for
+# order0n's one hi row, the step). No card is needed for these.
 # --------------------------------------------------------------------------
 
 NIB_TOP = 1 << 15
@@ -256,7 +261,7 @@ def test_nibble_pair_update_equals_nib_state_update(r):
 
 
 @pytest.mark.parametrize("rate", [0, 4, 12])
-@pytest.mark.parametrize("codec", CODECS)
+@pytest.mark.parametrize("codec", TEMPLATE_CODECS)
 def test_count_slot_stands_for_entry_0(codec, rate):
     """st[0] starts at 0 and moves toward 0, so it is always 0 (and st[16]
     always 2^15): the kernels keep the row's visit count in its half. The
@@ -265,7 +270,9 @@ def test_count_slot_stands_for_entry_0(codec, rate):
     the packed update leaves the high half exact with the count in the low
     one, and the count's boundary reads as st[0]'s: ((c * 240) >> 15) = 0.
     In each model a one-byte lane visits its hi row and its lo row past 255
-    times, and the capped counts give the true counts' rates."""
+    times, and the capped counts give the true counts' rates. order0n's hi
+    row adapts at the step's rate: its count half, advanced once a step and
+    capped, gives adaptive_rate(rate, step) at every step."""
     for r in NIB_RATES:
         for n in range(16):
             st = torch.zeros((1, 17), dtype=torch.int32)
@@ -290,9 +297,16 @@ def test_count_slot_stands_for_entry_0(codec, rate):
             assert bool(((got & 0xFFFF) <= count).all())  # no borrow into st[1]
     model = getattr(functional, MODEL[codec])(rate)
     state = model.init_state(1)
+    hi_count = 0  # order0n's hi row: its count half, one more each step
     for _ in range(300):
+        if codec == "o0n":
+            assert min(rate + (hi_count >> 4).bit_length(), 16) == min(
+                functional.adaptive_rate(rate, state[3]), 16)
+            hi_count = min(hi_count + 1, 128)
         state = model.update_(state, torch.tensor([ord("e")]))
-    for cnt in state[2:4]:  # the hi rows' and the lo rows' visit counts
+    # the hi rows' and the lo rows' visit counts (order0n: the step, and
+    # its lo rows' counts)
+    for cnt in ((torch.tensor(state[3]), state[2]) if codec == "o0n" else state[2:4]):
         true = int(cnt.max())
         assert true > 255
         capped = min(true, 128)
@@ -350,14 +364,15 @@ def test_reciprocal_table_divides_exactly():
 
 
 @pytest.mark.parametrize("rate", [0, 4, 12])
-@pytest.mark.parametrize("codec", CODECS)
+@pytest.mark.parametrize("codec", TEMPLATE_CODECS)
 def test_group_search_and_pairs_equal_the_plain_versions(codec, rate):
-    """K5's and K7's two searches (the hi nibble on slot >> 8, the lo nibble
+    """The decoders' two searches (the hi nibble on slot >> 8, the lo nibble
     on floor(r / f_h) through the reciprocal table) give rk._nib_search's
-    byte and interval, and K4's and K6's pairs give the states either side
-    of each nibble, on order1n and order2n states at base rates 0, 4 and 12
-    (random, skewed and repeated-byte lanes, whose counts pass 128) for
-    slots across [0, 2^16)."""
+    byte and interval, and the intervals kernels' pairs give the states
+    either side of each nibble, on order0n, order1n and order2n states
+    (through model.hi_row and lo_row) at base rates 0, 4 and 12 (random,
+    skewed and repeated-byte lanes, whose counts pass 128) for slots across
+    [0, 2^16)."""
     rng = np.random.default_rng(rate)
     slots = torch.from_numpy(np.concatenate([[0, 1, 255, 256, 65534, 65535],
                                              rng.integers(0, 1 << 16, 250)]))
@@ -368,7 +383,8 @@ def test_group_search_and_pairs_equal_the_plain_versions(codec, rate):
     for t in range(400):
         if t % 100 == 99:
             for lane in range(8):
-                st = tuple(a[lane:lane + 1].expand(len(slots), *a.shape[1:]) for a in state)
+                st = tuple(a[lane:lane + 1].expand(len(slots), *a.shape[1:])
+                           if isinstance(a, torch.Tensor) else a for a in state)
                 want = rk._nib_search(model, st, slots)
                 effh = functional.nib_state_to_coder(model.hi_row(st)).to(torch.int64)
                 h, loh, hih = _row_search(effh, slots >> 8)
@@ -391,30 +407,45 @@ def test_group_search_and_pairs_equal_the_plain_versions(codec, rate):
     assert len(counts) > 8
 
 
+# the kernels' hi rows and lo contexts: kHiRows and kLoCtx of the template
+_HI_ROWS = {"o0n": 1, "o1n": 16, "o2n": 16}
+_LO_CTX = {"o0n": 16, "o1n": 16, "o2n": 64}
+
+
+def _hi_row(codec, ph):
+    """The kernels' hi_ctx<kHiRows>(ph): ph, or order0n's one row 0."""
+    return 0 if codec == "o0n" else ph
+
+
 def _lo_row(codec, h, ph):
     """The kernels' kHiRows + lo_ctx<kLoCtx>(h, ph): the row of a lane's
-    tables (its 16 hi rows, then its lo rows) that byte (h, .) uses after hi
+    tables (its hi rows, then its lo rows) that byte (h, .) uses after hi
     nibble ph."""
-    return 16 + (h if codec == "o1n" else h * 4 + (ph >> 2))
+    return _HI_ROWS[codec] + (h * 4 + (ph >> 2) if codec == "o2n" else h)
 
 
-@pytest.mark.parametrize("codec", CODECS)
+@pytest.mark.parametrize("codec", TEMPLATE_CODECS)
 def test_template_lo_row_picks_the_models_lo_row(codec):
     """A lane's tables in the kernels are its hi rows, then its lo rows
-    (16 + kLoCtx of them, kLoCtx 16 or 64). For every hi nibble h after
-    every previous hi nibble ph, row ph is the row model.hi_row returns and
-    row 16 + lo_ctx(h, ph), never a hi row, the one model.lo_row returns;
-    every table entry is distinct, so no other row can stand in for it."""
+    (kHiRows + kLoCtx of them: 1 + 16 for order0n, 16 + 16 for order1n,
+    16 + 64 for order2n). For every hi nibble h after every previous hi
+    nibble ph, row hi_ctx(ph) (ph, or order0n's row 0) is the row
+    model.hi_row returns and row kHiRows + lo_ctx(h, ph), never a hi row,
+    the one model.lo_row returns; every table entry is distinct, so no
+    other row can stand in for it."""
     model = getattr(functional, MODEL[codec])(RATE)
-    sh, sl, cnth, cntl, prev_h = model.init_state(3)
-    sh = torch.arange(sh.numel(), dtype=torch.int32).reshape(sh.shape)
-    sl = sh.numel() + torch.arange(sl.numel(), dtype=torch.int32).reshape(sl.shape)
-    tables = torch.cat([sh, sl], 1)
-    assert tables.shape[1] == 16 + (16 if codec == "o1n" else 64)
+    state = model.init_state(3)
+    sh = torch.arange(state[0].numel(), dtype=torch.int32).reshape(state[0].shape)
+    sl = sh.numel() + torch.arange(state[1].numel(), dtype=torch.int32).reshape(state[1].shape)
+    tables = torch.cat([sh.reshape(3, -1, 17), sl], 1)
+    assert tables.shape[1] == _HI_ROWS[codec] + _LO_CTX[codec]
     for ph in range(16):
-        st = (sh, sl, cnth, cntl, torch.full_like(prev_h, ph))
-        assert torch.equal(tables[:, ph], model.hi_row(st))
+        if codec == "o0n":  # no previous nibble in its state
+            st = (sh, sl, *state[2:])
+        else:
+            st = (sh, sl, state[2], state[3], torch.full_like(state[4], ph))
+        assert torch.equal(tables[:, _hi_row(codec, ph)], model.hi_row(st))
         for h in range(16):
             row = _lo_row(codec, h, ph)
-            assert 16 <= row < tables.shape[1]
-            assert torch.equal(tables[:, row], model.lo_row(st, torch.full_like(prev_h, h)))
+            assert _HI_ROWS[codec] <= row < tables.shape[1]
+            assert torch.equal(tables[:, row], model.lo_row(st, torch.full((3,), h)))
