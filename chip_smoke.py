@@ -60,6 +60,23 @@ import faulthandler; faulthandler.dump_traceback_later(900, exit=True)  # noqa: 
 #          tokens/s, the attention kernels' share of a step, their plain
 #          versions' and scaled_dot_product_attention's times at the
 #          training shape.
+# Phase 4  LM coding (slice 11; it reaches no TPU kernel, so K1-K12 must
+#          not launch): (a) the CLI's compress --model lm at its defaults
+#          (prng:byte-12l:0 at full width, block 512, 64 lanes, prob_bits
+#          16, cache_grow 128, window mode auto) on the first 128 KiB of
+#          the corpus, 256 blocks in 4 waves, then decompress, byte
+#          compare, three times, timed, each container equal to the first,
+#          and the header's resolved settings; (b) the shipped
+#          byte-6l checkpoint through lm_compress_bytes at the same settings
+#          on the first 32 KiB, round trip, bits/byte within 1 % of
+#          smoke.GOLDEN_LM_BPB (lac_tpu's on the CPU); (c) determinism:
+#          (a)'s first wave encoded twice gives the same words, which equal
+#          (a)'s payloads, and a container the port made on the CPU is
+#          refused on the card by its fingerprint; (d) numbers: encode and
+#          decode tokens/s of (a) (median of its 3), ms a decode step, the
+#          CUDA kernels one step launches (torch.profiler), peak device
+#          memory, (b)'s bits/byte, and the least time a step could take
+#          (bytes over HBM, flops over bf16).
 #
 # It imports the standard library, numpy, torch and lac_tpu_torch only. A
 # hang ends in a traceback and a non-zero exit (faulthandler above). Without
@@ -257,6 +274,12 @@ FALLBACK = ("order0n", 8192, "order0c")
 # the most words a lane may have for lac_tpu's fused order0c decode at its
 # 2048-lane width (_fused_vmem_ok); it decodes wider rows in chunks
 FUSED_MAX_WORDS = 2656
+# phase 4, LM coding: (a) at the CLI's defaults on the first 128 KiB of the
+# corpus (256 blocks of 512 tokens, 4 waves of 64 lanes)
+LM_REF = "prng:byte-12l:0"
+LM_CLI_BYTES = 128 << 10
+LM_BPB_TOL = 0.01  # relative, the port's bits/byte against lac_tpu's
+LM_REPS = 3
 
 
 class Phase:
@@ -769,6 +792,210 @@ def attn_times(torch, A, dev, cfg):
     return out
 
 
+# --------------------------------------------------------------------------
+# Phase 4: LM coding (the cached decode step, the integer CDF, rANS-64/32,
+# the container round trip)
+# --------------------------------------------------------------------------
+
+
+def phase4_cli(torch, cli, container_mod, corpus, work):
+    """(a): the CLI at its LM defaults, compress then decompress, LM_REPS
+    times, each pair timed on the host clock around a synchronize; every
+    container must equal the first. Returns (the container, its waves,
+    encode ms, decode ms)."""
+    data = corpus[:LM_CLI_BYTES]
+    path = os.path.join(work, "lm.bin")
+    with open(path, "wb") as f:
+        f.write(data)
+    first, enc, dec = None, [], []
+    for _ in range(LM_REPS):
+        rc, ms = sync_time(torch, lambda: cli.main(["compress", path, "--model", "lm", "-o",
+                                                    path + ".lac"]))
+        check(rc == 0, "cli compress --model lm")
+        enc.append(ms)
+        rc, ms = sync_time(torch, lambda: cli.main(["decompress", path + ".lac", "-o",
+                                                    path + ".out"]))
+        check(rc == 0, "cli decompress of the lm container")
+        dec.append(ms)
+        with open(path + ".out", "rb") as f:
+            check(f.read() == data, "lm: cli round trip differs from the corpus")
+        with open(path + ".lac", "rb") as f:
+            c = f.read()
+        check(first is None or c == first, "lm: a repeated cli compress wrote another container")
+        first = first or c
+    header, blocks = container_mod.read_container(first)
+    cfg = header.config
+    want = {"model_ref": LM_REF, "block_tokens": 512, "lanes": 64, "cache_grow": 128,
+            "window_mode": "slide", "slide_seg": 0, "max_seq": 1024}
+    got = {k: cfg[k] for k in want}
+    check(got == want and header.prob_bits == 16 and len(blocks) == 256,
+          f"lm container header {got}, prob_bits {header.prob_bits}, {len(blocks)} blocks")
+    waves = -(-len(blocks) // cfg["lanes"])
+    raw = sum(b.token_count == 0 for b in blocks)
+    print(f"lm (a) cli: {len(data)} -> {len(first)} bytes "
+          f"({8 * len(first) / len(data):.4f} bits/byte, random weights), {len(blocks)} blocks "
+          f"in {waves} waves, {raw} stored raw; header {got}, prob_bits {header.prob_bits}; "
+          f"{LM_REPS} round trips equal, {LM_REPS} containers equal", flush=True)
+    return first, waves, enc, dec
+
+
+def phase4_trained(ttrain, lm_api, smoke, root, corpus):
+    """(b): the shipped byte-6l checkpoint at the CLI's settings; returns its
+    bits/byte."""
+    path = os.path.join(root, smoke.LM_CHECKPOINT)
+    model = ttrain.load_checkpoint(path)
+    data = corpus[: smoke.LM_BPB_BYTES]
+    c = lm_api.lm_compress_bytes(data, model_ref="file:" + smoke.LM_CHECKPOINT, model=model,
+                                 **smoke.LM_CODING)
+    check(lm_api.lm_decompress_bytes(c, model=model) == data, "lm (b): byte-6l round trip")
+    bpb = 8 * len(c) / len(data)
+    rel = bpb / smoke.GOLDEN_LM_BPB - 1
+    print(f"lm (b) byte-6l: {len(data)} -> {len(c)} bytes, {bpb:.6f} bits/byte, lac_tpu "
+          f"{smoke.GOLDEN_LM_BPB:.6f} (relative {rel:+.2e}, tolerance {LM_BPB_TOL}); "
+          f"round trip equal", flush=True)
+    check(abs(rel) <= LM_BPB_TOL, f"lm (b): bits/byte {bpb} off GOLDEN_LM_BPB by {rel:+.3e}")
+    return bpb
+
+
+def phase4_determinism(torch, lm_api, lm_engine, registry, container_mod, corpus, c_a, model):
+    """(c): (a)'s first wave encoded twice, equal words equal to (a)'s
+    payloads; a CPU container refused on the card."""
+    cfg, params = model
+    _, blocks = container_mod.read_container(c_a)
+    lanes, bt = 64, 512
+    toks = np.frombuffer(corpus[: lanes * bt], dtype=np.uint8).reshape(lanes, bt)
+    tokens = torch.from_numpy(toks.astype(np.int64)).cuda()
+    lengths = torch.full((lanes,), bt, dtype=torch.int64, device="cuda")
+    w1, n1 = lm_engine.lm_encode(cfg, params, tokens, lengths, 16, 128)
+    w2, n2 = lm_engine.lm_encode(cfg, params, tokens, lengths, 16, 128)
+    check(torch.equal(w1, w2) and torch.equal(n1, n2), "lm (c): two encodes of wave 0 differ")
+    words, nwords = w1.cpu().numpy(), n1.cpu().numpy()
+    coded = 0
+    for j in range(lanes):
+        if blocks[j].token_count:
+            coded += 1
+            check(words[j, : nwords[j]].astype(">u4").tobytes() == blocks[j].payload,
+                  f"lm (c): wave 0 lane {j} differs from the cli container's block")
+    cpu_model = registry.resolve_lm(LM_REF, device="cpu")
+    c_cpu = lm_api.lm_compress_bytes(corpus[:256], model_ref=LM_REF, model=cpu_model,
+                                     block_tokens=64, lanes=4, device="cpu")
+    check(lm_api.lm_decompress_bytes(c_cpu, model=cpu_model, device="cpu") == corpus[:256],
+          "lm (c): the cpu container's round trip on the cpu")
+    try:
+        lm_api.lm_decompress_bytes(c_cpu)
+    except ValueError as e:
+        check("fingerprint mismatch" in str(e), f"lm (c): wrong refusal {e}")
+        refusal = str(e)
+    else:
+        raise RuntimeError("check failed: the card decoded the port's cpu container")
+    print(f"lm (c): wave 0 encoded twice, equal ({int(nwords.sum())} words), and equal to "
+          f"the cli container's {coded} coded blocks of wave 0; a cpu container "
+          f"(block 64, 4 lanes) round-trips on the cpu and the card refuses it: {refusal}",
+          flush=True)
+
+
+def lm_step_bound(torch, cfg, params, b: int, width: float) -> dict:
+    """Least ms of one lock-step decode step of ``b`` lanes at cache width
+    ``width``: every weight read once (the embedding table only its b rows),
+    the K/V cache read once and the new K/V written once, over
+    HBM_BYTES_PER_S; against the step's flops (2 a multiply-add of every
+    product) over the bf16 peak."""
+    es = torch.finfo(cfg.dtype).bits // 8
+    weights = sum(p.numel() * p.element_size() for name, p in params.named_parameters()
+                  if name not in ("embed", "pos_embed"))
+    emb = b * cfg.d_model * es * (2 if cfg.pos_embedding == "learned" else 1)
+    head = cfg.vocab * cfg.d_model * es if cfg.tie_embeddings else 0
+    kv_row = 2 * cfg.n_layers * b * cfg.n_kv_heads * cfg.head_dim * es
+    nbytes = weights + emb + head + kv_row * width + kv_row
+    macs = sum(p.numel() for name, p in params.named_parameters()
+               if p.dim() == 2 and name not in ("embed", "pos_embed")) * b
+    macs += (cfg.vocab * cfg.d_model * b) if cfg.tie_embeddings else 0
+    macs += 2 * cfg.n_layers * b * cfg.n_heads * (width + 1) * cfg.head_dim
+    t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
+    t_ops = 1e3 * 2 * macs / PEAK_FLOPS["bf16"]
+    return {"bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops
+            else "operations", "bytes": nbytes, "weights": weights,
+            "kv": kv_row * width, "flops": 2 * macs, "t_bytes": t_bytes, "t_ops": t_ops}
+
+
+def decode_steps(torch, lm_engine, vector, T, cfg, params, b: int, width: int, n: int):
+    """``n`` decode steps (model, integer CDF, rANS step) at cache width
+    ``width``, each with pos ``width - 1``, as a function of the cache."""
+    dev = params.embed.device
+    cache = T.init_cache(cfg, b, width, device=dev)
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    words = torch.randint(0, 1 << 32, (b, 514), generator=g, device=dev, dtype=torch.int64)
+    active = torch.ones((b,), dtype=torch.bool, device=dev)
+    state = [torch.zeros((b,), dtype=torch.int64, device=dev), vector.rans_decode_init(words)]
+
+    def run():
+        for _ in range(n):
+            cache["pos"] = width - 1
+            cdf, _ = lm_engine._step_cdf(cfg, params, cache, state[0], 16)
+            state[0], state[1] = vector._decode_step(state[1], cdf, 16, active)
+
+    return run
+
+
+def profile_step(torch, lm_engine, vector, T, cfg, params, b: int, width: int):
+    """One decode step at cache width ``width`` under torch.profiler, and 20
+    without it: (CUDA kernels, memcpy/memset activities, device busy ms of
+    the profiled step, host ms a step of the 20, host clock around a
+    synchronize)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    one = decode_steps(torch, lm_engine, vector, T, cfg, params, b, width, 1)
+    twenty = decode_steps(torch, lm_engine, vector, T, cfg, params, b, width, 20)
+    with lm_engine._coding(params.embed.device):
+        one()
+        _, ms = sync_time(torch, twenty)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            one()
+            torch.cuda.synchronize()
+    dev_events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    mem = [e for e in dev_events if e.name.lower().startswith(("memcpy", "memset"))]
+    busy_us = sum(getattr(e, "device_time", 0) or 0 for e in dev_events)
+    return len(dev_events) - len(mem), len(mem), busy_us / 1e3, ms / 20
+
+
+def phase4_numbers(torch, lm_engine, vector, T, container_mod, smoke, c_a, waves, enc, dec,
+                   peak, model, smi):
+    """(d): tokens/s of (a) (median of its LM_REPS timed round trips), ms a
+    decode step, the kernels a step launches, peak memory, the bound of a
+    step."""
+    cfg, params = model
+    kw = dict(smoke.LM_CODING)
+    b, bt = kw["lanes"], kw["block_tokens"]
+    _, blocks = container_mod.read_container(c_a)
+    # decode skips a wave whose blocks are all stored raw
+    coded_waves = sum(any(blk.token_count for blk in blocks[w0 : w0 + b])
+                      for w0 in range(0, len(blocks), b))
+    enc_ms, dec_ms = float(np.median(enc)), float(np.median(dec))
+    widths = [w for _, n, w in lm_engine._grown_segments(bt, kw["cache_grow"]) for _ in range(n)]
+    mean_w = float(np.mean(widths))
+    bound = lm_step_bound(torch, cfg, params, b, mean_w)
+    kernels, mem, busy_ms, step_ms = profile_step(torch, lm_engine, vector, T, cfg, params, b,
+                                                  int(round(mean_w)))
+    print(f"lm (d) [{smi}] byte-12l, {b} lanes, block {bt}, cache_grow {kw['cache_grow']}, "
+          f"through the cli: encode {LM_CLI_BYTES / (enc_ms / 1e3):.1f} tokens/s ({waves} "
+          f"waves, {enc_ms / (waves * bt):.3f} ms a step), decode "
+          f"{LM_CLI_BYTES / (dec_ms / 1e3):.1f} tokens/s ({coded_waves} of {waves} waves hold "
+          f"a coded block and run, {dec_ms / max(1, coded_waves * bt):.3f} ms a step); median "
+          f"of {LM_REPS}; encode ms {[round(x, 1) for x in enc]}, decode ms "
+          f"{[round(x, 1) for x in dec]}", flush=True)
+    print(f"lm (d) [{smi}] decode step at the schedule's mean cache width {mean_w:.0f}: "
+          f"{step_ms:.3f} ms (20 steps, host clock); under torch.profiler one step launches "
+          f"{kernels} CUDA kernels and {mem} memcpy/memset, device busy {busy_ms:.3f} ms "
+          f"({100 * (1 - busy_ms / step_ms):.1f} % of the unprofiled step idle)", flush=True)
+    print(f"lm (d) [{smi}] step bound {bound['bound_ms']:.4f} ms by {bound['bound_by']} "
+          f"(bytes {bound['bytes'] / 1e6:.1f} MB: weights {bound['weights'] / 1e6:.1f} MB, "
+          f"K/V at width {mean_w:.0f} {bound['kv'] / 1e6:.1f} MB, {bound['t_bytes']:.4f} ms; "
+          f"flops {bound['flops'] / 1e9:.2f} G, {bound['t_ops']:.4f} ms), "
+          f"{b / (bound['bound_ms'] / 1e3):.0f} tokens/s; the step is "
+          f"{step_ms / bound['bound_ms']:.1f}x the bound; max_memory_allocated over (a) "
+          f"{peak} bytes", flush=True)
+
 def path_kernels(codec: str) -> tuple:
     return (f"{codec}_intervals", "rans32_encode", f"{codec}_decode")
 
@@ -783,12 +1010,13 @@ def main() -> int:
     sys.path.insert(0, root)
     from lac_tpu_torch import cli, smoke
     from lac_tpu_torch import train as ttrain
+    from lac_tpu_torch.coder import vector
     from lac_tpu_torch.models import lm_registry
     from lac_tpu_torch.models import transformer as T
     from lac_tpu_torch.ops import _build
     from lac_tpu_torch.ops import attention as A
     from lac_tpu_torch.ops import rans_kernels as rk
-    from lac_tpu_torch.runtime import engine, turbo
+    from lac_tpu_torch.runtime import engine, lm_api, lm_engine, turbo
     from lac_tpu_torch.stream import container
 
     dev = torch.device("cuda", 0)
@@ -922,6 +1150,23 @@ def main() -> int:
                   f"{step_med:.1f} ms over steps 1-{TRAIN['steps'] - 1}, {tok} tokens a step); "
                   f"K10-K12 {kern_ms:.1f} ms a step ({100 * kern_ms / step_med:.1f} %); "
                   f"max_memory_allocated {train_peak} bytes", flush=True)
+
+        with Phase("phase 4: LM coding"):
+            rk.reset_launches()
+            A.reset_launches()
+            torch.cuda.reset_peak_memory_stats()
+            c_lm, waves, enc_ms, dec_ms = phase4_cli(torch, cli, container, corpus, work)
+            lm_peak = torch.cuda.max_memory_allocated()
+            lm_counts = {**rk.launches, **A.launches}
+            print(f"lm path launches of K1-K12: {lm_counts}", flush=True)
+            check(set(lm_counts.values()) == {0}, "the lm path launched a TPU-kernel port")
+            bpb_b = phase4_trained(ttrain, lm_api, smoke, root, corpus)
+            lm_model = lm_registry.resolve_lm(LM_REF)
+            phase4_determinism(torch, lm_api, lm_engine, lm_registry, container, corpus, c_lm,
+                               lm_model)
+            phase4_numbers(torch, lm_engine, vector, T, container, smoke, c_lm, waves, enc_ms,
+                           dec_ms, lm_peak, lm_model, smi)
+            print(f"lm (d) [{smi}] bits/byte of (b): {bpb_b:.6f}", flush=True)
 
         library_ms = {k: atimes[k]["library_ms"] for k in ATTN}
         kernels = [

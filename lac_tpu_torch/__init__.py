@@ -5,19 +5,32 @@ stays as it is). It imports ``torch`` and NumPy, never JAX and nothing of
 ``lac_tpu``. Its layout follows ``lac_tpu``'s subpackages:
 
 - ``stream``  - the .lac container (an independent copy of the format);
-- ``coder``   - the rANS-32/16 NumPy spec;
+- ``coder``   - the rANS-32/16 and rANS-64/32 NumPy specs, and the batched
+                rANS-64/32 coder of the LM path;
 - ``models``  - the turbo byte models as torch functions over lanes, and
-                the transformer LM's float prefill forward with its presets;
+                the transformer LM's float forward (prefill and cached
+                decode step) with its presets and model refs;
 - ``ops``     - the CUDA kernels (``csrc/``), their build and their wrappers,
                 each beside its plain PyTorch version;
-- ``runtime`` - the turbo byte path and the file-level API;
+- ``runtime`` - the turbo byte path, the LM coding engine and the file-level
+                APIs;
 - ``train``   - byte-LM training and the ``.npz`` checkpoint format;
-- ``cli``     - ``python -m lac_tpu_torch compress|decompress|info|verify|train``.
+- ``cli``     - ``python -m lac_tpu_torch compress|decompress|info|verify|recover|train``.
 
 Entry points run on the card unless the caller passes ``device="cpu"``.
 The turbo byte path is ported for all four of its codecs: order0n (the
-default), order1n, order2n and order0c, and training with its fused
-causal attention; see ROADMAP.md for the rest.
+default), order1n, order2n and order0c; training with its fused causal
+attention; and LM coding (``--model lm``) with the float forward for
+blocks within the model context; see ROADMAP.md for the rest.
+
+Importing the package sets ``CUBLAS_WORKSPACE_CONFIG`` (unless the caller
+has): cuBLAS reads it when its first call of the process sets up, and the
+LM coding calls run with deterministic algorithms, which require it
+(``runtime/lm_engine.py``, ``_coding``).
 """
+
+import os
+
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 __version__ = "0.1.0"

@@ -1,13 +1,17 @@
-"""Command-line interface: ``python -m lac_tpu_torch compress|decompress|info|verify|train``.
+"""Command-line interface: ``python -m lac_tpu_torch compress|decompress|info|verify|recover|train``.
 
-Ports the byte-model part of ``lac_tpu/cli.py``: ``compress`` (:24-70 for
-byte models), ``decompress`` (:73-90), ``verify`` (:93-108), ``info``
-(:225-237) and ``train`` (:183-222, arguments :310-322), with the same
-defaults (order0n, block 4096, rate 4; train: byte-6l, 2000 steps, batch
-32, seq 256, lr 3e-4). The ``--device`` option picks the device; its
-default is ``cuda``, and the CPU runs only with ``--device cpu``. As in the
-reference, ``train`` leaves the fused attention off. The LM models,
-``recover`` and ``bench`` come with later slices of the port.
+Ports ``lac_tpu/cli.py``: ``compress`` (:24-70; ``--model lm`` with every
+flag of :252-291 and the same defaults: ``prng:byte-12l:0``, block 512,
+64 lanes, prob_bits 16, cache_grow 128, window mode auto), ``decompress``
+(:73-90, an ``lm`` container to ``lm_decompress_bytes``), ``verify``
+(:93-108), ``recover`` (:109-149), ``info`` (:225-237) and ``train``
+(:183-222, arguments :310-322), with the same defaults (order0n, block
+4096, rate 4; train: byte-6l, 2000 steps, batch 32, seq 256, lr 3e-4).
+The ``--device`` option picks the device; its default is ``cuda``, and the
+CPU runs only with ``--device cpu``. As in the reference, ``train`` leaves
+the fused attention off. A flag whose mode is not ported (``--det8``,
+``--kv8``, ``--w8``, a mesh) exits naming its ROADMAP item; ``bench`` is
+ROADMAP A3.
 """
 
 from __future__ import annotations
@@ -17,22 +21,50 @@ import sys
 import time
 
 
-def _cmd_compress(args) -> int:
-    if args.model == "lm":
-        raise SystemExit("--model lm is not ported yet (slice 3 of the port)")
-    from .config import ByteCodingConfig
-    from .runtime.engine import compress_bytes
+def _lm_compress(args, data: bytes) -> bytes:
+    from .config import LMCodingConfig
+    from .runtime.lm_api import lm_compress_bytes
 
+    for flag, item in (("det8", "A8"), ("kv8", "A7"), ("w8", "A7")):
+        if getattr(args, flag):
+            raise SystemExit(f"--{flag} is not ported to lac_tpu_torch yet (ROADMAP {item})")
+    if args.mesh_data != 0 or args.mesh_model != 1:
+        raise SystemExit("--mesh-data / --mesh-model are not ported to lac_tpu_torch yet "
+                         "(ROADMAP A13)")
+    cfg = LMCodingConfig(
+        model_ref=args.model_ref,
+        block_tokens=args.block_tokens,
+        lanes=args.lanes,
+        prob_bits=args.prob_bits,
+        window=args.window,
+        overlap=args.overlap,
+        cache_grow=args.cache_grow,
+        window_mode=args.window_mode,
+        slide_seg=args.slide_seg,
+    )
+    try:
+        return lm_compress_bytes(data, device=args.device, **cfg.engine_kwargs())
+    except NotImplementedError as e:  # a block past the context: the windowed schedules
+        raise SystemExit(str(e)) from e
+
+
+def _cmd_compress(args) -> int:
     with open(args.file, "rb") as f:
         data = f.read()
     t0 = time.perf_counter()
-    cfg = ByteCodingConfig(
-        model_id=args.model,
-        block_size=args.block_size,
-        prob_bits=args.prob_bits,
-        rate=args.rate,
-    )
-    out = compress_bytes(data, device=args.device, **cfg.engine_kwargs())
+    if args.model == "lm":
+        out = _lm_compress(args, data)
+    else:
+        from .config import ByteCodingConfig
+        from .runtime.engine import compress_bytes
+
+        cfg = ByteCodingConfig(
+            model_id=args.model,
+            block_size=args.block_size,
+            prob_bits=args.prob_bits,
+            rate=args.rate,
+        )
+        out = compress_bytes(data, device=args.device, **cfg.engine_kwargs())
     dt = time.perf_counter() - t0
     dst = args.output or args.file + ".lac"
     with open(dst, "wb") as f:
@@ -46,12 +78,20 @@ def _cmd_compress(args) -> int:
 
 
 def _cmd_decompress(args) -> int:
-    from .runtime.engine import decompress_bytes
+    from .stream.container import read_container
 
     with open(args.file, "rb") as f:
         data = f.read()
     t0 = time.perf_counter()
-    out = decompress_bytes(data, device=args.device)
+    header, _ = read_container(data)
+    if header.model_id == "lm":
+        from .runtime.lm_api import lm_decompress_bytes
+
+        out = lm_decompress_bytes(data, device=args.device)
+    else:
+        from .runtime.engine import decompress_bytes
+
+        out = decompress_bytes(data, device=args.device)
     dt = time.perf_counter() - t0
     dst = args.output or (
         args.file[:-4] if args.file.endswith(".lac") else args.file + ".out"
@@ -77,6 +117,47 @@ def _cmd_verify(args) -> int:
     print(f"CORRUPT blocks (index, byte span): "
           f"{[(i, rep['block_spans'][i]) for i in rep['bad_blocks']]}")
     return 1
+
+
+def _cmd_recover(args) -> int:
+    """Recover the good prefix of a truncated or corrupt container: every
+    intact block before the first damaged one. Exit code 1 unless the
+    container was whole."""
+    import dataclasses
+
+    from .stream.container import scan_container, write_container
+
+    with open(args.file, "rb") as f:
+        data = f.read()
+    header, blocks, bad = scan_container(data)
+    if header.model_id == "lm":
+        from .runtime.lm_api import lm_decompress_prefix
+
+        out, rep = lm_decompress_prefix(data, device=args.device)
+    else:
+        from .runtime.engine import decompress_bytes
+
+        ngood = bad[0] if bad else len(blocks)
+        good = blocks[:ngood]
+        h2 = dataclasses.replace(header, original_len=sum(b.raw_len for b in good))
+        out = decompress_bytes(write_container(h2, good), device=args.device)
+        rep = {
+            "ok": not bad,
+            "recovered_blocks": ngood,
+            "total_blocks": len(blocks),
+            "bad_blocks": bad,
+            "recovered_bytes": len(out),
+            "original_len": header.original_len,
+        }
+    dst = args.output or args.file + ".recovered"
+    with open(dst, "wb") as f:
+        f.write(out)
+    print(
+        f"recovered {rep['recovered_blocks']}/{rep['total_blocks']} blocks "
+        f"({rep['recovered_bytes']}/{rep['original_len']} bytes) -> {dst}"
+        + (f"; bad blocks {rep['bad_blocks']}" if rep["bad_blocks"] else "")
+    )
+    return 0 if rep["ok"] else 1
 
 
 def _cmd_train(args) -> int:
@@ -135,11 +216,35 @@ def main(argv=None) -> int:
     c.add_argument("file")
     c.add_argument("-o", "--output")
     c.add_argument("--model", default="order0n",
-                   help="model id: order0n, order1n, order2n or order0c")
+                   help="model id: order0n, order1n, order2n, order0c or lm")
     c.add_argument("--block-size", type=int, default=1 << 12)
     c.add_argument("--prob-bits", type=int, default=16)
     c.add_argument("--rate", type=int, default=4,
                    help="adaptation rate base (turbo byte models)")
+    c.add_argument("--model-ref", default="prng:byte-12l:0",
+                   help="LM predictor ref (prng:<preset>:<seed> or file:<path>)")
+    c.add_argument("--block-tokens", type=int, default=512)
+    c.add_argument("--lanes", type=int, default=64)
+    c.add_argument("--window", type=int, default=None,
+                   help="LM context window cap in tokens (default: model context)")
+    c.add_argument("--cache-grow", type=int, default=128, metavar="B",
+                   help="KV-cache growth bucket for LM coding (0 = fixed width; "
+                        "the schedule is recorded in the container)")
+    c.add_argument("--overlap", type=int, default=2,
+                   help="window re-prime keep fraction denominator")
+    c.add_argument("--window-mode", choices=("auto", "reprime", "slide"), default="auto",
+                   help="blocks past the model context (ROADMAP A6); auto = slide "
+                        "for rope models, recorded resolved in the container")
+    c.add_argument("--slide-seg", type=int, default=None, metavar="S",
+                   help="float slide-mode segment length (recorded in the container)")
+    c.add_argument("--w8", action="store_true", help="int8 weights (ROADMAP A7)")
+    c.add_argument("--kv8", action="store_true", help="int8 KV cache (ROADMAP A7)")
+    c.add_argument("--det8", action="store_true",
+                   help="integer-reduction LM forward (ROADMAP A8)")
+    c.add_argument("--mesh-data", type=int, default=0,
+                   help="device mesh data-parallel span (ROADMAP A13)")
+    c.add_argument("--mesh-model", type=int, default=1,
+                   help="device mesh tensor-parallel span (ROADMAP A13)")
     c.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     c.set_defaults(fn=_cmd_compress)
 
@@ -156,6 +261,13 @@ def main(argv=None) -> int:
     v = sub.add_parser("verify", help="check per-block checksums of a .lac container")
     v.add_argument("file")
     v.set_defaults(fn=_cmd_verify)
+
+    r = sub.add_parser("recover",
+                       help="decode the good prefix of a truncated/corrupt container")
+    r.add_argument("file")
+    r.add_argument("-o", "--output")
+    r.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    r.set_defaults(fn=_cmd_recover)
 
     t = sub.add_parser("train", help="train a byte LM on FILE for the lm coding path")
     t.add_argument("file")

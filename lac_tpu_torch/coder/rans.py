@@ -1,11 +1,28 @@
-"""rANS-32/16 bitstream spec, NumPy host implementation.
+"""rANS bitstream specs, NumPy host implementations.
 
-Ports the rANS-32/16 part of ``lac_tpu/coder/rans.py:57-65, 88-128``
-(``RANS32_L``, ``rans32_encode_np``, ``rans32_decode_np``). These are the
-integer spec that the port's kernels and their plain versions are checked
-against; every implementation must match them bit for bit.
+Ports ``lac_tpu/coder/rans.py:52-151``: the rANS-64/32 spec of the LM path
+(``RANS_L``, ``encode_capacity``, ``rans_encode_np``, ``rans_decode_np``)
+and the rANS-32/16 spec of the turbo byte codecs (``RANS32_L``,
+``rans32_encode_np``, ``rans32_decode_np``). These are the integer specs
+that the port's coders, kernels and plain versions are checked against;
+every implementation must match them bit for bit.
 
-Spec (u32 state, 16-bit renormalisation words, ``prob_bits <= 16``):
+rANS-64/32 (u64 state, 32-bit renormalisation words, ``prob_bits <= 31``):
+
+- state invariant ``x in [RANS_L, 2**63)``, encode starts at ``x = RANS_L``;
+- encode visits symbols in REVERSE order; per symbol, if
+  ``x >= ((RANS_L >> prob_bits) << 32) * freq`` emit ``x & 0xFFFFFFFF`` and
+  shift right 32 (at most once), then
+  ``x = ((x // freq) << prob_bits) + x % freq + cdf_lo``;
+- the final state is pushed as two words, low 32 then high 32, and the
+  word list is stored in decode order (the reverse of emission order), so a
+  decoder reads high, low to seed ``x``;
+- decode: ``slot = x & (2**prob_bits - 1)``, find ``s`` with
+  ``cdf[s] <= slot < cdf[s+1]``, ``x = freq * (x >> prob_bits) + slot - cdf[s]``,
+  and refill one word when ``x < RANS_L``.
+- at most ``T + 2`` words a stream of T symbols (``encode_capacity``).
+
+rANS-32/16 (u32 state, 16-bit renormalisation words, ``prob_bits <= 16``):
 
 - state invariant ``x in [RANS32_L, 2**32)``, encode starts at ``x = RANS32_L``;
 - encode visits symbols in REVERSE order; per symbol, if
@@ -22,10 +39,63 @@ from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["RANS32_L", "rans32_encode_np", "rans32_decode_np"]
+__all__ = ["RANS_L", "encode_capacity", "rans_encode_np", "rans_decode_np",
+           "RANS32_L", "rans32_encode_np", "rans32_decode_np"]
 
+RANS_L = 1 << 31
+_MASK32 = (1 << 32) - 1
 RANS32_L = 1 << 16
 _MASK16 = (1 << 16) - 1
+
+
+def encode_capacity(num_symbols: int) -> int:
+    """Guaranteed-sufficient rANS-64/32 word capacity for ``num_symbols``."""
+    return num_symbols + 2
+
+
+def rans_encode_np(cdf_lo: np.ndarray, freq: np.ndarray, prob_bits: int) -> np.ndarray:
+    """rANS-64/32 single-stream encode. ``cdf_lo[t]``/``freq[t]`` are the
+    coded symbol's interval at position ``t`` (forward order). Returns
+    uint32 words in decode order."""
+    assert 1 <= prob_bits <= 31
+    x = RANS_L
+    words: list[int] = []
+    for t in range(len(freq) - 1, -1, -1):
+        f = int(freq[t])
+        lo = int(cdf_lo[t])
+        x_max = ((RANS_L >> prob_bits) << 32) * f
+        if x >= x_max:
+            words.append(x & _MASK32)
+            x >>= 32
+        x = ((x // f) << prob_bits) + (x % f) + lo
+    words.append(x & _MASK32)
+    words.append((x >> 32) & _MASK32)
+    return np.array(words[::-1], dtype=np.uint32)
+
+
+def rans_decode_np(
+    words: np.ndarray, num_symbols: int, cdf_provider, prob_bits: int
+) -> list[int]:
+    """rANS-64/32 single-stream decode. ``cdf_provider(t, out)`` returns the
+    step-``t`` exclusive-prefix CDF (length V+1, total ``2**prob_bits``); it
+    may depend on the symbols decoded so far (the LM engine feeds its model
+    there)."""
+    assert 1 <= prob_bits <= 31
+    mask = (1 << prob_bits) - 1
+    x = (int(words[0]) << 32) | int(words[1])
+    pos = 2
+    out: list[int] = []
+    for t in range(num_symbols):
+        cdf = cdf_provider(t, out)
+        slot = x & mask
+        s = int(np.searchsorted(cdf, slot, side="right")) - 1
+        f = int(cdf[s + 1]) - int(cdf[s])
+        x = f * (x >> prob_bits) + slot - int(cdf[s])
+        if x < RANS_L:
+            x = (x << 32) | int(words[pos])
+            pos += 1
+        out.append(s)
+    return out
 
 
 def rans32_encode_np(cdf_lo: np.ndarray, freq: np.ndarray, prob_bits: int) -> np.ndarray:

@@ -1,20 +1,32 @@
-"""LM presets: name -> LMConfig.
+"""LM model registry: a container's ``model_ref`` -> (LMConfig, params).
 
-Ports ``PRESETS`` of ``lac_tpu/models/lm_registry.py:28-60``, the
-architectures the CLI's ``train --preset`` and the coding path name.
-``resolve_lm``'s ``prng:<preset>:<seed>`` references need ``jax.random``'s
-bits to rebuild a container's model, and come with the LM coding slice
-(ROADMAP A5).
+Ports ``lac_tpu/models/lm_registry.py``: ``PRESETS`` (:28-60), the
+architectures the CLI's ``train --preset`` and the coding path name, and
+``resolve_lm`` (:63-89). A container must be decodable from its own
+metadata, so every LM predictor is named by a reference string:
+
+- ``prng:<preset>:<seed>``: a random-init model from the port's own
+  ``transformer.init_params(cfg, seed)``. Its bits are torch's, not
+  ``jax.random``'s, so a ``prng:`` container names weights that only the
+  port rebuilds; ``lac_tpu`` reads the same string as other weights. The
+  fingerprint's stack tag (``runtime.lm_engine.lm_fingerprint``) makes
+  every such cross-stack decode fail loudly.
+- ``file:<path>``: a ``.npz`` checkpoint through the port's
+  ``train.load_checkpoint``; the same file holds the same weights in both
+  packages.
+- ``hf:<path>``: the HuggingFace loader, ROADMAP A11, raises.
 """
 
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
 from . import transformer as tfm
-from .transformer import LMConfig
+from .transformer import LMConfig, init_params
 
-__all__ = ["PRESETS"]
+__all__ = ["PRESETS", "resolve_lm"]
 
 PRESETS = {
     "tiny": lambda: tfm.tiny_config(vocab=256, max_seq=256),
@@ -43,3 +55,31 @@ PRESETS = {
     "llama2-7b": lambda: tfm.LLAMA2_7B,
     "llama3-8b": lambda: tfm.LLAMA3_8B,
 }
+
+
+def resolve_lm(model_ref: str, max_seq: int | None = None, device=None):
+    """model_ref -> (LMConfig, Transformer) on ``device`` (cuda unless the
+    caller passes ``"cpu"``). ``max_seq`` overrides the context."""
+    from ..utils.device import resolve_device
+
+    dev = resolve_device(device)
+    kind, _, rest = model_ref.partition(":")
+    if kind == "prng":
+        preset, _, seed = rest.partition(":")
+        if preset not in PRESETS:
+            raise KeyError(f"unknown preset '{preset}'; known: {sorted(PRESETS)}")
+        cfg = PRESETS[preset]()
+        if max_seq is not None:
+            cfg = dataclasses.replace(cfg, max_seq=max_seq)
+        return cfg, init_params(cfg, int(seed or 0), device=dev)
+    if kind == "hf":
+        raise NotImplementedError(
+            "hf: model refs are not ported to lac_tpu_torch yet (ROADMAP A11)")
+    if kind == "file":
+        from ..train import load_checkpoint
+
+        cfg, params = load_checkpoint(rest, device=dev)
+        if max_seq is not None:
+            cfg = dataclasses.replace(cfg, max_seq=max_seq)
+        return cfg, params
+    raise KeyError(f"unknown model_ref kind '{kind}' (want prng:, hf: or file:)")

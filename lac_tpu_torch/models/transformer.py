@@ -1,16 +1,17 @@
 """Decoder-only transformer LM: the float prefill forward, as ``nn.Module``s.
 
-Ports the float prefill path of ``lac_tpu/models/transformer.py``:
-``LMConfig`` (:67-153), ``tiny_config`` (:155-163), the presets
-``GPT2_SMALL``, ``TINYLLAMA_1B``, ``LLAMA2_7B`` and ``LLAMA3_8B``
-(:166-183), ``init_params`` (:191-237), ``_norm`` (:376-388), ``_rope``
-(:401-430), ``_act`` (:460), ``_mlp`` (float branch :979-993), the prefill part of
-``_attention`` (:771-868) with ``_FUSED`` (:703), ``_splash_prefill``
-(:706-722), ``_bf16s_prefill`` (:725-743) and ``_flash_prefill``
-(:746-768), and ``forward`` (:994-1078) with ``prefill=True``. Both
-GPT-2-style (learned positions, LayerNorm, GELU, biases, tied head) and
-Llama-style (RoPE, RMSNorm, SiLU-GLU, GQA, no biases) models, as in the
-reference.
+Ports the float path of ``lac_tpu/models/transformer.py``: ``LMConfig``
+(:67-153), ``tiny_config`` (:155-163), the presets ``GPT2_SMALL``,
+``TINYLLAMA_1B``, ``LLAMA2_7B`` and ``LLAMA3_8B`` (:166-183),
+``init_params`` (:191-237), ``init_cache`` (:336-375, float branch),
+``_norm`` (:376-388), ``_rope`` (:401-430), ``_act`` (:460), ``_mlp``
+(float branch :979-993), ``_attention`` (:771-949, float branches) with
+``_FUSED`` (:703), ``_splash_prefill`` (:706-722), ``_bf16s_prefill``
+(:725-743) and ``_flash_prefill`` (:746-768), and ``forward``
+(:994-1116, float branch): the prefill (``prefill=True``) and the cached
+decode step (``prefill=False``). Both GPT-2-style (learned positions,
+LayerNorm, GELU, biases, tied head) and Llama-style (RoPE, RMSNorm,
+SiLU-GLU, GQA, no biases) models, as in the reference.
 
 Numerics follow the reference's explicit types: activations in
 ``cfg.dtype``; a projection is a ``cfg.dtype`` product with f32
@@ -26,9 +27,18 @@ hold its parameters in any float type (training keeps an f32 master copy):
 the forward casts each one to ``cfg.dtype`` where it is used, so the
 gradients reach the parameters as they are stored.
 
-Only the prefill forward is ported. The cached decode step
-(``prefill=False``) and the det8, w8, kv8 and slide modes raise
-``NotImplementedError`` naming the ROADMAP item that ports them.
+The cached decode step keeps the reference's structure, which the LM
+coding path's bits depend on: queries score the cache (f32, times the
+scale, ``-inf`` at slots ``w >= pos``) and the call's fresh K/V (causal
+within the call) under ONE softmax over the concatenated axis; the cache
+and fresh probabilities are cast to ``cfg.dtype`` apart, run through two
+products summed in f32, then cast. The cache is ``[L, B, W, KVH, Dh]`` in
+``cfg.dtype`` with a shared host-side ``pos``; each layer writes its fresh
+K/V at ``pos`` in place after its own reads (the reference writes all
+layers at once after the layer scan; a layer reads only its own slice and
+masks ``w >= pos``, so the two give the same values). The det8, w8, kv8
+and slide modes raise ``NotImplementedError`` naming the ROADMAP item that
+ports them.
 
 Training-only fused attention: ``forward(..., fused=True)`` routes the
 attention of an MHA model (``n_heads == n_kv_heads``) through
@@ -56,6 +66,7 @@ __all__ = [
     "Block",
     "Transformer",
     "init_params",
+    "init_cache",
     "forward",
     "tiny_config",
     "GPT2_SMALL",
@@ -249,19 +260,33 @@ def init_params(cfg: LMConfig, seed: int = 0, device=None) -> Transformer:
     return model.to(device) if device is not None else model
 
 
+def init_cache(cfg: LMConfig, batch: int, window: int | None = None, device=None) -> dict:
+    """KV cache over the context window: ``k`` and ``v`` ``[L, B, W, KVH,
+    Dh]`` in ``cfg.dtype`` (zeros), and ``pos``, the shared write cursor
+    (all lanes run lock-step), a host int. ``window`` (default
+    ``cfg.max_seq``, capped there) sizes the cache: every step reads all of
+    it, so the coding engine sizes it to the block or grows it."""
+    _check_float_path(cfg)
+    w = cfg.max_seq if window is None else min(window, cfg.max_seq)
+    shape = (cfg.n_layers, batch, w, cfg.n_kv_heads, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=cfg.dtype, device=device),
+            "v": torch.zeros(shape, dtype=cfg.dtype, device=device),
+            "pos": 0}
+
+
 # --------------------------------------------------------------------------
 # Forward
 # --------------------------------------------------------------------------
 
 
 def _c(cfg: LMConfig, p: torch.Tensor) -> torch.Tensor:
-    """A parameter in ``cfg.dtype`` (no copy when it is stored so)."""
-    return p.to(cfg.dtype)
+    """A parameter in ``cfg.dtype`` (itself when it is stored so)."""
+    return p if p.dtype == cfg.dtype else p.to(cfg.dtype)
 
 
 def _act(cfg: LMConfig, x: torch.Tensor) -> torch.Tensor:
     """Round an activation to the model dtype (the float path's cast)."""
-    return x.to(cfg.dtype)
+    return x if x.dtype == cfg.dtype else x.to(cfg.dtype)
 
 
 def _f32(x: float) -> float:
@@ -271,29 +296,40 @@ def _f32(x: float) -> float:
 
 
 def _norm(cfg: LMConfig, p: Norm, x: torch.Tensor) -> torch.Tensor:
+    # a cfg.dtype operand of an f32 op is widened exactly inside the op
+    # (type promotion), as an explicit f32 cast would widen it
     xf = x.float()
     eps = _f32(cfg.norm_eps)
-    scale = _c(cfg, p.scale).float()
+    scale = _c(cfg, p.scale)
     if cfg.norm == "rmsnorm":
         xf = xf * torch.rsqrt((xf * xf).mean(-1, keepdim=True) + eps)
         return _act(cfg, xf * scale)
     xc = xf - xf.mean(-1, keepdim=True)
     xf = xc * torch.rsqrt((xc * xc).mean(-1, keepdim=True) + eps)
-    return _act(cfg, xf * scale + _c(cfg, p.bias).float())
+    return _act(cfg, xf * scale + _c(cfg, p.bias))
+
+
+def _rope_tables(cfg: LMConfig, positions: torch.Tensor):
+    """(cos, sin) [1, S, 1, Dh/2] f32 of the rotary angles at ``positions``
+    [S]; the same for every layer, so a step computes them once."""
+    half = cfg.head_dim // 2
+    coef = -np.log(np.float32(cfg.rope_theta)) * np.float32(2.0) / np.float32(cfg.head_dim)
+    freqs = torch.exp(torch.arange(0, half, dtype=f32, device=positions.device) * float(coef))
+    ang = positions.to(f32)[:, None] * freqs[None, :]  # [S, half]
+    return torch.cos(ang)[None, :, None, :], torch.sin(ang)[None, :, None, :]
+
+
+def _rope_apply(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    """Rotary embedding, half-split. x: [B, S, H, Dh]."""
+    half = x.shape[-1] // 2
+    x1, x2 = x[..., :half], x[..., half:]  # widened to f32 by the products
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
 
 
 def _rope(cfg: LMConfig, x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
     """Rotary embedding, half-split. x: [B, S, H, Dh]; positions: [S]."""
-    hd = x.shape[-1]
-    half = hd // 2
-    coef = -np.log(np.float32(cfg.rope_theta)) * np.float32(2.0) / np.float32(hd)  # f32
-    freqs = torch.exp(torch.arange(0, half, dtype=f32, device=x.device) * float(coef))
-    ang = positions.to(f32)[:, None] * freqs[None, :]  # [S, half]
-    cos = torch.cos(ang)[None, :, None, :]
-    sin = torch.sin(ang)[None, :, None, :]
-    x1, x2 = x[..., :half].float(), x[..., half:].float()
-    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
-    return out.to(x.dtype)
+    return _rope_apply(x, *_rope_tables(cfg, positions))
 
 
 def _dot(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -351,20 +387,34 @@ def _fused_prefill(cfg: LMConfig, q, k, v, scale):
     return out.transpose(1, 2).to(cfg.dtype)
 
 
-def _attention(cfg: LMConfig, p: Block, x: torch.Tensor, fused: bool = False) -> torch.Tensor:
-    """One layer's causal self-attention over the block (prefill)."""
+def _qkv(cfg: LMConfig, p: Block, x: torch.Tensor):
+    """The layer's projections of x [B, S, D]: q [B, S, H, Dh], k and v
+    [B, S, KVH, Dh], in cfg.dtype."""
     b, s, _ = x.shape
-    h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
 
     def proj(w, bias_name, heads):
         y = _dot(x, _c(cfg, getattr(p, w)))
         if cfg.use_bias:
             y = y + _c(cfg, getattr(p, bias_name))
-        return y.reshape(b, s, heads, hd)
+        return y.reshape(b, s, heads, cfg.head_dim)
 
-    q = proj("wq", "bq", h)
-    k = proj("wk", "bk", kvh)
-    v = proj("wv", "bv", kvh)
+    return proj("wq", "bq", cfg.n_heads), proj("wk", "bk", cfg.n_kv_heads), \
+        proj("wv", "bv", cfg.n_kv_heads)
+
+
+def _out_proj(cfg: LMConfig, p: Block, out: torch.Tensor) -> torch.Tensor:
+    """The attention output [B, S, H*Dh] through ``wo``."""
+    y = _dot(out, _c(cfg, p.wo))
+    if cfg.use_bias:
+        y = y + _c(cfg, p.bo)
+    return y
+
+
+def _attention(cfg: LMConfig, p: Block, x: torch.Tensor, fused: bool = False) -> torch.Tensor:
+    """One layer's causal self-attention over the block (prefill)."""
+    b, s, _ = x.shape
+    h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q, k, v = _qkv(cfg, p, x)
     if cfg.pos_embedding == "rope":
         positions = torch.arange(s, dtype=torch.int32, device=x.device)
         q = _rope(cfg, q, positions)
@@ -385,9 +435,52 @@ def _attention(cfg: LMConfig, p: Block, x: torch.Tensor, fused: bool = False) ->
         probs = torch.softmax(sf, dim=-1)
         out = _dot(probs.to(cfg.dtype), vg)  # [B, KVH, R, S, Dh]
         out = out.permute(0, 3, 1, 2, 4)
-    y = _dot(out.reshape(b, s, h * hd), _c(cfg, p.wo))
-    if cfg.use_bias:
-        y = y + _c(cfg, p.bo)
+    return _out_proj(cfg, p, out.reshape(b, s, h * hd))
+
+
+def _attention_cached(cfg: LMConfig, p: Block, x: torch.Tensor, cache: dict, layer: int,
+                      rope, keep) -> torch.Tensor:
+    """One layer's attention for S tokens at ``cache["pos"]`` against the
+    layer's cache slice and the call's fresh K/V (the reference's
+    ``prefill=False`` float branch), then the fresh K/V written into the
+    slice at ``pos``. ``rope``: the call's (cos, sin), or None. ``keep``:
+    the causal mask of the fresh scores [R*S, S], or None at S 1, where it
+    keeps everything."""
+    b, s, _ = x.shape
+    h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    pos = cache["pos"]
+    ck, cv = cache["k"][layer], cache["v"][layer]  # [B, W, KVH, Dh]
+    w_len = ck.shape[1]
+    q, k, v = _qkv(cfg, p, x)
+    if rope is not None:  # q and k rotated as one tensor: the same values
+        q, k = _rope_apply(torch.cat([q, k], dim=2), *rope).split([h, kvh], dim=2)
+    scale = _scale_f32(hd)
+    # GQA: the query heads of a KV head fold into the rows, [B, KVH, R*S, Dh]
+    # in (r, s) order; every product below is one batched matmul over
+    # (B, KVH) on f32 upcasts, with each operand made contiguous first
+    rep = h // kvh
+
+    def heads_f32(t):  # [B, N, KVH, ...] -> contiguous f32 [B, KVH, N, ...]
+        return t.transpose(1, 2).to(f32, memory_format=torch.contiguous_format)
+
+    qf = heads_f32(q.reshape(b, s, kvh, rep, hd)).transpose(2, 3).reshape(b, kvh, rep * s, hd)
+    ckf, cvf = heads_f32(ck), heads_f32(cv)
+    kf, vf = heads_f32(k), heads_f32(v)
+    # the cache's scores [.., W] and the fresh ones [.., S], then the scale
+    scores = torch.cat([torch.matmul(qf, ckf.transpose(-1, -2)),
+                        torch.matmul(qf, kf.transpose(-1, -2))], dim=-1) * scale
+    scores[..., pos:w_len] = float("-inf")  # slots w >= pos hold no token yet
+    if keep is not None:
+        scores[..., w_len:].masked_fill_(~keep, float("-inf"))
+    # one softmax over both; the probabilities rounded to cfg.dtype, then
+    # the cache's and the fresh products summed in f32
+    probs = torch.softmax(scores, dim=-1).to(cfg.dtype).float()
+    out = torch.matmul(probs[..., :w_len], cvf) + torch.matmul(probs[..., w_len:], vf)
+    out = out.to(cfg.dtype).reshape(b, kvh, rep, s, hd).permute(0, 3, 1, 2, 4)
+    y = _out_proj(cfg, p, out.reshape(b, s, h * hd))
+    # after this layer's reads: the fresh K/V into its slice at pos
+    cache["k"][layer, :, pos:pos + s] = k
+    cache["v"][layer, :, pos:pos + s] = v
     return y
 
 
@@ -397,7 +490,7 @@ def _mlp(cfg: LMConfig, p: Block, x: torch.Tensor) -> torch.Tensor:
         up = up + _c(cfg, p.b_up)
     if cfg.act == "silu_glu":
         gate = _dot_f32(x, _c(cfg, p.w_gate))
-        up = (F.silu(gate) * up.float()).to(cfg.dtype)
+        up = (F.silu(gate) * up).to(cfg.dtype)  # up widened to f32 in the product
     else:
         up = F.gelu(up.float(), approximate="tanh").to(cfg.dtype)
     y = _dot(up, _c(cfg, p.w_down))
@@ -411,25 +504,69 @@ def _layer(cfg: LMConfig, p: Block, x: torch.Tensor, fused: bool) -> torch.Tenso
     return _act(cfg, x + _mlp(cfg, p, _norm(cfg, p.ln2, x)))
 
 
-def forward(cfg: LMConfig, params: Transformer, tokens: torch.Tensor, prefill: bool = False,
-            remat: bool = False, fused: bool = False) -> torch.Tensor:
-    """Run S tokens from an empty context; returns logits [B, S, vocab] f32.
+def _head(cfg: LMConfig, params: Transformer, x: torch.Tensor) -> torch.Tensor:
+    """Final norm and the output head: f32 logits [B, S, vocab]."""
+    x = _norm(cfg, params.final_norm, x)
+    embed = _c(cfg, params.embed)
+    wh = embed[: cfg.vocab].T if cfg.tie_embeddings else _c(cfg, params.head)
+    return _dot_f32(x, wh)
+
+
+def _forward_cached(cfg: LMConfig, params: Transformer, tokens: torch.Tensor, cache: dict):
+    b, s = tokens.shape
+    pos = cache["pos"]
+    if pos + s > cache["k"].shape[2]:
+        raise ValueError(f"{s} tokens at pos {pos} overrun the cache width "
+                         f"{cache['k'].shape[2]}")
+    tokens = tokens.long()
+    positions = torch.arange(pos, pos + s, dtype=torch.int32, device=tokens.device)
+    x = _act(cfg, _c(cfg, params.embed)[tokens])  # [B, S, D]
+    rope = keep = None
+    if cfg.pos_embedding == "learned":
+        x = x + _c(cfg, params.pos_embed)[positions.long()][None, :, :]
+    else:
+        rope = _rope_tables(cfg, positions)
+    if s > 1:  # rows in (r, s) order, causal within the call
+        keep = torch.ones(s, s, dtype=torch.bool, device=tokens.device).tril()
+        keep = keep.repeat(cfg.n_heads // cfg.n_kv_heads, 1)
+    for layer, lp in enumerate(params.layers):
+        h = _attention_cached(cfg, lp, _norm(cfg, lp.ln1, x), cache, layer, rope, keep)
+        x = _act(cfg, x + h)
+        x = _act(cfg, x + _mlp(cfg, lp, _norm(cfg, lp.ln2, x)))
+    cache["pos"] = pos + s
+    return _head(cfg, params, x), cache
+
+
+def forward(cfg: LMConfig, params: Transformer, tokens: torch.Tensor, cache: dict | None = None,
+            prefill: bool = False, remat: bool = False, fused: bool = False):
+    """Run S tokens through the model.
 
     tokens: [B, S] integer (values in [0, vocab]; ``vocab`` = BOS row), on
-    the parameters' device. Only ``prefill=True`` is ported (the reference's
-    forward from position 0 with an empty cache, whose cache output the
-    prefill callers drop); the cached step raises.
+    the parameters' device.
+
+    ``prefill=False`` (the reference's default): the cached decode step.
+    The S tokens sit at positions ``cache["pos"] + arange(S)`` after the
+    cache's; returns (logits [B, S, vocab] f32, cache), the cache written at
+    ``pos`` in place and ``pos`` advanced by S. ``cache`` comes from
+    ``init_cache``.
+
+    ``prefill=True``: from position 0 with an empty context; returns the
+    logits alone (the reference's prefill callers drop its cache; ``cache``
+    is ignored).
 
     ``remat=True``: recompute each layer in the backward pass
     (``torch.utils.checkpoint``, non-reentrant), as ``jax.checkpoint`` does
     in the reference; only the layers' inputs are kept.
 
-    ``fused=True``: TRAINING-ONLY, route an MHA model's attention through
-    ``_FUSED["impl"]`` (module docstring); different float summation order
-    from the exact branch, so coding paths must not set it."""
-    if not prefill:
-        raise _not_ported("forward(prefill=False), the cached decode step", "A5")
+    ``fused=True``: TRAINING-ONLY, route an MHA model's prefill attention
+    through ``_FUSED["impl"]`` (module docstring); different float
+    summation order from the exact branch, so coding paths must not set
+    it."""
     _check_float_path(cfg)
+    if not prefill:
+        if cache is None:
+            raise ValueError("forward(prefill=False) needs a cache from init_cache")
+        return _forward_cached(cfg, params, tokens, cache)
     tokens = tokens.long()
     x = _act(cfg, _c(cfg, params.embed)[tokens])  # [B, S, D]
     if cfg.pos_embedding == "learned":
@@ -440,7 +577,4 @@ def forward(cfg: LMConfig, params: Transformer, tokens: torch.Tensor, prefill: b
             x = checkpoint(_layer, cfg, lp, x, fused, use_reentrant=False)
         else:
             x = _layer(cfg, lp, x, fused)
-    x = _norm(cfg, params.final_norm, x)
-    embed = _c(cfg, params.embed)
-    wh = embed[: cfg.vocab].T if cfg.tie_embeddings else _c(cfg, params.head)
-    return _dot_f32(x, wh)
+    return _head(cfg, params, x)

@@ -3,10 +3,12 @@
 Ports the turbo part of ``lac_tpu/runtime/engine.py``: ``compress_bytes``
 (:125-155), ``decompress_bytes`` (:158-185) and ``decompress_blocks``
 (:187-212) for the four turbo model ids (order0c, order0n, order1n,
-order2n), with the ``min(block_size, 1 << 12)`` clamp of :135-140. A container is parsed once: the reference parses it
-here for the codec and again in ``turbo_decompress``. The XLA-scan models
-(codec rANS-64) are a later slice of the port and raise
-``NotImplementedError`` here.
+order2n), with the ``min(block_size, 1 << 12)`` clamp of :135-140. A
+container is parsed once: the reference parses it here for the codec and
+again in ``turbo_decompress``. The XLA-scan models (codec rANS-64) are a
+later slice of the port and raise ``NotImplementedError`` here; an LM
+container (also rANS-64) is refused with the name of
+``runtime.lm_api.lm_decompress_bytes``, which decodes it.
 """
 
 from __future__ import annotations
@@ -46,6 +48,9 @@ def compress_bytes(
 
 
 def _codec_check(header) -> None:
+    if header.model_id == "lm":
+        raise ValueError("an LM container: decode it with "
+                         "lac_tpu_torch.runtime.lm_api.lm_decompress_bytes")
     if header.codec == CODEC_RANS64:
         raise _scan_not_ported(f"codec {header.codec} (model {header.model_id!r})")
     if header.codec != CODEC_RANS32:

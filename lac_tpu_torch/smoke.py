@@ -17,6 +17,22 @@ windows of 769 bytes of the first MiB of the corpus.
 ``tests/test_torch_train.py`` recomputes it with ``lac_tpu``, and
 ``chip_smoke.py`` holds the port's loss on the card to it, with the fused
 attention kernels and with the exact branch.
+
+``GOLDEN_LM_BPB`` is the LM coding slice's golden: the bits per byte
+(container bytes x 8 over input bytes) of ``lac_tpu``'s container for the
+first ``LM_BPB_BYTES`` (32 KiB) of the corpus, coded on the CPU with the
+shipped byte-6l checkpoint at ``LM_CODING`` (the CLI's LM defaults: block
+512, 64 lanes, prob_bits 16, cache_grow 128, window mode auto). The
+command that produced it, on the CPU, is ``JAX_PLATFORMS=cpu python -c``
+with the body of ``tests/test_torch_lm_golden.py``'s test and a print:
+``c = lac_tpu.runtime.lm_api.lm_compress_bytes(data, model_ref="file:" +
+LM_CHECKPOINT, model=lac_tpu.train.load_checkpoint(LM_CHECKPOINT),
+**LM_CODING)`` for ``data = smoke_corpus(LM_BPB_BYTES)``, then
+``print(8 * len(c) / len(data))``.
+
+``tests/test_torch_lm_golden.py`` recomputes it with ``lac_tpu``, and
+``chip_smoke.py`` holds the port's container on the card to it within 1 %:
+float logits differ across stacks, so the port's bits differ a little.
 """
 
 from __future__ import annotations
@@ -27,8 +43,8 @@ import zlib
 
 import numpy as np
 
-__all__ = ["SMOKE_BYTES", "GOLDEN", "GOLDEN_LM", "LM_CHECKPOINT", "smoke_corpus",
-           "container_digest", "lm_windows"]
+__all__ = ["SMOKE_BYTES", "GOLDEN", "GOLDEN_LM", "LM_CHECKPOINT", "GOLDEN_LM_BPB",
+           "LM_BPB_BYTES", "LM_CODING", "smoke_corpus", "container_digest", "lm_windows"]
 
 SMOKE_BYTES = 32 << 20  # bench.py's corpus size
 
@@ -50,6 +66,13 @@ GOLDEN = {
 GOLDEN_LM = {"byte6l-pysrc": 1.636552095413208}
 LM_CHECKPOINT = "checkpoints/byte6l-pysrc.npz"
 LM_WINDOWS, LM_WINDOW = 8, 769
+
+# lac_tpu's bits/byte for the byte-6l checkpoint's container of the first
+# LM_BPB_BYTES of the corpus at LM_CODING
+GOLDEN_LM_BPB = 2.13623046875
+LM_BPB_BYTES = 32 << 10
+LM_CODING = dict(block_tokens=512, lanes=64, prob_bits=16, cache_grow=128,
+                 window_mode="auto")
 
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -82,7 +82,10 @@ def test_truncated_and_corrupt_scan_alike(cut):
 def test_port_imports_no_jax():
     code = (
         "import sys; import lac_tpu_torch, lac_tpu_torch.cli, lac_tpu_torch.convert, "
-        "lac_tpu_torch.smoke, lac_tpu_torch.runtime.engine, lac_tpu_torch.ops._build; "
+        "lac_tpu_torch.smoke, lac_tpu_torch.runtime.engine, lac_tpu_torch.ops._build, "
+        "lac_tpu_torch.coder.vector, lac_tpu_torch.ops.quantize, lac_tpu_torch.config, "
+        "lac_tpu_torch.runtime.lm_engine, lac_tpu_torch.runtime.lm_api, "
+        "lac_tpu_torch.models.lm_registry; "
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'lac_tpu' or m.startswith('lac_tpu.')]; "
         "sys.exit(f'imported {bad}' if bad else 0)"

@@ -408,3 +408,61 @@ def test_fused_training_loss_runs_the_kernels(cuda, impl):
     with torch.no_grad():
         exact = lm_loss(cfg, model, toks)
     assert abs(loss.item() - exact.item()) <= 1e-4
+
+
+# --------------------------------------------------------------------------
+# LM coding on the card (runtime.lm_api / lm_engine; no hand-written kernel)
+# --------------------------------------------------------------------------
+
+LM_CKPT = "checkpoints/byte6l-pysrc.npz"
+LM_SMALL = dict(block_tokens=64, lanes=4, cache_grow=16)
+
+
+def _lm_data():
+    from lac_tpu_torch.smoke import smoke_corpus
+
+    return smoke_corpus(1 << 16)[-1000:]
+
+
+def test_lm_round_trip_on_the_card(cuda):
+    import os
+
+    from lac_tpu_torch.runtime import lm_api
+    from lac_tpu_torch.stream.container import read_container
+    from lac_tpu_torch.train import load_checkpoint
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    model = load_checkpoint(os.path.join(root, LM_CKPT))
+    data = _lm_data()
+    c = lm_api.lm_compress_bytes(data, model_ref="file:" + LM_CKPT, model=model, **LM_SMALL)
+    _, blocks = read_container(c)
+    assert all(b.token_count for b in blocks)  # the trained model codes every block
+    assert lm_api.lm_decompress_bytes(c, model=model) == data
+    assert lm_api.lm_compress_bytes(data, model_ref="file:" + LM_CKPT, model=model,
+                                    **LM_SMALL) == c
+
+
+def test_lm_encode_twice_gives_equal_words(cuda):
+    from lac_tpu_torch.models.lm_registry import resolve_lm
+    from lac_tpu_torch.runtime import lm_engine
+
+    cfg, params = resolve_lm("prng:tiny:0")
+    rng = np.random.default_rng(0)
+    toks = torch.from_numpy(rng.integers(0, 256, (8, 100))).to(cuda)
+    lengths = torch.tensor([100, 0, 1, 99, 50, 100, 7, 100], device=cuda)
+    w1, n1 = lm_engine.lm_encode(cfg, params, toks, lengths, 16, 32)
+    w2, n2 = lm_engine.lm_encode(cfg, params, toks, lengths, 16, 32)
+    assert torch.equal(w1, w2) and torch.equal(n1, n2)
+    out = lm_engine.lm_decode(cfg, params, w1, lengths, 16, 100, 32)
+    live = torch.arange(100, device=cuda)[None, :] < lengths[:, None]
+    assert torch.equal(out, torch.where(live, toks, 0))
+
+
+def test_lm_cpu_container_is_refused_on_the_card(cuda):
+    from lac_tpu_torch.runtime import lm_api
+
+    data = _lm_data()[:300]
+    c = lm_api.lm_compress_bytes(data, model_ref="prng:tiny:0", device="cpu", **LM_SMALL)
+    assert lm_api.lm_decompress_bytes(c, device="cpu") == data
+    with pytest.raises(ValueError, match="fingerprint mismatch"):
+        lm_api.lm_decompress_bytes(c)

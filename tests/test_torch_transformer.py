@@ -132,14 +132,21 @@ def test_gqa_takes_the_exact_branch(monkeypatch):
 
 
 def test_unported_modes_raise():
+    """The det8, w8, kv8 and slide forwards raise, naming their ROADMAP
+    items, for the prefill and for the cached decode step (which A5
+    ported: tests/test_torch_lm.py)."""
     cfg = T.tiny_config()
     model = T.init_params(cfg)
     toks = torch.zeros(1, 4, dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="A5"):
-        T.forward(cfg, model, toks)
-    for flag, item in (("w8", "A7"), ("kv8", "A7"), ("det8", "A8")):
+    cache = T.init_cache(cfg, 1, 8)
+    for flag, item in (("w8", "A7"), ("kv8", "A7"), ("det8", "A8"), ("slide", "A6")):
+        mode = dataclasses.replace(cfg, **{flag: True})
         with pytest.raises(NotImplementedError, match=item):
-            T.forward(dataclasses.replace(cfg, **{flag: True}), model, toks, prefill=True)
+            T.forward(mode, model, toks, prefill=True)
+        with pytest.raises(NotImplementedError, match=item):
+            T.forward(mode, model, toks, cache)
+        with pytest.raises(NotImplementedError, match=item):
+            T.init_cache(mode, 1, 8)
 
 
 def test_presets_and_init_match_lac_tpu():
