@@ -1,8 +1,9 @@
-import faulthandler; faulthandler.dump_traceback_later(900, exit=True)  # noqa: E702
+import faulthandler; faulthandler.dump_traceback_later(1100, exit=True)  # noqa: E702
 
 # Drive lac_tpu_torch's main path on one CUDA card and check it.
 #
-#   python3 chip_smoke.py
+#   python3 chip_smoke.py              phases 0-5, about five minutes
+#   python3 chip_smoke.py --flagship   the flagship schedule alone (below)
 #
 # Phase 0  the card's name and power limit; build the CUDA kernels; the
 #          launch shapes of the order0n (K1, K3), order1n (K4, K5) and
@@ -73,10 +74,37 @@ import faulthandler; faulthandler.dump_traceback_later(900, exit=True)  # noqa: 
 #          (a)'s first wave encoded twice gives the same words, which equal
 #          (a)'s payloads, and a container the port made on the CPU is
 #          refused on the card by its fingerprint; (d) numbers: encode and
-#          decode tokens/s of (a) (median of its 3), ms a decode step, the
-#          CUDA kernels one step launches (torch.profiler), peak device
-#          memory, (b)'s bits/byte, and the least time a step could take
+#          decode tokens/s of (a) (median of its 3), peak device memory,
+#          (b)'s bits/byte; a step of byte-12l at 64 lanes and the
+#          schedule's mean cache width 320, eagerly and as a CUDA graph
+#          replay (runtime/step_graph.py, which every schedule runs), from
+#          one cache: the CDFs equal bit for bit, ms a step both ways (host
+#          clock), the CUDA kernels each launches and the device's busy
+#          time (torch.profiler), against the least time a step could take
 #          (bytes over HBM, flops over bf16).
+# Phase 5  windowed LM coding, blocks past the model context (slice 12; no
+#          TPU kernel, so K1-K12 must not launch): (a) the CLI's compress
+#          --model lm with the shipped byte-16l checkpoint at full width
+#          (d 512, 16 layers, context 1024), block 4096, 64 lanes, overlap
+#          8 (so slide, slide_seg 512) on the held-out slice
+#          (smoke.heldout_slice(), 256 KiB: 64 blocks, one wave, 4,096
+#          steps a side), then decompress: bytes equal, the header's mode,
+#          bits/byte within 1 % of smoke.GOLDEN_SLIDE16_BPB (lac_tpu's on
+#          the CPU), encode and decode tokens/s; (b) byte-6l at
+#          smoke.WINDOW_CODING (block 2048 past its context 768, 32 lanes)
+#          on the slice's first 64 KiB, reprime and slide, each round trip
+#          equal and within 1 % of smoke.GOLDEN_WINDOW_BPB; (c) graph
+#          against eager at byte-16l on the ring, 1024 wide, from a cache
+#          that a prefill of 1024 tokens filled (pos past the first window),
+#          32 steps at 64 lanes and at 4: CDFs equal bit for bit, ms a step,
+#          kernels a step, device busy and idle share, and the step's bound.
+#
+# --flagship: the shipped flagship configuration (bench.py: byte-16l, block
+# 65536, 4 lanes, overlap 8, slide, slide_seg 512) on the whole held-out
+# slice, 65,536 steps a side, through lm_compress_bytes and
+# lm_decompress_bytes: the round trip equal, bits/byte beside lac_tpu's
+# 0.8032 (a v5e), seconds a side and ms a step. Run it through the chip
+# tool with a timeout of about 1500 s.
 #
 # It imports the standard library, numpy, torch and lac_tpu_torch only. A
 # hang ends in a traceback and a non-zero exit (faulthandler above). Without
@@ -280,6 +308,17 @@ LM_REF = "prng:byte-12l:0"
 LM_CLI_BYTES = 128 << 10
 LM_BPB_TOL = 0.01  # relative, the port's bits/byte against lac_tpu's
 LM_REPS = 3
+# graph against eager: steps compared, then steps timed a side; the steps a
+# graph_vs_eager call runs (the graph also TIMED_STEPS under CUDA events)
+GRAPH_STEPS, TIMED_STEPS = 32, 20
+STEP_BUDGET = GRAPH_STEPS + 2 * TIMED_STEPS + 2
+# phase 5 and --flagship: lac_tpu's bits/byte on a v5e, context only
+# (measurements/r3_slide.log: byte-16l slide at block 4096, 64 lanes;
+# bench.py SHIPPED_FLAGSHIP_BPB: block 65536, 4 lanes)
+V5E_SLIDE16_BPB, V5E_FLAGSHIP_BPB = 0.8758, 0.8032
+FLAGSHIP = dict(block_tokens=65536, lanes=4, prob_bits=16, overlap=8, cache_grow=128,
+                window_mode="slide", slide_seg=512)
+FLAGSHIP_HANG_S = 2400  # the hang guard of a --flagship run
 
 
 class Phase:
@@ -918,52 +957,97 @@ def lm_step_bound(torch, cfg, params, b: int, width: float) -> dict:
             "kv": kv_row * width, "flops": 2 * macs, "t_bytes": t_bytes, "t_ops": t_ops}
 
 
-def decode_steps(torch, lm_engine, vector, T, cfg, params, b: int, width: int, n: int):
-    """``n`` decode steps (model, integer CDF, rANS step) at cache width
-    ``width``, each with pos ``width - 1``, as a function of the cache."""
-    dev = params.embed.device
-    cache = T.init_cache(cfg, b, width, device=dev)
-    g = torch.Generator(device=dev).manual_seed(SEED)
-    words = torch.randint(0, 1 << 32, (b, 514), generator=g, device=dev, dtype=torch.int64)
-    active = torch.ones((b,), dtype=torch.bool, device=dev)
-    state = [torch.zeros((b,), dtype=torch.int64, device=dev), vector.rans_decode_init(words)]
-
-    def run():
-        for _ in range(n):
-            cache["pos"] = width - 1
-            cdf, _ = lm_engine._step_cdf(cfg, params, cache, state[0], 16)
-            state[0], state[1] = vector._decode_step(state[1], cdf, 16, active)
-
-    return run
-
-
-def profile_step(torch, lm_engine, vector, T, cfg, params, b: int, width: int):
-    """One decode step at cache width ``width`` under torch.profiler, and 20
-    without it: (CUDA kernels, memcpy/memset activities, device busy ms of
-    the profiled step, host ms a step of the 20, host clock around a
-    synchronize)."""
+def profiled(torch, fn):
+    """``fn`` once under torch.profiler: (CUDA kernels, memcpy/memset
+    activities, device busy ms, the four kernel names that took the most
+    device time, each with its ms and count)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    one = decode_steps(torch, lm_engine, vector, T, cfg, params, b, width, 1)
-    twenty = decode_steps(torch, lm_engine, vector, T, cfg, params, b, width, 20)
-    with lm_engine._coding(params.embed.device):
-        one()
-        _, ms = sync_time(torch, twenty)
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            one()
-            torch.cuda.synchronize()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
     dev_events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     mem = [e for e in dev_events if e.name.lower().startswith(("memcpy", "memset"))]
     busy_us = sum(getattr(e, "device_time", 0) or 0 for e in dev_events)
-    return len(dev_events) - len(mem), len(mem), busy_us / 1e3, ms / 20
+    by_name: dict = {}
+    for e in dev_events:
+        us, n = by_name.get(e.name[:48], (0.0, 0))
+        by_name[e.name[:48]] = (us + (getattr(e, "device_time", 0) or 0), n + 1)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:4]
+    return (len(dev_events) - len(mem), len(mem), busy_us / 1e3,
+            [(name, round(us / 1e3, 3), n) for name, (us, n) in top])
 
 
-def phase4_numbers(torch, lm_engine, vector, T, container_mod, smoke, c_a, waves, enc, dec,
-                   peak, model, smi):
-    """(d): tokens/s of (a) (median of its LM_REPS timed round trips), ms a
-    decode step, the kernels a step launches, peak memory, the bound of a
-    step."""
+def graph_vs_eager(torch, T, lm_engine, step_graph, cfg, params, tokens, width: int,
+                   start: int) -> dict:
+    """From one cache of ``width`` slots holding ``tokens[:, :start]`` (a
+    prefill; pos = start), GRAPH_STEPS coding steps (the model, the integer
+    CDF and the intervals: step_graph.SegIntervals) eagerly and through the
+    runner's graph (its first step eager, as every schedule runs it): every
+    step's CDF and the intervals must be equal. Then TIMED_STEPS more each
+    way on the host clock around a synchronize, one more each way under
+    torch.profiler, and the graph's TIMED_STEPS under CUDA events (its
+    device time, whether or not the profiler sees inside a replay): at most
+    STEP_BUDGET steps from ``start``."""
+    dev = params.embed.device
+    b = tokens.shape[0]
+    with lm_engine._coding(dev):
+        base = T.init_cache(cfg, b, width, device=dev)
+        T.forward(cfg, params, tokens[:, :start], base, prefill=True)
+        runs, cdfs = [], []
+        for graphed in (False, True):
+            run = step_graph.SegIntervals(cfg, params, 16, tokens[:, start:])
+            run.prev.copy_(tokens[:, start - 1])
+            cache = {k: v.clone() for k, v in base.items()}
+            one = (lambda r=run, c=cache: r.steps(c, 1)) if graphed else \
+                (lambda r=run, c=cache: r._step(c))
+            got = []
+            for _ in range(GRAPH_STEPS):
+                one()
+                got.append(run.cdf.clone())
+            runs.append((run, one))
+            cdfs.append(torch.stack(got))
+        check(torch.equal(cdfs[0], cdfs[1]),
+              f"graph-replayed CDFs differ from the eager ones (lanes {b}, width {width})")
+        (eager, eager_one), (graph, graph_one) = runs
+        n = GRAPH_STEPS
+        check(torch.equal(eager.lo[:, :n], graph.lo[:, :n]) and
+              torch.equal(eager.f[:, :n], graph.f[:, :n]),
+              f"graph-replayed intervals differ (lanes {b}, width {width})")
+        out = {}
+        for name, one in (("eager", eager_one), ("graph", graph_one)):
+            _, ms = sync_time(torch, lambda: [one() for _ in range(TIMED_STEPS)])
+            kernels, mem, busy, top = profiled(torch, one)
+            out[name] = {"ms": ms / TIMED_STEPS, "kernels": kernels, "mem": mem,
+                         "busy_ms": busy, "idle": 1 - busy / (ms / TIMED_STEPS), "top": top}
+        out["graph"]["event_ms"] = event_ms(torch, graph_one, reps=TIMED_STEPS)
+    return out
+
+
+def print_step(smi, what, nums, bound) -> None:
+    e, g = nums["eager"], nums["graph"]
+    print(f"{what} [{smi}]: {GRAPH_STEPS} steps, eager and graph CDFs equal bit for bit; "
+          f"eager {e['ms']:.3f} ms a step ({TIMED_STEPS} steps, host clock), "
+          f"{e['kernels']} kernels and {e['mem']} memcpy/memset a step, device busy "
+          f"{e['busy_ms']:.3f} ms ({100 * e['idle']:.1f} % idle); graph {g['ms']:.3f} ms a "
+          f"step, {g['kernels']} kernels and {g['mem']} memcpy/memset a replay, device busy "
+          f"{g['busy_ms']:.3f} ms ({100 * g['idle']:.1f} % idle), {g['event_ms']:.3f} ms a "
+          f"replay from CUDA events; bound "
+          f"{bound['bound_ms']:.4f} ms by {bound['bound_by']} (weights "
+          f"{bound['weights'] / 1e6:.1f} MB, K/V {bound['kv'] / 1e6:.1f} MB, "
+          f"{bound['t_bytes']:.4f} ms; {bound['flops'] / 1e9:.2f} GFLOP, "
+          f"{bound['t_ops']:.4f} ms): the graph step is {g['ms'] / bound['bound_ms']:.1f}x "
+          f"the bound, {e['ms'] / g['ms']:.2f}x faster than eager; the replay's kernels that "
+          f"took the most device time (name, ms, count): {g['top']}", flush=True)
+
+
+def phase4_numbers(torch, T, lm_engine, step_graph, container_mod, smoke, c_a, waves, enc,
+                   dec, peak, model, corpus, smi):
+    """(d): tokens/s of (a) (median of its LM_REPS timed round trips), peak
+    memory; a step eagerly and as a graph replay at the schedule's mean
+    cache width, against its bound."""
     cfg, params = model
     kw = dict(smoke.LM_CODING)
     b, bt = kw["lanes"], kw["block_tokens"]
@@ -974,30 +1058,143 @@ def phase4_numbers(torch, lm_engine, vector, T, container_mod, smoke, c_a, waves
     enc_ms, dec_ms = float(np.median(enc)), float(np.median(dec))
     widths = [w for _, n, w in lm_engine._grown_segments(bt, kw["cache_grow"]) for _ in range(n)]
     mean_w = float(np.mean(widths))
-    bound = lm_step_bound(torch, cfg, params, b, mean_w)
-    kernels, mem, busy_ms, step_ms = profile_step(torch, lm_engine, vector, T, cfg, params, b,
-                                                  int(round(mean_w)))
+    width = int(round(mean_w))
     print(f"lm (d) [{smi}] byte-12l, {b} lanes, block {bt}, cache_grow {kw['cache_grow']}, "
           f"through the cli: encode {LM_CLI_BYTES / (enc_ms / 1e3):.1f} tokens/s ({waves} "
           f"waves, {enc_ms / (waves * bt):.3f} ms a step), decode "
           f"{LM_CLI_BYTES / (dec_ms / 1e3):.1f} tokens/s ({coded_waves} of {waves} waves hold "
           f"a coded block and run, {dec_ms / max(1, coded_waves * bt):.3f} ms a step); median "
           f"of {LM_REPS}; encode ms {[round(x, 1) for x in enc]}, decode ms "
-          f"{[round(x, 1) for x in dec]}", flush=True)
-    print(f"lm (d) [{smi}] decode step at the schedule's mean cache width {mean_w:.0f}: "
-          f"{step_ms:.3f} ms (20 steps, host clock); under torch.profiler one step launches "
-          f"{kernels} CUDA kernels and {mem} memcpy/memset, device busy {busy_ms:.3f} ms "
-          f"({100 * (1 - busy_ms / step_ms):.1f} % of the unprofiled step idle)", flush=True)
-    print(f"lm (d) [{smi}] step bound {bound['bound_ms']:.4f} ms by {bound['bound_by']} "
-          f"(bytes {bound['bytes'] / 1e6:.1f} MB: weights {bound['weights'] / 1e6:.1f} MB, "
-          f"K/V at width {mean_w:.0f} {bound['kv'] / 1e6:.1f} MB, {bound['t_bytes']:.4f} ms; "
-          f"flops {bound['flops'] / 1e9:.2f} G, {bound['t_ops']:.4f} ms), "
-          f"{b / (bound['bound_ms'] / 1e3):.0f} tokens/s; the step is "
-          f"{step_ms / bound['bound_ms']:.1f}x the bound; max_memory_allocated over (a) "
-          f"{peak} bytes", flush=True)
+          f"{[round(x, 1) for x in dec]}; max_memory_allocated over (a) {peak} bytes",
+          flush=True)
+    steps = STEP_BUDGET
+    toks = np.frombuffer(corpus[: b * width], dtype=np.uint8).reshape(b, width)
+    tokens = torch.from_numpy(toks.astype(np.int64)).to(params.embed.device)
+    nums = graph_vs_eager(torch, T, lm_engine, step_graph, cfg, params, tokens, width,
+                          width - steps)
+    print_step(smi, f"lm (d) byte-12l step, {b} lanes, cache width {width} (the schedule's "
+               f"mean)", nums, lm_step_bound(torch, cfg, params, b, width))
+
+
+# --------------------------------------------------------------------------
+# Phase 5: windowed LM coding (slide and reprime past the model context)
+# --------------------------------------------------------------------------
+
+
+def phase5_cli(torch, cli, container_mod, smoke, root, work):
+    """(a): byte-16l through the CLI, slide on the held-out slice; returns
+    its bits/byte."""
+    data = smoke.heldout_slice()[: smoke.SLIDE16_BYTES]
+    kw = smoke.SLIDE16_CODING
+    path = os.path.join(work, "heldout.bin")
+    with open(path, "wb") as f:
+        f.write(data)
+    # relative to the checkout (main runs from its root): the header records
+    # the ref, so the container does not depend on where the checkout lies
+    ref = "file:" + smoke.SLIDE16_CHECKPOINT
+    args = ["--model", "lm", "--model-ref", ref, "--block-tokens", str(kw["block_tokens"]),
+            "--lanes", str(kw["lanes"]), "--overlap", str(kw["overlap"])]
+    rc, enc_ms = sync_time(torch, lambda: cli.main(["compress", path, *args, "-o",
+                                                    path + ".lac"]))
+    check(rc == 0, "cli compress --model lm, byte-16l")
+    rc, dec_ms = sync_time(torch, lambda: cli.main(["decompress", path + ".lac", "-o",
+                                                    path + ".out"]))
+    check(rc == 0, "cli decompress of the byte-16l container")
+    with open(path + ".out", "rb") as f:
+        check(f.read() == data, "byte-16l: the cli round trip differs from the slice")
+    with open(path + ".lac", "rb") as f:
+        c = f.read()
+    header, blocks = container_mod.read_container(c)
+    got = {k: header.config[k] for k in ("window_mode", "slide_seg", "max_seq", "lanes",
+                                         "block_tokens", "overlap")}
+    want = {"window_mode": "slide", "slide_seg": 512, "max_seq": 1024, "lanes": kw["lanes"],
+            "block_tokens": kw["block_tokens"], "overlap": kw["overlap"]}
+    check(got == want, f"byte-16l container header {got}")
+    bpb = 8 * len(c) / len(data)
+    rel = bpb / smoke.GOLDEN_SLIDE16_BPB - 1
+    coded = sum(b.token_count > 0 for b in blocks)
+    print(f"window (a) byte-16l slide, cli: {len(data)} -> {len(c)} bytes, {bpb:.6f} "
+          f"bits/byte, lac_tpu {smoke.GOLDEN_SLIDE16_BPB:.6f} on the CPU (relative "
+          f"{rel:+.2e}, tolerance {LM_BPB_TOL}; lac_tpu on a v5e: {V5E_SLIDE16_BPB}); header "
+          f"{got}; {coded} of {len(blocks)} blocks coded; round trip equal; encode "
+          f"{len(data) / (enc_ms / 1e3):.1f} tokens/s ({enc_ms / 1e3:.1f} s), decode "
+          f"{len(data) / (dec_ms / 1e3):.1f} tokens/s ({dec_ms / 1e3:.1f} s), "
+          f"{kw['block_tokens']} steps a side, checkpoint load included", flush=True)
+    check(abs(rel) <= LM_BPB_TOL, f"byte-16l: bits/byte {bpb} off GOLDEN_SLIDE16_BPB by {rel:+.3e}")
+    return bpb
+
+
+def phase5_byte6l(torch, ttrain, lm_api, smoke, root):
+    """(b): byte-6l past its context, reprime and slide."""
+    model = ttrain.load_checkpoint(os.path.join(root, smoke.LM_CHECKPOINT))
+    data = smoke.heldout_slice()[: smoke.WINDOW_BPB_BYTES]
+    for mode in ("reprime", "slide"):
+        (c, ms) = sync_time(torch, lambda: lm_api.lm_compress_bytes(
+            data, model_ref="file:" + smoke.LM_CHECKPOINT, model=model, window_mode=mode,
+            **smoke.WINDOW_CODING))
+        out, dms = sync_time(torch, lambda: lm_api.lm_decompress_bytes(c, model=model))
+        check(out == data, f"byte-6l {mode}: round trip")
+        bpb = 8 * len(c) / len(data)
+        rel = bpb / smoke.GOLDEN_WINDOW_BPB[mode] - 1
+        print(f"window (b) byte-6l {mode}, block {smoke.WINDOW_CODING['block_tokens']}, "
+              f"{smoke.WINDOW_CODING['lanes']} lanes: {len(data)} -> {len(c)} bytes, "
+              f"{bpb:.6f} bits/byte, lac_tpu {smoke.GOLDEN_WINDOW_BPB[mode]:.6f} (relative "
+              f"{rel:+.2e}, tolerance {LM_BPB_TOL}); round trip equal; encode "
+              f"{ms / 1e3:.2f} s, decode {dms / 1e3:.2f} s", flush=True)
+        check(abs(rel) <= LM_BPB_TOL,
+              f"byte-6l {mode}: bits/byte {bpb} off GOLDEN_WINDOW_BPB by {rel:+.3e}")
+
+
+def phase5_steps(torch, T, ttrain, lm_engine, step_graph, smoke, root, smi):
+    """(c): byte-16l on the ring, 1024 wide, past the first window: graph
+    against eager at 64 lanes and at 4."""
+    cfg, params = ttrain.load_checkpoint(os.path.join(root, smoke.SLIDE16_CHECKPOINT))
+    scfg = lm_engine._slide_cfg(cfg)
+    w = scfg.max_seq
+    n = w + STEP_BUDGET
+    arr = np.frombuffer(smoke.heldout_slice(), dtype=np.uint8)
+    for b in (64, 4):
+        toks = np.stack([arr[i * n : (i + 1) * n] for i in range(b)]).astype(np.int64)
+        tokens = torch.from_numpy(toks).to(params.embed.device)
+        nums = graph_vs_eager(torch, T, lm_engine, step_graph, scfg, params, tokens, w, w)
+        print_step(smi, f"window (c) byte-16l slide step, {b} lanes, ring {w}, pos {w}-"
+                   f"{n - 1}", nums, lm_step_bound(torch, scfg, params, b, w))
+
+
+def flagship(torch, ttrain, lm_api, container_mod, smoke, root, smi):
+    """--flagship: the shipped configuration on the whole held-out slice."""
+    data = smoke.heldout_slice()
+    model = ttrain.load_checkpoint(os.path.join(root, smoke.SLIDE16_CHECKPOINT))
+    c, enc_ms = sync_time(torch, lambda: lm_api.lm_compress_bytes(
+        data, model_ref="file:" + smoke.SLIDE16_CHECKPOINT, model=model, **FLAGSHIP))
+    out, dec_ms = sync_time(torch, lambda: lm_api.lm_decompress_bytes(c, model=model))
+    check(out == data, "flagship: round trip")
+    header, blocks = container_mod.read_container(c)
+    got = {k: header.config[k] for k in ("block_tokens", "lanes", "overlap", "window_mode",
+                                         "slide_seg")}
+    want = {k: FLAGSHIP[k] for k in got}
+    check(got == want, f"flagship header {got}")
+    steps = FLAGSHIP["block_tokens"]
+    bpb = 8 * len(c) / len(data)
+    print(f"flagship [{smi}] byte-16l, {got}: {len(data)} -> {len(c)} bytes, {bpb:.6f} "
+          f"bits/byte (lac_tpu on a v5e: {V5E_FLAGSHIP_BPB}, relative "
+          f"{bpb / V5E_FLAGSHIP_BPB - 1:+.2e}); {sum(b.token_count > 0 for b in blocks)} of "
+          f"{len(blocks)} blocks coded; round trip equal; encode {enc_ms / 1e3:.1f} s "
+          f"({enc_ms / steps:.3f} ms a step, {len(data) / (enc_ms / 1e3):.1f} tokens/s), decode "
+          f"{dec_ms / 1e3:.1f} s ({dec_ms / steps:.3f} ms a step, "
+          f"{len(data) / (dec_ms / 1e3):.1f} tokens/s), {steps} steps a side", flush=True)
+
 
 def path_kernels(codec: str) -> tuple:
     return (f"{codec}_intervals", "rans32_encode", f"{codec}_decode")
+
+
+def device_line(torch) -> str:
+    return json.dumps({"ok": True, "device": {
+        "platform": "gpu",
+        "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count(),
+    }})
 
 
 def main() -> int:
@@ -1008,17 +1205,29 @@ def main() -> int:
         return 2
     root = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, root)
+    os.chdir(root)  # phase 5's CLI names its checkpoint relative to the checkout
     from lac_tpu_torch import cli, smoke
     from lac_tpu_torch import train as ttrain
-    from lac_tpu_torch.coder import vector
     from lac_tpu_torch.models import lm_registry
     from lac_tpu_torch.models import transformer as T
     from lac_tpu_torch.ops import _build
     from lac_tpu_torch.ops import attention as A
     from lac_tpu_torch.ops import rans_kernels as rk
-    from lac_tpu_torch.runtime import engine, lm_api, lm_engine, turbo
+    from lac_tpu_torch.runtime import engine, lm_api, lm_engine, step_graph, turbo
     from lac_tpu_torch.stream import container
 
+    if sys.argv[1:] == ["--flagship"]:
+        faulthandler.dump_traceback_later(FLAGSHIP_HANG_S, exit=True)
+        smi = nvidia_smi_line()
+        print(f"nvidia-smi: {smi}")
+        with Phase("flagship: byte-16l slide, block 65536, 4 lanes"):
+            flagship(torch, ttrain, lm_api, container, smoke, root, smi)
+        print(smi)
+        print(device_line(torch))
+        return 0
+    if sys.argv[1:]:
+        print(f"chip_smoke: unknown arguments {sys.argv[1:]}", file=sys.stderr)
+        return 2
     dev = torch.device("cuda", 0)
     work = os.path.join(root, "smoke_work")
     shutil.rmtree(work, ignore_errors=True)
@@ -1164,9 +1373,20 @@ def main() -> int:
             lm_model = lm_registry.resolve_lm(LM_REF)
             phase4_determinism(torch, lm_api, lm_engine, lm_registry, container, corpus, c_lm,
                                lm_model)
-            phase4_numbers(torch, lm_engine, vector, T, container, smoke, c_lm, waves, enc_ms,
-                           dec_ms, lm_peak, lm_model, smi)
+            phase4_numbers(torch, T, lm_engine, step_graph, container, smoke, c_lm, waves,
+                           enc_ms, dec_ms, lm_peak, lm_model, corpus, smi)
             print(f"lm (d) [{smi}] bits/byte of (b): {bpb_b:.6f}", flush=True)
+
+        with Phase("phase 5: windowed LM coding"):
+            rk.reset_launches()
+            A.reset_launches()
+            phase5_cli(torch, cli, container, smoke, root, work)
+            phase5_byte6l(torch, ttrain, lm_api, smoke, root)
+            phase5_steps(torch, T, ttrain, lm_engine, step_graph, smoke, root, smi)
+            window_counts = {**rk.launches, **A.launches}
+            print(f"window path launches of K1-K12: {window_counts}", flush=True)
+            check(set(window_counts.values()) == {0},
+                  "the windowed path launched a TPU-kernel port")
 
         library_ms = {k: atimes[k]["library_ms"] for k in ATTN}
         kernels = [
@@ -1187,11 +1407,7 @@ def main() -> int:
         ]
         print(json.dumps({"kernels": kernels}))
         print(smi)
-        print(json.dumps({"ok": True, "device": {
-            "platform": "gpu",
-            "kind": torch.cuda.get_device_name(0),
-            "count": torch.cuda.device_count(),
-        }}))
+        print(device_line(torch))
         return 0
     finally:
         shutil.rmtree(work, ignore_errors=True)

@@ -9,19 +9,21 @@ stays as it is). It imports ``torch`` and NumPy, never JAX and nothing of
                 rANS-64/32 coder of the LM path;
 - ``models``  - the turbo byte models as torch functions over lanes, and
                 the transformer LM's float forward (prefill and cached
-                decode step) with its presets and model refs;
+                decode step, the slide ring) with its presets and model refs;
 - ``ops``     - the CUDA kernels (``csrc/``), their build and their wrappers,
                 each beside its plain PyTorch version;
-- ``runtime`` - the turbo byte path, the LM coding engine and the file-level
-                APIs;
+- ``runtime`` - the turbo byte path, the LM coding engine (its step as a
+                CUDA graph) and the file-level APIs;
 - ``train``   - byte-LM training and the ``.npz`` checkpoint format;
 - ``cli``     - ``python -m lac_tpu_torch compress|decompress|info|verify|recover|train``.
 
 Entry points run on the card unless the caller passes ``device="cpu"``.
 The turbo byte path is ported for all four of its codecs: order0n (the
 default), order1n, order2n and order0c; training with its fused causal
-attention; and LM coding (``--model lm``) with the float forward for
-blocks within the model context; see ROADMAP.md for the rest.
+attention; and LM coding (``--model lm``) with the float forward, for
+blocks within the model context and past it (the slide and reprime
+schedules), its step replayed as a CUDA graph on the card; see ROADMAP.md
+for the rest.
 
 Importing the package sets ``CUBLAS_WORKSPACE_CONFIG`` (unless the caller
 has): cuBLAS reads it when its first call of the process sets up, and the

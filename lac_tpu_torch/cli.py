@@ -42,10 +42,7 @@ def _lm_compress(args, data: bytes) -> bytes:
         window_mode=args.window_mode,
         slide_seg=args.slide_seg,
     )
-    try:
-        return lm_compress_bytes(data, device=args.device, **cfg.engine_kwargs())
-    except NotImplementedError as e:  # a block past the context: the windowed schedules
-        raise SystemExit(str(e)) from e
+    return lm_compress_bytes(data, device=args.device, **cfg.engine_kwargs())
 
 
 def _cmd_compress(args) -> int:
@@ -233,8 +230,8 @@ def main(argv=None) -> int:
     c.add_argument("--overlap", type=int, default=2,
                    help="window re-prime keep fraction denominator")
     c.add_argument("--window-mode", choices=("auto", "reprime", "slide"), default="auto",
-                   help="blocks past the model context (ROADMAP A6); auto = slide "
-                        "for rope models, recorded resolved in the container")
+                   help="blocks past the model context: reprime or slide; auto = "
+                        "slide for rope models, recorded resolved in the container")
     c.add_argument("--slide-seg", type=int, default=None, metavar="S",
                    help="float slide-mode segment length (recorded in the container)")
     c.add_argument("--w8", action="store_true", help="int8 weights (ROADMAP A7)")

@@ -33,12 +33,24 @@ scale, ``-inf`` at slots ``w >= pos``) and the call's fresh K/V (causal
 within the call) under ONE softmax over the concatenated axis; the cache
 and fresh probabilities are cast to ``cfg.dtype`` apart, run through two
 products summed in f32, then cast. The cache is ``[L, B, W, KVH, Dh]`` in
-``cfg.dtype`` with a shared host-side ``pos``; each layer writes its fresh
-K/V at ``pos`` in place after its own reads (the reference writes all
-layers at once after the layer scan; a layer reads only its own slice and
-masks ``w >= pos``, so the two give the same values). The det8, w8, kv8
-and slide modes raise ``NotImplementedError`` naming the ROADMAP item that
-ports them.
+``cfg.dtype`` with a shared cursor ``pos``, a 0-d int64 tensor on the
+cache's device: the step reads it there (masks by comparison, writes by
+index), so no value of the step is a host number that changes from step
+to step, and a CUDA graph of the step replays at every position
+(``runtime/step_graph.py``). Each layer writes its fresh K/V at ``pos`` in
+place after its own reads (the reference writes all layers at once after
+the layer scan; a layer reads only its own slice and masks ``w >= pos``,
+so the two give the same values).
+
+Slide mode (``cfg.slide``, the reference's ring cache, :117-136, :1083-1095)
+codes blocks longer than the context on one ``W``-wide cache: the write
+cursor wraps to ``pos % W`` while ``pos``, the RoPE positions and the
+validity mask ``w < pos`` stay global, so at step ``p >= W`` the cache
+holds exactly tokens ``[p - W, p)`` and every slot counts. A call of S > 1
+tokens adds the ring-age mask (:902-911): query ``i`` does not see the
+``i`` oldest slots, which serial steps would have evicted. A call's write
+may not wrap partway. The det8, w8 and kv8 modes raise
+``NotImplementedError`` naming the ROADMAP item that ports them.
 
 Training-only fused attention: ``forward(..., fused=True)`` routes the
 attention of an MHA model (``n_heads == n_kv_heads``) through
@@ -102,11 +114,15 @@ class LMConfig:
     rope_theta: float = 10000.0
     norm_eps: float = 1e-5
     # forward modes of lac_tpu that the port does not have yet (ROADMAP
-    # A6-A8); kept so configs and checkpoints carry the same fields
+    # A7, A8); kept so configs and checkpoints carry the same fields
     det8: bool = False
     w8: bool = False
     kv8: bool = False
+    # the ring cache past the model context (module docstring); the coding
+    # engine sets it for a block longer than max_seq (lm_engine._slide_cfg)
     slide: bool = False
+    # det8's bound on slide's global RoPE positions (its host tables); the
+    # float path computes the angles on the device and ignores it
     rope_positions: int = 0
 
     def __post_init__(self):
@@ -161,7 +177,7 @@ def _not_ported(what: str, item: str):
 
 
 def _check_float_path(cfg: LMConfig) -> None:
-    for flag, item in (("det8", "A8"), ("w8", "A7"), ("kv8", "A7"), ("slide", "A6")):
+    for flag, item in (("det8", "A8"), ("w8", "A7"), ("kv8", "A7")):
         if getattr(cfg, flag):
             raise _not_ported(f"the {flag} forward", item)
 
@@ -262,16 +278,35 @@ def init_params(cfg: LMConfig, seed: int = 0, device=None) -> Transformer:
 
 def init_cache(cfg: LMConfig, batch: int, window: int | None = None, device=None) -> dict:
     """KV cache over the context window: ``k`` and ``v`` ``[L, B, W, KVH,
-    Dh]`` in ``cfg.dtype`` (zeros), and ``pos``, the shared write cursor
-    (all lanes run lock-step), a host int. ``window`` (default
-    ``cfg.max_seq``, capped there) sizes the cache: every step reads all of
-    it, so the coding engine sizes it to the block or grows it."""
+    Dh]`` in ``cfg.dtype`` (zeros), and ``pos``, the shared cursor (all
+    lanes run lock-step), a 0-d int64 tensor on ``device``. ``window``
+    (default ``cfg.max_seq``, capped there) sizes the cache: every step
+    reads all of it, so the coding engine sizes it to the block or grows
+    it; under slide it is the ring."""
     _check_float_path(cfg)
     w = cfg.max_seq if window is None else min(window, cfg.max_seq)
     shape = (cfg.n_layers, batch, w, cfg.n_kv_heads, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=cfg.dtype, device=device),
             "v": torch.zeros(shape, dtype=cfg.dtype, device=device),
-            "pos": 0}
+            "pos": torch.zeros((), dtype=torch.int64, device=device)}
+
+
+def index_write(buf: torch.Tensor, dim: int, index: torch.Tensor, src: torch.Tensor) -> None:
+    """``buf.index_copy_(dim, index, src)`` for distinct indices, in a form a
+    CUDA graph can capture. Under deterministic algorithms a CUDA
+    ``index_copy_`` runs as ``index_put_``, which checks the index range on
+    the host (a device sync, which a capture refuses). Distinct indices
+    write distinct elements, so the plain kernel's result cannot depend on
+    its order: the write runs with deterministic algorithms off."""
+    if not (buf.is_cuda and torch.are_deterministic_algorithms_enabled()):
+        buf.index_copy_(dim, index, src)
+        return
+    warn_only = torch.is_deterministic_algorithms_warn_only_enabled()
+    torch.use_deterministic_algorithms(False)
+    try:
+        buf.index_copy_(dim, index, src)
+    finally:
+        torch.use_deterministic_algorithms(True, warn_only=warn_only)
 
 
 # --------------------------------------------------------------------------
@@ -410,8 +445,10 @@ def _out_proj(cfg: LMConfig, p: Block, out: torch.Tensor) -> torch.Tensor:
     return y
 
 
-def _attention(cfg: LMConfig, p: Block, x: torch.Tensor, fused: bool = False) -> torch.Tensor:
-    """One layer's causal self-attention over the block (prefill)."""
+def _attention(cfg: LMConfig, p: Block, x: torch.Tensor, fused: bool = False,
+               cache: dict | None = None, layer: int = 0) -> torch.Tensor:
+    """One layer's causal self-attention over the block (prefill); with a
+    ``cache``, the block's K/V also go into the layer's slice at 0..S-1."""
     b, s, _ = x.shape
     h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     q, k, v = _qkv(cfg, p, x)
@@ -419,6 +456,9 @@ def _attention(cfg: LMConfig, p: Block, x: torch.Tensor, fused: bool = False) ->
         positions = torch.arange(s, dtype=torch.int32, device=x.device)
         q = _rope(cfg, q, positions)
         k = _rope(cfg, k, positions)
+    if cache is not None:
+        cache["k"][layer, :, :s] = k
+        cache["v"][layer, :, :s] = v
     scale = _scale_f32(hd)
 
     if fused and h == kvh:
@@ -439,16 +479,16 @@ def _attention(cfg: LMConfig, p: Block, x: torch.Tensor, fused: bool = False) ->
 
 
 def _attention_cached(cfg: LMConfig, p: Block, x: torch.Tensor, cache: dict, layer: int,
-                      rope, keep) -> torch.Tensor:
+                      rope, drop, keep, slots) -> torch.Tensor:
     """One layer's attention for S tokens at ``cache["pos"]`` against the
     layer's cache slice and the call's fresh K/V (the reference's
     ``prefill=False`` float branch), then the fresh K/V written into the
-    slice at ``pos``. ``rope``: the call's (cos, sin), or None. ``keep``:
-    the causal mask of the fresh scores [R*S, S], or None at S 1, where it
-    keeps everything."""
+    slice at ``slots``. ``rope``: the call's (cos, sin), or None. ``drop``:
+    the cache slots no query may see, [W] or [R*S, W]. ``keep``: the causal
+    mask of the fresh scores [R*S, S], or None at S 1, where it keeps
+    everything. ``slots``: [S] cache slots of the call's tokens."""
     b, s, _ = x.shape
     h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    pos = cache["pos"]
     ck, cv = cache["k"][layer], cache["v"][layer]  # [B, W, KVH, Dh]
     w_len = ck.shape[1]
     q, k, v = _qkv(cfg, p, x)
@@ -469,7 +509,7 @@ def _attention_cached(cfg: LMConfig, p: Block, x: torch.Tensor, cache: dict, lay
     # the cache's scores [.., W] and the fresh ones [.., S], then the scale
     scores = torch.cat([torch.matmul(qf, ckf.transpose(-1, -2)),
                         torch.matmul(qf, kf.transpose(-1, -2))], dim=-1) * scale
-    scores[..., pos:w_len] = float("-inf")  # slots w >= pos hold no token yet
+    scores[..., :w_len].masked_fill_(drop, float("-inf"))
     if keep is not None:
         scores[..., w_len:].masked_fill_(~keep, float("-inf"))
     # one softmax over both; the probabilities rounded to cfg.dtype, then
@@ -478,9 +518,9 @@ def _attention_cached(cfg: LMConfig, p: Block, x: torch.Tensor, cache: dict, lay
     out = torch.matmul(probs[..., :w_len], cvf) + torch.matmul(probs[..., w_len:], vf)
     out = out.to(cfg.dtype).reshape(b, kvh, rep, s, hd).permute(0, 3, 1, 2, 4)
     y = _out_proj(cfg, p, out.reshape(b, s, h * hd))
-    # after this layer's reads: the fresh K/V into its slice at pos
-    cache["k"][layer, :, pos:pos + s] = k
-    cache["v"][layer, :, pos:pos + s] = v
+    # after this layer's reads: the fresh K/V into its slice
+    index_write(ck, 1, slots, k)
+    index_write(cv, 1, slots, v)
     return y
 
 
@@ -499,8 +539,9 @@ def _mlp(cfg: LMConfig, p: Block, x: torch.Tensor) -> torch.Tensor:
     return y
 
 
-def _layer(cfg: LMConfig, p: Block, x: torch.Tensor, fused: bool) -> torch.Tensor:
-    x = _act(cfg, x + _attention(cfg, p, _norm(cfg, p.ln1, x), fused=fused))
+def _layer(cfg: LMConfig, p: Block, x: torch.Tensor, fused: bool, cache: dict | None = None,
+           layer: int = 0) -> torch.Tensor:
+    x = _act(cfg, x + _attention(cfg, p, _norm(cfg, p.ln1, x), fused, cache, layer))
     return _act(cfg, x + _mlp(cfg, p, _norm(cfg, p.ln2, x)))
 
 
@@ -514,26 +555,37 @@ def _head(cfg: LMConfig, params: Transformer, x: torch.Tensor) -> torch.Tensor:
 
 def _forward_cached(cfg: LMConfig, params: Transformer, tokens: torch.Tensor, cache: dict):
     b, s = tokens.shape
-    pos = cache["pos"]
-    if pos + s > cache["k"].shape[2]:
-        raise ValueError(f"{s} tokens at pos {pos} overrun the cache width "
-                         f"{cache['k'].shape[2]}")
+    w_len = cache["k"].shape[2]
+    dev = tokens.device
+    pos = cache["pos"]  # 0-d int64 on the device: every use below is a device op
+    at = pos % w_len if cfg.slide else pos  # the call's first slot
+    # checked on the device (no sync): the write may not overrun the cache,
+    # nor, under slide, wrap partway
+    torch._assert_async(at + s <= w_len, f"{s} tokens overrun the cache width {w_len}")
     tokens = tokens.long()
-    positions = torch.arange(pos, pos + s, dtype=torch.int32, device=tokens.device)
+    ar = torch.arange(s, device=dev)
+    positions = pos + ar  # global under slide
     x = _act(cfg, _c(cfg, params.embed)[tokens])  # [B, S, D]
     rope = keep = None
     if cfg.pos_embedding == "learned":
-        x = x + _c(cfg, params.pos_embed)[positions.long()][None, :, :]
+        x = x + _c(cfg, params.pos_embed)[positions][None, :, :]
     else:
         rope = _rope_tables(cfg, positions)
-    if s > 1:  # rows in (r, s) order, causal within the call
-        keep = torch.ones(s, s, dtype=torch.bool, device=tokens.device).tril()
-        keep = keep.repeat(cfg.n_heads // cfg.n_kv_heads, 1)
+    w_ids = torch.arange(w_len, device=dev)
+    seen = w_ids < pos  # slots that hold a token; under slide every slot once pos >= W
+    if s > 1:  # rows in (r, s) order
+        q_ids = ar.repeat(cfg.n_heads // cfg.n_kv_heads)
+        keep = ar[None, :] <= q_ids[:, None]  # causal within the call
+        if cfg.slide:  # ring age: query i does not see the i oldest slots
+            seen = seen & (torch.remainder(w_ids - pos, w_len)[None, :] >= q_ids[:, None])
+    drop = ~seen
+    slots = at + ar
     for layer, lp in enumerate(params.layers):
-        h = _attention_cached(cfg, lp, _norm(cfg, lp.ln1, x), cache, layer, rope, keep)
+        h = _attention_cached(cfg, lp, _norm(cfg, lp.ln1, x), cache, layer, rope, drop, keep,
+                              slots)
         x = _act(cfg, x + h)
         x = _act(cfg, x + _mlp(cfg, lp, _norm(cfg, lp.ln2, x)))
-    cache["pos"] = pos + s
+    cache["pos"] += s
     return _head(cfg, params, x), cache
 
 
@@ -547,12 +599,15 @@ def forward(cfg: LMConfig, params: Transformer, tokens: torch.Tensor, cache: dic
     ``prefill=False`` (the reference's default): the cached decode step.
     The S tokens sit at positions ``cache["pos"] + arange(S)`` after the
     cache's; returns (logits [B, S, vocab] f32, cache), the cache written at
-    ``pos`` in place and ``pos`` advanced by S. ``cache`` comes from
-    ``init_cache``.
+    ``pos`` (under slide ``pos % W``) in place and ``pos`` advanced by S.
+    ``cache`` comes from ``init_cache``.
 
-    ``prefill=True``: from position 0 with an empty context; returns the
-    logits alone (the reference's prefill callers drop its cache; ``cache``
-    is ignored).
+    ``prefill=True``: from position 0 with an empty context. Without a
+    cache, returns the logits alone; with one (the reference's re-prime
+    passes a fresh ``init_cache``), returns (logits, cache), the block's K/V
+    written at slots 0..S-1 and ``pos`` set to S, as S steps would leave
+    them; slots from S on keep what they held, which the steps mask
+    (``w < pos``) as they mask a fresh cache's zeros.
 
     ``remat=True``: recompute each layer in the backward pass
     (``torch.utils.checkpoint``, non-reentrant), as ``jax.checkpoint`` does
@@ -568,13 +623,19 @@ def forward(cfg: LMConfig, params: Transformer, tokens: torch.Tensor, cache: dic
             raise ValueError("forward(prefill=False) needs a cache from init_cache")
         return _forward_cached(cfg, params, tokens, cache)
     tokens = tokens.long()
+    s = tokens.shape[1]
+    if cache is not None and s > cache["k"].shape[2]:
+        raise ValueError(f"a prefill of {s} tokens overruns the cache width "
+                         f"{cache['k'].shape[2]}")
     x = _act(cfg, _c(cfg, params.embed)[tokens])  # [B, S, D]
     if cfg.pos_embedding == "learned":
-        s = tokens.shape[1]
         x = x + _c(cfg, params.pos_embed)[:s][None, :, :]
-    for lp in params.layers:
+    for layer, lp in enumerate(params.layers):
         if remat and torch.is_grad_enabled():
-            x = checkpoint(_layer, cfg, lp, x, fused, use_reentrant=False)
+            x = checkpoint(_layer, cfg, lp, x, fused, cache, layer, use_reentrant=False)
         else:
-            x = _layer(cfg, lp, x, fused)
-    return _head(cfg, params, x)
+            x = _layer(cfg, lp, x, fused, cache, layer)
+    if cache is None:
+        return _head(cfg, params, x)
+    cache["pos"].fill_(s)
+    return _head(cfg, params, x), cache

@@ -9,12 +9,13 @@ Ports the byte alphabet of ``lac_tpu/runtime/lm_api.py``:
 tokens (a byte-level LM, vocab >= 256), split into blocks of
 ``block_tokens`` coded in lock-step waves of exactly ``lanes`` streams
 (the wave shape is part of the determinism contract and travels in the
-container). The container config holds the same keys as ``lac_tpu``'s.
+container). A block longer than the model context runs the windowed
+schedule that ``window_mode`` names (``runtime/lm_engine.py``). The
+container config holds the same keys as ``lac_tpu``'s.
 
 Not ported, and raising with the ROADMAP item that ports them: the det8,
-kv8 and w8 forwards (A8, A7), blocks longer than the model context (the
-windowed schedules, A6), a ``mesh`` (A13); the token alphabet and text
-front-end are A9. Entry points run on the card unless the caller passes
+kv8 and w8 forwards (A8, A7), a ``mesh`` (A13); the token alphabet and
+text front-end are A9. Entry points run on the card unless the caller passes
 ``device="cpu"``.
 """
 
@@ -123,9 +124,13 @@ def lm_compress_bytes(
     """Compress ``data`` with an LM predictor. ``model``: an optional
     pre-resolved (cfg, params) on ``device``, used instead of resolving
     ``model_ref`` (which the container still records). ``cache_grow``: the
-    KV-cache growth bucket (0 = fixed width). ``window_mode`` and
-    ``slide_seg`` resolve and are recorded as in ``lac_tpu``; they matter
-    only for blocks past the context, which are ROADMAP A6."""
+    KV-cache growth bucket (0 = fixed width; slide ignores it past the
+    context). ``window_mode`` ("reprime", "slide" or "auto": slide for rope
+    models) picks the schedule of blocks longer than the model context.
+    ``slide_seg`` (None: 512 for slide past the context) bounds
+    ``lac_tpu``'s compiled scans and changes no step here. Both resolve and
+    are recorded as in ``lac_tpu`` (the fingerprint folds ``slide_seg``),
+    and the decoder replays the recorded mode."""
     _no_mesh(mesh)
     dev = resolve_device(device)
     cfg, params = _model_on(model, model_ref, max_seq, dev)
@@ -142,7 +147,7 @@ def lm_compress_bytes(
         BlockEntry(*t)
         for t in encode_lm_span(cfg, params, data, 0, nblocks, block_tokens, lanes,
                                 prob_bits, overlap, cache_grow=cache_grow,
-                                window_mode=window_mode, slide_seg=slide_seg)
+                                window_mode=window_mode)
     ]
     header = ContainerHeader(
         codec=CODEC_RANS64,
@@ -199,7 +204,7 @@ def _decode_blocks(cfg, params, header, blocks, ngood: int) -> bytes:
     parts = decode_lm_span(
         cfg, params, blocks, 0, ngood, c["block_tokens"], c["lanes"], header.prob_bits,
         c["overlap"], cache_grow=int(c.get("cache_grow", 0)),
-        window_mode=c.get("window_mode", "reprime"), slide_seg=int(c.get("slide_seg", 0)))
+        window_mode=c.get("window_mode", "reprime"))
     return b"".join(parts)
 
 
@@ -236,7 +241,7 @@ def lm_decompress_prefix(container: bytes, model=None, mesh=None, device=None):
 
 def encode_lm_span(cfg: LMConfig, params: Transformer, data: bytes, start: int, end: int,
                    block_tokens: int, lanes: int, prob_bits: int, overlap: int,
-                   cache_grow: int = 0, window_mode: str = "reprime", slide_seg: int = 0):
+                   cache_grow: int = 0, window_mode: str = "reprime"):
     """Encode blocks [start, end) of ``data`` in fixed-shape waves of
     ``lanes`` on the parameters' device; returns ``[(raw_len, token_count,
     payload)]`` in block order (token_count 0 marks the raw fallback, taken
@@ -270,7 +275,7 @@ def encode_lm_span(cfg: LMConfig, params: Transformer, data: bytes, start: int, 
             lengths[j] = len(chunk)
         words_d, nwords_d = lm_encode_windowed(
             cfg, params, torch.from_numpy(tokens).to(dev), torch.from_numpy(lengths).to(dev),
-            prob_bits, overlap, cache_grow, mode=window_mode, slide_seg=slide_seg)
+            prob_bits, overlap, cache_grow, mode=window_mode)
         if pending is not None:
             finish(*pending)
         pending = (w0, nb, words_d, nwords_d)
@@ -281,8 +286,7 @@ def encode_lm_span(cfg: LMConfig, params: Transformer, data: bytes, start: int, 
 
 def decode_lm_span(cfg: LMConfig, params: Transformer, blocks, start: int, end: int,
                    block_tokens: int, lanes: int, prob_bits: int, overlap: int,
-                   cache_grow: int = 0, window_mode: str = "reprime",
-                   slide_seg: int = 0) -> list[bytes]:
+                   cache_grow: int = 0, window_mode: str = "reprime") -> list[bytes]:
     """Decode container blocks [start, end); returns their bytes in block
     order (the same wave pipeline as the encoder)."""
     cap = encode_capacity(block_tokens)
@@ -316,8 +320,7 @@ def decode_lm_span(cfg: LMConfig, params: Transformer, blocks, start: int, end: 
         if any_coded:
             syms_d = lm_decode_windowed(
                 cfg, params, torch.from_numpy(words).to(dev), torch.from_numpy(lengths).to(dev),
-                prob_bits, block_tokens, overlap, cache_grow, mode=window_mode,
-                slide_seg=slide_seg)
+                prob_bits, block_tokens, overlap, cache_grow, mode=window_mode)
         if pending is not None:
             finish(*pending)
         pending = (w0, nb, syms_d)

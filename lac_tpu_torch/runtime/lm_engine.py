@@ -1,44 +1,66 @@
 """LM coding engine: lock-step batched encode and decode with a transformer.
 
-Ports ``lac_tpu/runtime/lm_engine.py``: ``_step_cdf`` (:42-47), the
-fixed-width encode and decode (``_encode_intervals`` :49-68,
-``_decode_scan`` :265-286) and the growing-cache schedule (``GROW_BUCKET``,
-``_grow_cache``, ``_check_grow``, ``_grown_segments``, ``_run_grown``,
-``_encode_intervals_grown``, ``_decode_scan_grown`` :173-263,
-``_seg_intervals`` :361-372, ``_seg_decode`` :539-555), both run by one
-encode and one decode function (the fixed width is the schedule's one
-segment, as ``_grown_segments`` gives it at bucket 0), ``lm_encode`` and
-``lm_decode`` (:289-326), ``lm_encode_windowed`` and ``lm_decode_windowed``
-for blocks within the model context (:397-430, :557-569; a longer block is
-ROADMAP A6 and raises), and ``lm_fingerprint`` (:629-672). The det8,
-kv8 and w8 forwards are A8 and A7: the transformer raises for them.
+Ports ``lac_tpu/runtime/lm_engine.py``: the fixed-width and growing-cache
+schedules (``GROW_BUCKET``, ``_grow_cache``, ``_check_grow``,
+``_grown_segments``, ``_run_grown`` :173-263; the fixed width of
+``_encode_intervals`` :49-68 and ``_decode_scan`` :265-286 is the
+schedule's one segment at bucket 0), ``lm_encode`` and ``lm_decode``
+(:289-326), the windowed schedules for blocks longer than the model
+context (ROADMAP A6): ``window_schedule`` (:339-358), ``_reprime_cdf``
+(:374-383), ``_slide_cfg`` (:385-394), slide mode, the ring cache, with a
+``slide_seg`` (``_encode_intervals_slide_seg`` :518-536,
+``_decode_scan_slide_seg`` :486-516) or without (one ring-width scan,
+:441-444, :590-591), reprime mode with growth in the first window only
+when ``max_seq % cache_grow == 0`` (:445-478, :592-623), and
+``lm_encode_windowed`` / ``lm_decode_windowed`` (:396-478, :556-623);
+and ``lm_fingerprint`` (:629-672). det8's slide paths (:140-170, its
+segmented decode) are A8, the kv8 and w8 forwards A7: the transformer
+raises for them.
+
+One function, ``_schedule``, walks every schedule for both directions. The
+encoder and the decoder differ only in the runner they hand it
+(``step_graph.SegIntervals`` or ``SegDecode``: what a step does with its
+CDF), so the geometry (which positions run at which cache width, where a
+re-prime prefills) has one owner: the schedule is the bitstream. A
+re-prime prefills the kept tokens into the call's full-width cache (slots
+past them hold older K/V, masked as a fresh cache's zeros are) and codes
+the next position from the prefill's last logits; the decoder takes the
+kept tokens from the symbols it has decoded, on the device. ``slide_seg``
+bounds ``lac_tpu``'s compiled scans, which changes its float bits; here
+every ring step is the same replay whatever the segment, so the value
+changes no step. The container records it and the fingerprint folds it,
+as in ``lac_tpu``.
 
 Determinism contract (``lac_tpu/runtime/lm_engine.py:1-15``): the encoder
-and the decoder run the SAME step function, ``_step_cdf``, on the SAME
+and the decoder run the SAME step, ``step_graph._step_cdf``, on the SAME
 shapes (lanes, cache width) and the SAME schedule, one single-token
 forward per position, lock-step across the lanes. Given the same weights,
 stack and device, the float logits are then identical on both sides, so
-the integer CDFs match bit for bit. The step runs eagerly: no
-``torch.compile``, since two compiled programs may fuse the shared step
-differently (``lac_tpu``'s hazard #5). On CUDA the coding calls run under
-``_coding``: deterministic algorithms on, TF32 and reduced-precision bf16
-reductions off; ``lac_tpu_torch/__init__.py`` sets
-``CUBLAS_WORKSPACE_CONFIG`` when the package is imported, before any
-cuBLAS call of the process. A container carries the fingerprint of the
-stack that wrote it, so a decoder on another stack fails loudly.
+the integer CDFs match bit for bit. On CUDA a step is a replay of a graph
+captured per (lanes, cache width, direction), the first step at a width
+eager on both sides (``step_graph``); no ``torch.compile``, since two
+compiled programs may fuse the shared step differently (``lac_tpu``'s
+hazard #5). The coding calls run under ``_coding``: deterministic
+algorithms on, TF32 and reduced-precision bf16 reductions off;
+``lac_tpu_torch/__init__.py`` sets ``CUBLAS_WORKSPACE_CONFIG`` when the
+package is imported, before any cuBLAS call of the process. A container
+carries the fingerprint of the stack that wrote it, so a decoder on
+another stack fails loudly.
 """
 
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import zlib
 
 import numpy as np
 import torch
 
-from ..coder.vector import _decode_step, _encode_scan, rans_decode_init
+from ..coder.vector import _encode_scan
 from ..models.transformer import LMConfig, Transformer, forward, init_cache
-from ..ops.quantize import cdf_from_freq, gather_intervals, quantize_logits
+from ..ops.quantize import cdf_from_freq, quantize_logits
+from .step_graph import SegDecode, SegIntervals, _Runner, _step_cdf
 
 __all__ = [
     "GROW_BUCKET",
@@ -48,10 +70,11 @@ __all__ = [
     "lm_decode_windowed",
     "lm_fingerprint",
     "stack_tag",
+    "window_schedule",
 ]
 
 GROW_BUCKET = 128
-_SLIDE_SEG = 512  # lac_tpu's float slide segment (lm_engine.py:483); A6 runs it
+_SLIDE_SEG = 512  # lac_tpu's float slide segment (lm_engine.py:483)
 
 
 @contextlib.contextmanager
@@ -86,43 +109,6 @@ def _device(params: Transformer) -> torch.device:
     return params.embed.device
 
 
-def _bos(cfg: LMConfig, b: int, device) -> torch.Tensor:
-    return torch.full((b,), cfg.bos_id, dtype=torch.int64, device=device)
-
-
-def _step_cdf(cfg: LMConfig, params: Transformer, cache: dict, prev: torch.Tensor,
-              prob_bits: int):
-    """One lock-step model step: prev tokens [B] -> (cdf [B, V+1], cache)."""
-    logits, cache = forward(cfg, params, prev[:, None], cache)
-    return cdf_from_freq(quantize_logits(logits[:, 0, :], prob_bits)), cache
-
-
-def _seg_intervals(cfg: LMConfig, params: Transformer, cache: dict, prev: torch.Tensor,
-                   tokens_seg: torch.Tensor, prob_bits: int):
-    """``steps`` single-token steps over tokens_seg [B, steps]; returns
-    (cache, prev, cdf_lo [B, steps], freq [B, steps])."""
-    los, fs = [], []
-    for t in range(tokens_seg.shape[1]):
-        cdf, cache = _step_cdf(cfg, params, cache, prev, prob_bits)
-        prev = tokens_seg[:, t]
-        lo, f = gather_intervals(cdf, prev)
-        los.append(lo)
-        fs.append(f)
-    return cache, prev, torch.stack(los, dim=1), torch.stack(fs, dim=1)
-
-
-def _seg_decode(cfg: LMConfig, params: Transformer, cache: dict, prev: torch.Tensor,
-                rstate, prob_bits: int, steps: int, t0: int, lengths: torch.Tensor):
-    """``steps`` decode steps from position ``t0``; returns (cache, prev,
-    rstate, syms [B, steps])."""
-    syms = []
-    for i in range(steps):
-        cdf, cache = _step_cdf(cfg, params, cache, prev, prob_bits)
-        prev, rstate = _decode_step(rstate, cdf, prob_bits, (t0 + i) < lengths)
-        syms.append(prev)
-    return cache, prev, rstate, torch.stack(syms, dim=1)
-
-
 def _first_width(t_len: int, bucket: int) -> int:
     """The cache's first width: one bucket, or without growth the block
     rounded up to 128 (the reference's fixed width)."""
@@ -141,7 +127,8 @@ def _first_width(t_len: int, bucket: int) -> int:
 
 
 def _grow_cache(cfg: LMConfig, cache: dict, new_w: int) -> dict:
-    """A cache ``new_w`` wide holding ``cache``'s entries at the front."""
+    """A cache ``new_w`` wide holding ``cache``'s entries at the front (and
+    its ``pos`` tensor)."""
     k = cache["k"]
     grown = init_cache(cfg, k.shape[1], new_w, device=k.device)
     for key in ("k", "v"):
@@ -167,62 +154,137 @@ def _grown_segments(t_len: int, bucket: int):
     return segs
 
 
-def _run_grown(cfg: LMConfig, cache: dict, carry, t_len: int, bucket: int, step):
+def _run_grown(cfg: LMConfig, cache: dict, t_len: int, bucket: int, run: _Runner) -> dict:
     """Drive the growing-cache schedule: grow the cache to each segment's
-    width, then ``step(cache, carry, i, steps) -> (cache, carry)``.
+    width, then run the segment's steps; returns the last cache.
 
     This is the ONE owner of the grow-loop geometry for both sides: the
     schedule IS the bitstream, so an encoder copy and a decoder copy that
     could drift apart would be a corruption hazard, not a style issue."""
-    for i, steps, w in _grown_segments(t_len, bucket):
+    for _, steps, w in _grown_segments(t_len, bucket):
         if w is not None and cache["k"].shape[2] < w:
             cache = _grow_cache(cfg, cache, w)
-        cache, carry = step(cache, carry, i, steps)
-    return cache, carry
+        run.steps(cache, steps)
+    return cache
 
 
-def _encode_intervals(cfg: LMConfig, params: Transformer, tokens: torch.Tensor,
-                      prob_bits: int, bucket: int):
-    """All positions' (cdf_lo, freq) under the cache schedule of ``bucket``
-    (0: one fixed width)."""
-    b, t_len = tokens.shape
-    los, fs = [], []
-
-    def step(cache, prev, i, steps):
-        cache, prev, lo, f = _seg_intervals(cfg, params, cache, prev,
-                                            tokens[:, i : i + steps], prob_bits)
-        los.append(lo)
-        fs.append(f)
-        return cache, prev
-
-    cache = init_cache(cfg, b, _first_width(t_len, bucket), device=tokens.device)
-    _run_grown(cfg, cache, _bos(cfg, b, tokens.device), t_len, bucket, step)
-    return torch.cat(los, dim=1), torch.cat(fs, dim=1)
+# --------------------------------------------------------------------------
+# Windowed schedules: blocks longer than the model context.
+#
+# reprime (the reference llama_compress.py:31-39 semantics): when the cache
+# fills, keep the most recent ``window - window // overlap`` tokens, prefill
+# them into the cache (positions re-based to 0..keep-1) and step on; the
+# prefill's last logits code the next token. slide: one ``max_seq``-wide
+# ring with global RoPE positions (LMConfig.slide), no prefill, the full
+# window of context at every token. Both schedules depend only on (t_len,
+# window, overlap, bucket), so the two sides replay the same computations.
+# --------------------------------------------------------------------------
 
 
-def _decode_scan(cfg: LMConfig, params: Transformer, words: torch.Tensor,
-                 lengths: torch.Tensor, prob_bits: int, t_len: int, bucket: int):
-    """The symbols [B, t_len] under the cache schedule of ``bucket``."""
-    b = words.shape[0]
-    outs = []
+def window_schedule(t_len: int, window: int, overlap: int = 2):
+    """Segments of the windowed run: ([(t0, steps, reprime_before)], keep)."""
+    keep = window - window // overlap
+    if keep < 1 or keep >= window:
+        raise ValueError(f"bad window/overlap: {window}/{overlap}")
+    segs = []
+    pos = 0
+    first = True
+    while pos < t_len:
+        if first:
+            steps = min(window, t_len - pos)
+            segs.append((pos, steps, False))
+            first = False
+        else:
+            # re-prime codes 1 token; then step the rest of the refilled room
+            steps = min(window - keep, t_len - pos)
+            segs.append((pos, steps, True))
+        pos += steps
+    return segs, keep
 
-    def step(cache, carry, i, steps):
-        prev, rstate = carry
-        cache, prev, rstate, syms = _seg_decode(cfg, params, cache, prev, rstate,
-                                                prob_bits, steps, i, lengths)
-        outs.append(syms)
-        return cache, (prev, rstate)
 
-    cache = init_cache(cfg, b, _first_width(t_len, bucket), device=words.device)
-    carry = (_bos(cfg, b, words.device), rans_decode_init(words))
-    _run_grown(cfg, cache, carry, t_len, bucket, step)
-    return torch.cat(outs, dim=1)
+def _reprime_cdf(cfg: LMConfig, params: Transformer, kept: torch.Tensor, prob_bits: int,
+                 cache: dict):
+    """Prefill the kept tokens [B, keep] into ``cache`` (K/V at 0..keep-1,
+    ``pos`` keep); returns (the CDF of the next token, cache)."""
+    logits, cache = forward(cfg, params, kept, cache, prefill=True)
+    return cdf_from_freq(quantize_logits(logits[:, -1, :], prob_bits)), cache
+
+
+def _slide_cfg(cfg: LMConfig, t_len: int = 0) -> LMConfig:
+    """The ring-cache forward for coding past the context (LMConfig.slide);
+    raises for learned positions (LMConfig.__post_init__). ``t_len`` sizes
+    det8's RoPE tables, which the float path does not have."""
+    return dataclasses.replace(cfg, slide=True, rope_positions=t_len if cfg.det8 else 0)
+
+
+def _step_cfg(cfg: LMConfig, t_len: int, mode: str) -> LMConfig:
+    """The forward a block's steps run: the ring past the context in slide
+    mode, else ``cfg``."""
+    if t_len <= cfg.max_seq:
+        return cfg
+    if mode == "slide":
+        return _slide_cfg(cfg, t_len)
+    if mode != "reprime":
+        raise ValueError(f"unknown window mode: {mode!r}")
+    return cfg
+
+
+def _schedule(run: _Runner, t_len: int, bucket: int, overlap: int) -> None:
+    """Run the block's ``t_len`` positions through ``run`` (its ``cfg`` from
+    ``_step_cfg``): within the context the growing-cache schedule of
+    ``bucket`` (0: one fixed width); past it the ring (slide) or the
+    re-prime schedule of ``overlap``."""
+    cfg, b, dev = run.cfg, run.lanes, run.device
+    if t_len <= cfg.max_seq:
+        cache = init_cache(cfg, b, _first_width(t_len, bucket), device=dev)
+        _run_grown(cfg, cache, t_len, bucket, run)
+        return
+    if cfg.slide:  # the ring is max_seq wide from the first step: no growth
+        run.steps(init_cache(cfg, b, device=dev), t_len)
+        return
+    segs, keep = window_schedule(t_len, cfg.max_seq, overlap)
+    # growth in the first window only (a re-prime fills keep slots, so later
+    # windows need the full width), and only where it ends on the window
+    grow = bucket if (bucket and cfg.max_seq % bucket == 0) else 0
+    cache = init_cache(cfg, b, grow or None, device=dev)
+    for t0, steps, reprime in segs:
+        if reprime:
+            cdf, cache = _reprime_cdf(cfg, run.params, run.symbols[:, t0 - keep : t0],
+                                      run.prob_bits, cache)
+            run.code(cdf)
+            t0, steps = t0 + 1, steps - 1
+        cache = _run_grown(cfg, cache, steps, grow if t0 == 0 else 0, run)
 
 
 def _as_tensor(a, dtype, device) -> torch.Tensor:
     if isinstance(a, torch.Tensor):
         return a.to(device=device, dtype=dtype)
     return torch.from_numpy(np.ascontiguousarray(a)).to(device=device, dtype=dtype)
+
+
+def _encode(cfg: LMConfig, params: Transformer, tokens, lengths, prob_bits: int,
+            cache_grow: int, mode: str, overlap: int):
+    _check_grow(cache_grow)
+    dev = _device(params)
+    tokens = _as_tensor(tokens, torch.int64, dev)
+    lengths = _as_tensor(lengths, torch.int64, dev)
+    t_len = tokens.shape[1]
+    with _coding(dev):
+        run = SegIntervals(_step_cfg(cfg, t_len, mode), params, prob_bits, tokens)
+        _schedule(run, t_len, cache_grow, overlap)
+        return _encode_scan(run.lo, run.f, lengths, prob_bits, t_len + 2)
+
+
+def _decode(cfg: LMConfig, params: Transformer, words, lengths, prob_bits: int, t_len: int,
+            cache_grow: int, mode: str, overlap: int) -> torch.Tensor:
+    _check_grow(cache_grow)
+    dev = _device(params)
+    words = _as_tensor(words, torch.int64, dev)
+    lengths = _as_tensor(lengths, torch.int64, dev)
+    with _coding(dev):
+        run = SegDecode(_step_cfg(cfg, t_len, mode), params, prob_bits, words, lengths, t_len)
+        _schedule(run, t_len, cache_grow, overlap)
+        return run.symbols
 
 
 def lm_encode(cfg: LMConfig, params: Transformer, tokens, lengths, prob_bits: int,
@@ -232,15 +294,9 @@ def lm_encode(cfg: LMConfig, params: Transformer, tokens, lengths, prob_bits: in
     order, nwords [B] int64) on the parameters' device. ``cache_grow``: the
     growing-cache bucket (0 = fixed width); the decoder must use the same
     value (the container records it)."""
-    _check_grow(cache_grow)
-    dev = _device(params)
-    tokens = _as_tensor(tokens, torch.int64, dev)
-    lengths = _as_tensor(lengths, torch.int64, dev)
     if tokens.shape[1] > cfg.max_seq:
         raise ValueError(f"block tokens {tokens.shape[1]} > context {cfg.max_seq}")
-    with _coding(dev):
-        lo, f = _encode_intervals(cfg, params, tokens, prob_bits, cache_grow)
-        return _encode_scan(lo, f, lengths, prob_bits, tokens.shape[1] + 2)
+    return _encode(cfg, params, tokens, lengths, prob_bits, cache_grow, "reprime", 2)
 
 
 def lm_decode(cfg: LMConfig, params: Transformer, words, lengths, prob_bits: int,
@@ -248,41 +304,30 @@ def lm_decode(cfg: LMConfig, params: Transformer, words, lengths, prob_bits: int
     """Decode B lanes of ``t_len`` positions from their words ([B, cap], in
     decode order); returns the symbols [B, t_len] int64 (0 past a lane's
     length) on the parameters' device."""
-    _check_grow(cache_grow)
-    dev = _device(params)
-    words = _as_tensor(words, torch.int64, dev)
-    lengths = _as_tensor(lengths, torch.int64, dev)
     if t_len > cfg.max_seq:
         raise ValueError(f"block tokens {t_len} > context {cfg.max_seq}")
-    with _coding(dev):
-        return _decode_scan(cfg, params, words, lengths, prob_bits, t_len, cache_grow)
-
-
-def _windowed_not_ported(t_len: int, cfg: LMConfig) -> NotImplementedError:
-    return NotImplementedError(
-        f"a block of {t_len} tokens is longer than the model context {cfg.max_seq}: "
-        "the windowed schedules (slide, reprime) are not ported to lac_tpu_torch "
-        "yet (ROADMAP A6)")
+    return _decode(cfg, params, words, lengths, prob_bits, t_len, cache_grow, "reprime", 2)
 
 
 def lm_encode_windowed(cfg: LMConfig, params: Transformer, tokens, lengths, prob_bits: int,
-                       overlap: int = 2, cache_grow: int = 0, mode: str = "reprime",
-                       slide_seg: int = 0):
-    """``lm_encode`` for blocks within the model context; a longer block
-    needs the windowed schedules (``mode``, ``overlap``, ``slide_seg``),
-    ROADMAP A6, and raises."""
-    if tokens.shape[1] > cfg.max_seq:
-        raise _windowed_not_ported(tokens.shape[1], cfg)
-    return lm_encode(cfg, params, tokens, lengths, prob_bits, cache_grow)
+                       overlap: int = 2, cache_grow: int = 0, mode: str = "reprime"):
+    """``lm_encode`` for lanes of any length. Past the model context,
+    ``mode`` picks the schedule: "reprime" re-primes the cache every
+    ``window // overlap`` tokens, "slide" rings a ``cfg.max_seq`` cache with
+    global RoPE positions (full-window context at every token; slide
+    ignores ``cache_grow``). The mode and ``overlap`` are part of the
+    bitstream's schedule: the container records them and the decoder must
+    pass the same. ``lac_tpu``'s ``slide_seg`` changes no step here (module
+    docstring), so the engine does not take it."""
+    return _encode(cfg, params, tokens, lengths, prob_bits, cache_grow, mode, overlap)
 
 
 def lm_decode_windowed(cfg: LMConfig, params: Transformer, words, lengths, prob_bits: int,
                        t_len: int, overlap: int = 2, cache_grow: int = 0,
-                       mode: str = "reprime", slide_seg: int = 0) -> torch.Tensor:
-    """``lm_decode`` for blocks within the model context (A6 above it)."""
-    if t_len > cfg.max_seq:
-        raise _windowed_not_ported(t_len, cfg)
-    return lm_decode(cfg, params, words, lengths, prob_bits, t_len, cache_grow)
+                       mode: str = "reprime") -> torch.Tensor:
+    """``lm_decode`` for lanes of any length, under the encoder's schedule
+    (``lm_encode_windowed``)."""
+    return _decode(cfg, params, words, lengths, prob_bits, t_len, cache_grow, mode, overlap)
 
 
 def stack_tag(device: torch.device) -> str:
@@ -308,7 +353,8 @@ def lm_fingerprint(cfg: LMConfig, params: Transformer, prob_bits: int, cache_gro
     dev = _device(params)
     cache = init_cache(cfg, 1, device=dev)
     with _coding(dev):
-        cdf, _ = _step_cdf(cfg, params, cache, _bos(cfg, 1, dev), prob_bits)
+        bos = torch.full((1,), cfg.bos_id, dtype=torch.int64, device=dev)
+        cdf, _ = _step_cdf(cfg, params, cache, bos, prob_bits)
     crc = zlib.crc32(cdf.cpu().numpy().astype("<i4").tobytes())
     if cache_grow:
         crc = zlib.crc32(f"cache_grow={cache_grow}".encode(), crc)

@@ -33,6 +33,26 @@ LM_CHECKPOINT, model=lac_tpu.train.load_checkpoint(LM_CHECKPOINT),
 ``tests/test_torch_lm_golden.py`` recomputes it with ``lac_tpu``, and
 ``chip_smoke.py`` holds the port's container on the card to it within 1 %:
 float logits differ across stacks, so the port's bits differ a little.
+
+The windowed slice's data is the flagship's held-out slice
+(``heldout_slice``): the first 262,144 bytes of every 13th ``.py`` file,
+recursive and sorted, of a Python 3.11 standard library
+(``bench.heldout_slice()``, which training corpora exclude), committed as
+``data/heldout_slice.bin`` because the card's machine runs Python 3.12,
+and checked against its crc32. ``GOLDEN_WINDOW_BPB`` holds ``lac_tpu``'s
+bits/byte for the byte-6l checkpoint (context 768) on its first
+``WINDOW_BPB_BYTES`` (64 KiB) at ``WINDOW_CODING`` (block 2048, 32 lanes,
+the CLI's other defaults), once per window mode: 2,048 steps, reprime's
+with 4 prefills of 384 tokens. ``GOLDEN_SLIDE16_BPB`` holds its bits/byte
+for ``checkpoints/byte16l-pysrc.npz`` on the first ``SLIDE16_BYTES`` at
+``SLIDE16_CODING`` (block 4096, 64 lanes, overlap 8, slide:
+``measurements/r3_slide.log``'s configuration, 4,096 steps). Each was
+computed on the CPU as ``GOLDEN_LM_BPB`` was, with ``lac_tpu``'s
+``lm_compress_bytes(data, model_ref="file:" + checkpoint,
+model=load_checkpoint(checkpoint), **coding)``; ``tests/test_torch_window.py``
+recomputes them (the byte-16l one in a test marked ``slow``), and
+``chip_smoke.py``'s phase 5 holds the port's containers on the card to
+them within 1 %.
 """
 
 from __future__ import annotations
@@ -44,7 +64,10 @@ import zlib
 import numpy as np
 
 __all__ = ["SMOKE_BYTES", "GOLDEN", "GOLDEN_LM", "LM_CHECKPOINT", "GOLDEN_LM_BPB",
-           "LM_BPB_BYTES", "LM_CODING", "smoke_corpus", "container_digest", "lm_windows"]
+           "LM_BPB_BYTES", "LM_CODING", "HELDOUT_BYTES", "HELDOUT_CRC", "GOLDEN_WINDOW_BPB",
+           "WINDOW_BPB_BYTES", "WINDOW_CODING", "SLIDE16_CHECKPOINT", "GOLDEN_SLIDE16_BPB",
+           "SLIDE16_BYTES", "SLIDE16_CODING", "smoke_corpus", "container_digest",
+           "lm_windows", "heldout_slice"]
 
 SMOKE_BYTES = 32 << 20  # bench.py's corpus size
 
@@ -74,7 +97,27 @@ LM_BPB_BYTES = 32 << 10
 LM_CODING = dict(block_tokens=512, lanes=64, prob_bits=16, cache_grow=128,
                  window_mode="auto")
 
+# the held-out slice, as committed
+HELDOUT_BYTES = 262144
+HELDOUT_CRC = 0x65DB6543
+
+# lac_tpu's bits/byte for the byte-6l checkpoint (LM_CHECKPOINT) on the
+# first WINDOW_BPB_BYTES of the held-out slice at WINDOW_CODING, by window mode
+GOLDEN_WINDOW_BPB = {"reprime": 1.9459228515625, "slide": 2.996826171875}
+WINDOW_BPB_BYTES = 64 << 10
+WINDOW_CODING = dict(block_tokens=2048, lanes=32, prob_bits=16, overlap=2, cache_grow=128)
+
+# lac_tpu's bits/byte for byte-16l on the first SLIDE16_BYTES of the
+# held-out slice at SLIDE16_CODING
+SLIDE16_CHECKPOINT = "checkpoints/byte16l-pysrc.npz"
+GOLDEN_SLIDE16_BPB = 0.8763427734375
+SLIDE16_BYTES = HELDOUT_BYTES
+SLIDE16_CODING = dict(block_tokens=4096, lanes=64, prob_bits=16, overlap=8, cache_grow=128,
+                      window_mode="slide")
+
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+_HELDOUT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data",
+                        "heldout_slice.bin")
 
 
 def smoke_corpus(n: int = SMOKE_BYTES, root: str = _REPO) -> bytes:
@@ -104,3 +147,13 @@ def lm_windows(root: str = _REPO) -> np.ndarray:
     stride = (len(arr) - LM_WINDOW) // LM_WINDOWS
     return np.stack([arr[i * stride : i * stride + LM_WINDOW]
                      for i in range(LM_WINDOWS)]).astype(np.int32)
+
+
+def heldout_slice() -> bytes:
+    """The held-out slice's HELDOUT_BYTES, checked against HELDOUT_CRC."""
+    with open(_HELDOUT, "rb") as f:
+        data = f.read()
+    if len(data) != HELDOUT_BYTES or zlib.crc32(data) != HELDOUT_CRC:
+        raise ValueError(f"{_HELDOUT}: {len(data)} bytes, crc32 {zlib.crc32(data):#010x}; "
+                         f"want {HELDOUT_BYTES} bytes, crc32 {HELDOUT_CRC:#010x}")
+    return data

@@ -119,8 +119,24 @@ def test_lm_unported_flags_exit(one_thread, corpus_file, flag, item):
 
 
 def test_lm_block_past_the_context_exits(one_thread, corpus_file):
-    with pytest.raises(SystemExit, match="A6"):
-        cli.main(["compress", corpus_file, *LM_SMALL, "--block-tokens", "512"])
+    """Named for what it checked before the windowed schedules were ported
+    (that a block past the context exited naming A6); now such a block
+    (300 tokens, tiny's context is 256) round-trips through compress and
+    decompress on the CPU, and the header records the resolved mode."""
+    from lac_tpu_torch.stream.container import read_container
+
+    args = [*LM_SMALL, "--block-tokens", "300", "--lanes", "2"]
+    assert cli.main(["compress", corpus_file, *args]) == 0
+    with open(corpus_file + ".lac", "rb") as f:
+        header, blocks = read_container(f.read())
+    assert len(blocks) == 20 and header.config["max_seq"] == 256
+    assert {k: header.config[k] for k in ("block_tokens", "lanes", "window_mode",
+                                          "slide_seg")} == {
+        "block_tokens": 300, "lanes": 2, "window_mode": "slide", "slide_seg": 512}
+    os.remove(corpus_file)
+    assert cli.main(["decompress", corpus_file + ".lac", "--device", "cpu"]) == 0
+    with open(corpus_file, "rb") as f:
+        assert f.read() == smoke_corpus(6000)
 
 
 def test_lm_compress_defaults_to_the_card(corpus_file):

@@ -466,3 +466,65 @@ def test_lm_cpu_container_is_refused_on_the_card(cuda):
     assert lm_api.lm_decompress_bytes(c, device="cpu") == data
     with pytest.raises(ValueError, match="fingerprint mismatch"):
         lm_api.lm_decompress_bytes(c)
+
+
+# --------------------------------------------------------------------------
+# Windowed LM coding on the card: the step as a CUDA graph
+# (runtime.step_graph), blocks past the model context
+# --------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("slide", [False, True])
+def test_lm_graph_step_equals_the_eager_step(cuda, slide):
+    """From one cache (a prefill of the context), 12 coding steps eagerly
+    and through the runner's graph (its first step eager): the CDFs and the
+    intervals equal bit for bit; on the ring the steps run past its end."""
+    import dataclasses
+
+    from lac_tpu_torch.models import transformer as T
+    from lac_tpu_torch.models.lm_registry import resolve_lm
+    from lac_tpu_torch.runtime import lm_engine, step_graph
+
+    cfg, params = resolve_lm("prng:tiny:0", max_seq=64)
+    cfg = dataclasses.replace(cfg, slide=slide)
+    start = 64 if slide else 40
+    toks = torch.from_numpy(np.random.default_rng(1).integers(0, 256, (6, start + 12))).to(cuda)
+    cdfs, runs = [], []
+    with lm_engine._coding(cuda):
+        base = T.init_cache(cfg, 6, 64, device=cuda)
+        T.forward(cfg, params, toks[:, :start], base, prefill=True)
+        for graphed in (False, True):
+            run = step_graph.SegIntervals(cfg, params, 16, toks[:, start:])
+            run.prev.copy_(toks[:, start - 1])
+            cache = {k: v.clone() for k, v in base.items()}
+            got = []
+            for _ in range(12):
+                run.steps(cache, 1) if graphed else run._step(cache)
+                got.append(run.cdf.clone())
+            cdfs.append(torch.stack(got))
+            runs.append(run)
+    assert torch.equal(cdfs[0], cdfs[1])
+    assert torch.equal(runs[0].lo, runs[1].lo) and torch.equal(runs[0].f, runs[1].f)
+    assert len(runs[1]._graphs) == 1
+
+
+@pytest.mark.parametrize("mode", ["slide", "reprime"])
+def test_lm_windowed_round_trip_on_the_card(cuda, mode):
+    """byte-6l (context 768) at block 1000, 4 lanes, cache_grow 128: every
+    block coded, the round trip equal, a second encode equal."""
+    import os
+
+    from lac_tpu_torch.runtime import lm_api
+    from lac_tpu_torch.smoke import heldout_slice
+    from lac_tpu_torch.stream.container import read_container
+    from lac_tpu_torch.train import load_checkpoint
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    model = load_checkpoint(os.path.join(root, LM_CKPT))
+    data = heldout_slice()[:3500]
+    kw = dict(block_tokens=1000, lanes=4, cache_grow=128, window_mode=mode)
+    c = lm_api.lm_compress_bytes(data, model_ref="file:" + LM_CKPT, model=model, **kw)
+    header, blocks = read_container(c)
+    assert header.config["window_mode"] == mode and all(b.token_count for b in blocks)
+    assert lm_api.lm_decompress_bytes(c, model=model) == data
+    assert lm_api.lm_compress_bytes(data, model_ref="file:" + LM_CKPT, model=model, **kw) == c

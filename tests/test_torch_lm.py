@@ -226,9 +226,12 @@ def test_forward_step_needs_a_cache_and_refuses_an_overrun():
     with pytest.raises(ValueError, match="init_cache"):
         T.forward(cfg, model, torch.zeros(1, 1, dtype=torch.long))
     cache = T.init_cache(cfg, 1, 4)
-    cache["pos"] = 4
-    with pytest.raises(ValueError, match="overrun"):
+    cache["pos"].fill_(4)  # the cursor is a device tensor, checked on the device
+    with pytest.raises(RuntimeError, match="overrun"):
         T.forward(cfg, model, torch.zeros(1, 1, dtype=torch.long), cache)
+    with pytest.raises(ValueError, match="overruns"):
+        T.forward(cfg, model, torch.zeros(1, 5, dtype=torch.long), T.init_cache(cfg, 1, 4),
+                  prefill=True)
 
 
 # --------------------------------------------------------------------------
@@ -334,8 +337,11 @@ def test_unported_modes_and_refs_raise(trained):
             lm_api.lm_compress_bytes(DATA, model=(cfg, model), device="cpu", **{flag: True})
     with pytest.raises(NotImplementedError, match="A13"):
         lm_api.lm_compress_bytes(DATA, model=(cfg, model), device="cpu", mesh=object())
-    with pytest.raises(NotImplementedError, match="A6"):
-        lm_api.lm_compress_bytes(DATA, model=(cfg, model), device="cpu", block_tokens=512)
+    # a block past the context codes (tests/test_torch_window.py); det8's
+    # slide schedule stays A8
+    with pytest.raises(NotImplementedError, match="A8"):
+        E.lm_encode_windowed(dataclasses.replace(cfg, det8=True), model,
+                             np.zeros((1, 300), np.int64), np.ones(1), 16, mode="slide")
     with pytest.raises(NotImplementedError, match="A11"):
         treg.resolve_lm("hf:some/model", device="cpu")
     with pytest.raises(ValueError, match="cache_grow"):

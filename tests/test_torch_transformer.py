@@ -132,14 +132,15 @@ def test_gqa_takes_the_exact_branch(monkeypatch):
 
 
 def test_unported_modes_raise():
-    """The det8, w8, kv8 and slide forwards raise, naming their ROADMAP
-    items, for the prefill and for the cached decode step (which A5
-    ported: tests/test_torch_lm.py)."""
+    """The det8, w8 and kv8 forwards raise, naming their ROADMAP items, for
+    the prefill and for the cached decode step (which A5 ported:
+    tests/test_torch_lm.py). The slide forward (A6, held to lac_tpu's in
+    tests/test_torch_window.py) runs both."""
     cfg = T.tiny_config()
     model = T.init_params(cfg)
     toks = torch.zeros(1, 4, dtype=torch.long)
     cache = T.init_cache(cfg, 1, 8)
-    for flag, item in (("w8", "A7"), ("kv8", "A7"), ("det8", "A8"), ("slide", "A6")):
+    for flag, item in (("w8", "A7"), ("kv8", "A7"), ("det8", "A8")):
         mode = dataclasses.replace(cfg, **{flag: True})
         with pytest.raises(NotImplementedError, match=item):
             T.forward(mode, model, toks, prefill=True)
@@ -147,6 +148,11 @@ def test_unported_modes_raise():
             T.forward(mode, model, toks, cache)
         with pytest.raises(NotImplementedError, match=item):
             T.init_cache(mode, 1, 8)
+    slide = dataclasses.replace(cfg, slide=True)
+    with torch.no_grad():
+        assert tuple(T.forward(slide, model, toks, prefill=True).shape) == (1, 4, cfg.vocab)
+        logits, cache = T.forward(slide, model, toks, T.init_cache(slide, 1, 8))
+    assert tuple(logits.shape) == (1, 4, cfg.vocab) and int(cache["pos"]) == 4
 
 
 def test_presets_and_init_match_lac_tpu():
