@@ -2,7 +2,7 @@ import faulthandler; faulthandler.dump_traceback_later(1100, exit=True)  # noqa:
 
 # Drive lac_tpu_torch's main path on one CUDA card and check it.
 #
-#   python3 chip_smoke.py              phases 0-5, about five minutes
+#   python3 chip_smoke.py              phases 0-6, about eight minutes
 #   python3 chip_smoke.py --flagship   the flagship schedule alone (below)
 #
 # Phase 0  the card's name and power limit; build the CUDA kernels; the
@@ -98,6 +98,28 @@ import faulthandler; faulthandler.dump_traceback_later(1100, exit=True)  # noqa:
 #          that a prefill of 1024 tokens filled (pos past the first window),
 #          32 steps at 64 lanes and at 4: CDFs equal bit for bit, ms a step,
 #          kernels a step, device busy and idle share, and the step's bound.
+# Phase 6  the int8 LM modes, kv8 (int8 KV cache) and w8 (int8 weights)
+#          (slice 13; no TPU kernel, so K1-K12 must not launch): (a) byte-6l
+#          through the CLI at smoke.LM_CODING on the corpus's first 32 KiB
+#          with --kv8, --w8 and --kv8 --w8: round trip, the header's flags,
+#          bits/byte within 1 % of smoke.GOLDEN_Q8_BPB (lac_tpu's on the
+#          CPU); (b) phase 5 (a)'s byte-16l run through the CLI with --kv8
+#          --w8: round trip, bits/byte within 1 % of phase 5 (a)'s float
+#          figure, tokens/s a side; (c) TinyLlama-1.1B at full width
+#          (prng:tinyllama:0's preset, 22 layers, d 2048, GQA 32/4, vocab
+#          32000) with w8 (init_params_w8) and kv8: lm_encode / lm_decode
+#          at 64 lanes x 512 tokens of the corpus, cache_grow 128, the round
+#          trip exact; (d) graph against eager, 32 steps' CDFs equal bit for
+#          bit, at byte-16l kv8+w8 on the 1024-slot ring at 64 and 4 lanes
+#          and TinyLlama kv8+w8 at 64 lanes, width 512: ms, kernels, busy,
+#          idle and peak memory a step beside the float step at the same
+#          shape (phase 5 (c)'s, and TinyLlama's float model here) and the
+#          step's bound; no allocation during the replays; (e) the int8
+#          products exact on the card: ops.int8.int8_mm through its padding
+#          (M 1, 4, 16, 17, 64; N 61, 256, 32000; K 64, 2048, 5632; b row-
+#          and column-major) and int8_bmm at W 1024, 1040, 2048, seeded and
+#          at every value +-127, against the host's exact products, and
+#          int8_bmm refusing TF32; (f) no launch of K1-K12.
 #
 # --flagship: the shipped flagship configuration (bench.py: byte-16l, block
 # 65536, 4 lanes, overlap 8, slide, slide_seg 512) on the whole held-out
@@ -111,6 +133,7 @@ import faulthandler; faulthandler.dump_traceback_later(1100, exit=True)  # noqa:
 # a CUDA device, or without the package beside it, it exits non-zero before
 # printing any result. The last line is the JSON result.
 
+import dataclasses
 import json
 import os
 import shutil
@@ -293,8 +316,9 @@ TRAIN_BYTES = 24 << 20  # the smoke corpus up to here trains; the rest evaluates
 STEP_TOL = {0: 2e-3, 1: 2e-3}
 LATER_STEP_TOL = 2e-2
 GOLDEN_TOL = 2e-3  # nats, the port's loss against lac_tpu's GOLDEN_LM
-# H100 SXM dense peaks (NVIDIA's data sheet): bf16 tensor cores, f32 CUDA cores
-PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12}
+# H100 SXM dense peaks (NVIDIA's data sheet): bf16 and int8 tensor cores
+# (int8: operations a second), f32 CUDA cores
+PEAK_FLOPS = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
 # model id -> the prefix of its kernels and wrappers in ops/rans_kernels.py
 CODECS = {"order0n": "o0n", "order1n": "o1n", "order2n": "o2n", "order0c": "o0c"}
 # the codec gate's fallback: order0n at block 8192 records order0c
@@ -319,6 +343,10 @@ V5E_SLIDE16_BPB, V5E_FLAGSHIP_BPB = 0.8758, 0.8032
 FLAGSHIP = dict(block_tokens=65536, lanes=4, prob_bits=16, overlap=8, cache_grow=128,
                 window_mode="slide", slide_seg=512)
 FLAGSHIP_HANG_S = 2400  # the hang guard of a --flagship run
+# phase 6: the CLI's flags of each int8 mode (smoke.GOLDEN_Q8_BPB's keys);
+# TinyLlama's lanes, tokens a lane and cache bucket
+Q8_FLAGS = {"kv8": ["--kv8"], "w8": ["--w8"], "kv8+w8": ["--kv8", "--w8"]}
+TL_LANES, TL_TOKENS, TL_GROW = 64, 512, 128
 
 
 class Phase:
@@ -935,23 +963,32 @@ def phase4_determinism(torch, lm_api, lm_engine, registry, container_mod, corpus
 
 def lm_step_bound(torch, cfg, params, b: int, width: float) -> dict:
     """Least ms of one lock-step decode step of ``b`` lanes at cache width
-    ``width``: every weight read once (the embedding table only its b rows),
-    the K/V cache read once and the new K/V written once, over
-    HBM_BYTES_PER_S; against the step's flops (2 a multiply-add of every
-    product) over the bf16 peak."""
+    ``width``: every weight read once (the embedding table only its b rows;
+    under w8 the int8 codes and their f32 scales, the head among them), the
+    K/V cache read once and the new K/V written once (under kv8 a byte an
+    element and a 4-byte scale a row), over HBM_BYTES_PER_S; against the
+    step's operations (2 a multiply-add of every product) over the peak of
+    their type: int8 for w8's projections and kv8's cache products, bf16
+    for the rest."""
     es = torch.finfo(cfg.dtype).bits // 8
-    weights = sum(p.numel() * p.element_size() for name, p in params.named_parameters()
+    tensors = [*params.named_parameters(), *params.named_buffers()]
+    weights = sum(t.numel() * t.element_size() for name, t in tensors
                   if name not in ("embed", "pos_embed"))
     emb = b * cfg.d_model * es * (2 if cfg.pos_embedding == "learned" else 1)
-    head = cfg.vocab * cfg.d_model * es if cfg.tie_embeddings else 0
-    kv_row = 2 * cfg.n_layers * b * cfg.n_kv_heads * cfg.head_dim * es
+    float_head = cfg.tie_embeddings and not cfg.w8  # a w8 head is its own buffer
+    head = cfg.vocab * cfg.d_model * es if float_head else 0
+    row = cfg.head_dim + 4 if cfg.kv8 else cfg.head_dim * es
+    kv_row = 2 * cfg.n_layers * b * cfg.n_kv_heads * row
     nbytes = weights + emb + head + kv_row * width + kv_row
-    macs = sum(p.numel() for name, p in params.named_parameters()
-               if p.dim() == 2 and name not in ("embed", "pos_embed")) * b
-    macs += (cfg.vocab * cfg.d_model * b) if cfg.tie_embeddings else 0
-    macs += 2 * cfg.n_layers * b * cfg.n_heads * (width + 1) * cfg.head_dim
+    proj = sum(t.numel() for name, t in tensors
+               if t.dim() == 2 and name not in ("embed", "pos_embed") and not name.endswith(".s"))
+    proj = (proj + (cfg.vocab * cfg.d_model if float_head else 0)) * b
+    cache = 2 * cfg.n_layers * b * cfg.n_heads * width * cfg.head_dim
+    fresh = 2 * cfg.n_layers * b * cfg.n_heads * cfg.head_dim
+    int8 = (proj if cfg.w8 else 0) + (cache if cfg.kv8 else 0)
+    macs = proj + cache + fresh
     t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
-    t_ops = 1e3 * 2 * macs / PEAK_FLOPS["bf16"]
+    t_ops = 1e3 * 2 * (int8 / PEAK_FLOPS["int8"] + (macs - int8) / PEAK_FLOPS["bf16"])
     return {"bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops
             else "operations", "bytes": nbytes, "weights": weights,
             "kv": kv_row * width, "flops": 2 * macs, "t_bytes": t_bytes, "t_ops": t_ops}
@@ -993,6 +1030,7 @@ def graph_vs_eager(torch, T, lm_engine, step_graph, cfg, params, tokens, width: 
     STEP_BUDGET steps from ``start``."""
     dev = params.embed.device
     b = tokens.shape[0]
+    torch.cuda.reset_peak_memory_stats()
     with lm_engine._coding(dev):
         base = T.init_cache(cfg, b, width, device=dev)
         T.forward(cfg, params, tokens[:, :start], base, prefill=True)
@@ -1016,9 +1054,13 @@ def graph_vs_eager(torch, T, lm_engine, step_graph, cfg, params, tokens, width: 
         check(torch.equal(eager.lo[:, :n], graph.lo[:, :n]) and
               torch.equal(eager.f[:, :n], graph.f[:, :n]),
               f"graph-replayed intervals differ (lanes {b}, width {width})")
-        out = {}
+        out = {"peak": torch.cuda.max_memory_allocated()}
         for name, one in (("eager", eager_one), ("graph", graph_one)):
+            held = torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
             _, ms = sync_time(torch, lambda: [one() for _ in range(TIMED_STEPS)])
+            if name == "graph":  # a replay allocates nothing, cuBLAS(Lt) included
+                check((torch.cuda.memory_allocated(), torch.cuda.memory_reserved()) == held,
+                      f"graph replays allocated (lanes {b}, width {width})")
             kernels, mem, busy, top = profiled(torch, one)
             out[name] = {"ms": ms / TIMED_STEPS, "kernels": kernels, "mem": mem,
                          "busy_ms": busy, "idle": 1 - busy / (ms / TIMED_STEPS), "top": top}
@@ -1040,7 +1082,8 @@ def print_step(smi, what, nums, bound) -> None:
           f"{bound['t_bytes']:.4f} ms; {bound['flops'] / 1e9:.2f} GFLOP, "
           f"{bound['t_ops']:.4f} ms): the graph step is {g['ms'] / bound['bound_ms']:.1f}x "
           f"the bound, {e['ms'] / g['ms']:.2f}x faster than eager; the replay's kernels that "
-          f"took the most device time (name, ms, count): {g['top']}", flush=True)
+          f"took the most device time (name, ms, count): {g['top']}; max_memory_allocated "
+          f"{nums['peak']} bytes", flush=True)
 
 
 def phase4_numbers(torch, T, lm_engine, step_graph, container_mod, smoke, c_a, waves, enc,
@@ -1081,9 +1124,11 @@ def phase4_numbers(torch, T, lm_engine, step_graph, container_mod, smoke, c_a, w
 # --------------------------------------------------------------------------
 
 
-def phase5_cli(torch, cli, container_mod, smoke, root, work):
+def phase5_cli(torch, cli, container_mod, smoke, root, work, flags=(), float_bpb=None):
     """(a): byte-16l through the CLI, slide on the held-out slice; returns
-    its bits/byte."""
+    its bits/byte, held to smoke.GOLDEN_SLIDE16_BPB. With ``flags`` (phase 6
+    (b): ``--kv8 --w8``), the same run in those modes, its header's flags
+    checked and its bits/byte held to ``float_bpb``, (a)'s from this run."""
     data = smoke.heldout_slice()[: smoke.SLIDE16_BYTES]
     kw = smoke.SLIDE16_CODING
     path = os.path.join(work, "heldout.bin")
@@ -1093,34 +1138,43 @@ def phase5_cli(torch, cli, container_mod, smoke, root, work):
     # the ref, so the container does not depend on where the checkout lies
     ref = "file:" + smoke.SLIDE16_CHECKPOINT
     args = ["--model", "lm", "--model-ref", ref, "--block-tokens", str(kw["block_tokens"]),
-            "--lanes", str(kw["lanes"]), "--overlap", str(kw["overlap"])]
+            "--lanes", str(kw["lanes"]), "--overlap", str(kw["overlap"]), *flags]
     rc, enc_ms = sync_time(torch, lambda: cli.main(["compress", path, *args, "-o",
                                                     path + ".lac"]))
-    check(rc == 0, "cli compress --model lm, byte-16l")
+    check(rc == 0, f"cli compress --model lm {' '.join(flags)}, byte-16l")
     rc, dec_ms = sync_time(torch, lambda: cli.main(["decompress", path + ".lac", "-o",
                                                     path + ".out"]))
     check(rc == 0, "cli decompress of the byte-16l container")
     with open(path + ".out", "rb") as f:
-        check(f.read() == data, "byte-16l: the cli round trip differs from the slice")
+        check(f.read() == data, f"byte-16l {' '.join(flags)}: the cli round trip differs")
     with open(path + ".lac", "rb") as f:
         c = f.read()
     header, blocks = container_mod.read_container(c)
     got = {k: header.config[k] for k in ("window_mode", "slide_seg", "max_seq", "lanes",
-                                         "block_tokens", "overlap")}
+                                         "block_tokens", "overlap", "kv8", "w8")}
     want = {"window_mode": "slide", "slide_seg": 512, "max_seq": 1024, "lanes": kw["lanes"],
-            "block_tokens": kw["block_tokens"], "overlap": kw["overlap"]}
+            "block_tokens": kw["block_tokens"], "overlap": kw["overlap"],
+            "kv8": "--kv8" in flags, "w8": "--w8" in flags}
     check(got == want, f"byte-16l container header {got}")
     bpb = 8 * len(c) / len(data)
-    rel = bpb / smoke.GOLDEN_SLIDE16_BPB - 1
+    if flags:
+        what, against = f"q8 (b) byte-16l slide {' '.join(flags)}", (
+            f"the float run's {float_bpb:.6f} from (a) of phase 5 (relative "
+            f"{bpb / float_bpb - 1:+.2e}, tolerance {LM_BPB_TOL}; lac_tpu on a v5e: kv8 +0.16 % "
+            f"on byte-16l, measurements/r3_kv8_ratio.log)")
+        rel = bpb / float_bpb - 1
+    else:
+        rel = bpb / smoke.GOLDEN_SLIDE16_BPB - 1
+        what, against = "window (a) byte-16l slide", (
+            f"lac_tpu {smoke.GOLDEN_SLIDE16_BPB:.6f} on the CPU (relative {rel:+.2e}, "
+            f"tolerance {LM_BPB_TOL}; lac_tpu on a v5e: {V5E_SLIDE16_BPB})")
     coded = sum(b.token_count > 0 for b in blocks)
-    print(f"window (a) byte-16l slide, cli: {len(data)} -> {len(c)} bytes, {bpb:.6f} "
-          f"bits/byte, lac_tpu {smoke.GOLDEN_SLIDE16_BPB:.6f} on the CPU (relative "
-          f"{rel:+.2e}, tolerance {LM_BPB_TOL}; lac_tpu on a v5e: {V5E_SLIDE16_BPB}); header "
+    print(f"{what}, cli: {len(data)} -> {len(c)} bytes, {bpb:.6f} bits/byte, {against}; header "
           f"{got}; {coded} of {len(blocks)} blocks coded; round trip equal; encode "
           f"{len(data) / (enc_ms / 1e3):.1f} tokens/s ({enc_ms / 1e3:.1f} s), decode "
           f"{len(data) / (dec_ms / 1e3):.1f} tokens/s ({dec_ms / 1e3:.1f} s), "
           f"{kw['block_tokens']} steps a side, checkpoint load included", flush=True)
-    check(abs(rel) <= LM_BPB_TOL, f"byte-16l: bits/byte {bpb} off GOLDEN_SLIDE16_BPB by {rel:+.3e}")
+    check(abs(rel) <= LM_BPB_TOL, f"{what}: bits/byte {bpb} off by {rel:+.3e}")
     return bpb
 
 
@@ -1145,20 +1199,184 @@ def phase5_byte6l(torch, ttrain, lm_api, smoke, root):
               f"byte-6l {mode}: bits/byte {bpb} off GOLDEN_WINDOW_BPB by {rel:+.3e}")
 
 
-def phase5_steps(torch, T, ttrain, lm_engine, step_graph, smoke, root, smi):
-    """(c): byte-16l on the ring, 1024 wide, past the first window: graph
-    against eager at 64 lanes and at 4."""
-    cfg, params = ttrain.load_checkpoint(os.path.join(root, smoke.SLIDE16_CHECKPOINT))
+def ring_steps(torch, T, lm_engine, step_graph, smoke, cfg, params, smi, what):
+    """byte-16l ``cfg`` on the ring, 1024 wide, past the first window: graph
+    against eager at 64 lanes and at 4; returns {lanes: (numbers, bound)}."""
     scfg = lm_engine._slide_cfg(cfg)
     w = scfg.max_seq
     n = w + STEP_BUDGET
     arr = np.frombuffer(smoke.heldout_slice(), dtype=np.uint8)
+    out = {}
     for b in (64, 4):
         toks = np.stack([arr[i * n : (i + 1) * n] for i in range(b)]).astype(np.int64)
         tokens = torch.from_numpy(toks).to(params.embed.device)
         nums = graph_vs_eager(torch, T, lm_engine, step_graph, scfg, params, tokens, w, w)
-        print_step(smi, f"window (c) byte-16l slide step, {b} lanes, ring {w}, pos {w}-"
-                   f"{n - 1}", nums, lm_step_bound(torch, scfg, params, b, w))
+        bound = lm_step_bound(torch, scfg, params, b, w)
+        print_step(smi, f"{what} byte-16l slide step, {b} lanes, ring {w}, pos {w}-{n - 1}",
+                   nums, bound)
+        out[b] = (nums, bound)
+    return out
+
+
+def phase5_steps(torch, T, ttrain, lm_engine, step_graph, smoke, root, smi):
+    """(c): the float byte-16l on the ring (``ring_steps``)."""
+    cfg, params = ttrain.load_checkpoint(os.path.join(root, smoke.SLIDE16_CHECKPOINT))
+    return ring_steps(torch, T, lm_engine, step_graph, smoke, cfg, params, smi, "window (c)")
+
+
+# --------------------------------------------------------------------------
+# Phase 6: the int8 LM modes (kv8, w8)
+# --------------------------------------------------------------------------
+
+
+def phase6_cli(torch, cli, container_mod, smoke, corpus, work):
+    """(a): byte-6l through the CLI at smoke.LM_CODING in each int8 mode."""
+    data = corpus[: smoke.LM_BPB_BYTES]
+    path = os.path.join(work, "q8.bin")
+    with open(path, "wb") as f:
+        f.write(data)
+    kw = smoke.LM_CODING
+    args = ["--model", "lm", "--model-ref", "file:" + smoke.LM_CHECKPOINT, "--block-tokens",
+            str(kw["block_tokens"]), "--lanes", str(kw["lanes"]), "--prob-bits",
+            str(kw["prob_bits"]), "--cache-grow", str(kw["cache_grow"]), "--window-mode",
+            kw["window_mode"]]
+    for mode, flags in Q8_FLAGS.items():
+        rc, enc_ms = sync_time(torch, lambda: cli.main(["compress", path, *args, *flags, "-o",
+                                                        path + ".lac"]))
+        check(rc == 0, f"cli compress --model lm {' '.join(flags)}")
+        rc, dec_ms = sync_time(torch, lambda: cli.main(["decompress", path + ".lac", "-o",
+                                                        path + ".out"]))
+        check(rc == 0, f"cli decompress, {mode}")
+        with open(path + ".out", "rb") as f:
+            check(f.read() == data, f"q8 (a) {mode}: the cli round trip differs")
+        with open(path + ".lac", "rb") as f:
+            c = f.read()
+        header, blocks = container_mod.read_container(c)
+        flags_got = (header.config["kv8"], header.config["w8"])
+        check(flags_got == ("--kv8" in flags, "--w8" in flags), f"q8 (a) {mode}: header {flags_got}")
+        bpb = 8 * len(c) / len(data)
+        rel = bpb / smoke.GOLDEN_Q8_BPB[mode] - 1
+        print(f"q8 (a) byte-6l {' '.join(flags)}, cli: {len(data)} -> {len(c)} bytes, {bpb:.6f} "
+              f"bits/byte, lac_tpu {smoke.GOLDEN_Q8_BPB[mode]:.6f} on the CPU (relative "
+              f"{rel:+.2e}, tolerance {LM_BPB_TOL}); header kv8/w8 {flags_got}; "
+              f"{sum(b.token_count > 0 for b in blocks)} of {len(blocks)} blocks coded; round "
+              f"trip equal; encode {enc_ms / 1e3:.2f} s, decode {dec_ms / 1e3:.2f} s", flush=True)
+        check(abs(rel) <= LM_BPB_TOL, f"q8 (a) {mode}: bits/byte {bpb} off by {rel:+.3e}")
+
+
+def phase6_tinyllama(torch, T, lm_engine, corpus, smi, dev):
+    """(c): TinyLlama-1.1B, w8 (staged init) and kv8, lm_encode then
+    lm_decode; returns (cfg, params)."""
+    cfg = dataclasses.replace(T.TINYLLAMA_1B, w8=True, kv8=True)
+    (params, init_ms) = sync_time(torch, lambda: T.init_params_w8(cfg, 0, device=dev))
+    toks = np.frombuffer(corpus[: TL_LANES * TL_TOKENS], dtype=np.uint8)
+    tokens = torch.from_numpy(toks.reshape(TL_LANES, TL_TOKENS).astype(np.int64)).to(dev)
+    lengths = torch.full((TL_LANES,), TL_TOKENS, dtype=torch.int64, device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    (words, nwords), enc_ms = sync_time(torch, lambda: lm_engine.lm_encode(
+        cfg, params, tokens, lengths, 16, TL_GROW))
+    out, dec_ms = sync_time(torch, lambda: lm_engine.lm_decode(
+        cfg, params, words, lengths, 16, TL_TOKENS, TL_GROW))
+    peak = torch.cuda.max_memory_allocated()
+    check(torch.equal(out, tokens), "q8 (c) TinyLlama kv8+w8: the round trip differs")
+    n = TL_LANES * TL_TOKENS
+    print(f"q8 (c) [{smi}] TinyLlama-1.1B w8+kv8 ({cfg.n_layers} layers, d {cfg.d_model}, "
+          f"heads {cfg.n_heads}/{cfg.n_kv_heads}, vocab {cfg.vocab}; random weights, seed 0, "
+          f"init_params_w8 {init_ms / 1e3:.1f} s): {TL_LANES} lanes x {TL_TOKENS} tokens of "
+          f"the corpus, cache_grow {TL_GROW}: round trip exact, "
+          f"{int(nwords.sum()) * 32 / n:.3f} bits a token; encode {n / (enc_ms / 1e3):.1f} "
+          f"tokens/s ({enc_ms / TL_TOKENS:.3f} ms a step), decode {n / (dec_ms / 1e3):.1f} "
+          f"tokens/s ({dec_ms / TL_TOKENS:.3f} ms a step); max_memory_allocated {peak} bytes",
+          flush=True)
+    return cfg, params
+
+
+def print_beside(what, q8, flt) -> None:
+    """The int8 step's graph ms, kernels, busy and peak beside the float
+    step's at the same shape, each with its bound."""
+    (qn, qb), (fn, fb) = q8, flt
+    print(f"{what}: graph {qn['graph']['ms']:.3f} ms a step (float {fn['graph']['ms']:.3f}, "
+          f"{qn['graph']['ms'] / fn['graph']['ms']:.2f}x), eager {qn['eager']['ms']:.3f} "
+          f"(float {fn['eager']['ms']:.3f}), kernels {qn['graph']['kernels']} (float "
+          f"{fn['graph']['kernels']}), device busy {qn['graph']['busy_ms']:.3f} ms (float "
+          f"{fn['graph']['busy_ms']:.3f}), idle {100 * qn['graph']['idle']:.1f} % (float "
+          f"{100 * fn['graph']['idle']:.1f} %), peak {qn['peak']} bytes (float {fn['peak']}); "
+          f"bound {qb['bound_ms']:.4f} ms (float {fb['bound_ms']:.4f})", flush=True)
+
+
+def phase6_steps(torch, T, ttrain, lm_engine, step_graph, smoke, root, smi, float_ring, tl,
+                 corpus, dev):
+    """(d): graph against eager, kv8+w8, at byte-16l's two ring shapes
+    (beside phase 5 (c)'s float steps) and TinyLlama at 64 lanes, width 512
+    (beside its float model's step)."""
+    cfg, params = ttrain.load_checkpoint(os.path.join(root, smoke.SLIDE16_CHECKPOINT))
+    qcfg = dataclasses.replace(cfg, kv8=True, w8=True)
+    ring = ring_steps(torch, T, lm_engine, step_graph, smoke, qcfg, T.ensure_w8(qcfg, params),
+                      smi, "q8 (d) kv8+w8")
+    for b, nums in ring.items():
+        print_beside(f"q8 (d) [{smi}] byte-16l ring 1024, {b} lanes, kv8+w8 against float",
+                     nums, float_ring[b])
+    toks = np.frombuffer(corpus[: TL_LANES * TL_TOKENS], dtype=np.uint8)
+    tokens = torch.from_numpy(toks.reshape(TL_LANES, TL_TOKENS).astype(np.int64)).to(dev)
+    start = TL_TOKENS - STEP_BUDGET
+    got = {}
+    for name, (c, p) in (("kv8+w8", tl), ("float", (
+            T.TINYLLAMA_1B, T.init_params(T.TINYLLAMA_1B, 0, device=dev)))):
+        nums = graph_vs_eager(torch, T, lm_engine, step_graph, c, p, tokens, TL_TOKENS, start)
+        got[name] = (nums, lm_step_bound(torch, c, p, TL_LANES, TL_TOKENS))
+        print_step(smi, f"q8 (d) TinyLlama {name} step, {TL_LANES} lanes, width {TL_TOKENS}, "
+                   f"pos {start}-{start + STEP_BUDGET - 1}", *got[name])
+    print_beside(f"q8 (d) [{smi}] TinyLlama, {TL_LANES} lanes, width {TL_TOKENS}, kv8+w8 "
+                 f"against float", got["kv8+w8"], got["float"])
+
+
+def phase6_exact(torch, int8, lm_engine, dev):
+    """(e): the int8 products on the card against the host's exact ones (a
+    float64 product of int8 values is exact: every partial sum is below
+    2^53), seeded and at every value +-127."""
+    rng = np.random.default_rng(SEED)
+    cases = 0
+    for m in (1, 4, 16, 17, 64):
+        for n in (61, 256, 32000):
+            for k in (64, 2048, 5632):
+                for worst in (False, True):
+                    a = (np.full((m, k), 127, np.int8) if worst
+                         else rng.integers(-127, 128, (m, k), dtype=np.int8))
+                    b = (np.full((k, n), -127, np.int8) if worst
+                         else rng.integers(-127, 128, (k, n), dtype=np.int8))
+                    want = a.astype(np.float64) @ b.astype(np.float64)
+                    at, bt = torch.from_numpy(a).to(dev), torch.from_numpy(b).to(dev)
+                    for layout, bb in (("row", bt), ("column", bt.t().contiguous().t())):
+                        got = int8.int8_mm(at, bb).cpu().numpy()
+                        check(np.array_equal(got.astype(np.float64), want),
+                              f"int8_mm M {m} N {n} K {k} {layout}-major b worst {worst}")
+                        cases += 1
+    for w in (1024, 1040, 2048):
+        for worst in (False, True):
+            a = (np.full((4, 8, 64, w), 127, np.int8) if worst
+                 else rng.integers(-127, 128, (4, 8, 64, w), dtype=np.int8))
+            b = (np.full((4, 8, w, 64), 127, np.int8) if worst
+                 else rng.integers(-127, 128, (4, 8, w, 64), dtype=np.int8))
+            want = np.matmul(a.astype(np.float64), b.astype(np.float64))
+            with lm_engine._coding(dev):
+                got = int8.int8_bmm(torch.from_numpy(a).to(dev), torch.from_numpy(b).to(dev))
+            check(np.array_equal(got.cpu().numpy().astype(np.float64), want),
+                  f"int8_bmm W {w} worst {worst}")
+            cases += 1
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = True
+        int8.int8_bmm(torch.zeros(2, 3, dtype=torch.int8, device=dev),
+                      torch.zeros(3, 2, dtype=torch.int8, device=dev))
+    except RuntimeError as e:
+        refusal = str(e)
+    else:
+        raise RuntimeError("check failed: int8_bmm ran with TF32 on")
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    print(f"q8 (e): {cases} int8 products on the card equal the host's exact ones "
+          f"(int8_mm: M 1-64, N 61-32000, K 64-5632, both layouts of b; int8_bmm: W 1024, "
+          f"1040, 2048); seeded and worst case; with TF32 on int8_bmm refuses: {refusal}",
+          flush=True)
 
 
 def flagship(torch, ttrain, lm_api, container_mod, smoke, root, smi):
@@ -1212,6 +1430,7 @@ def main() -> int:
     from lac_tpu_torch.models import transformer as T
     from lac_tpu_torch.ops import _build
     from lac_tpu_torch.ops import attention as A
+    from lac_tpu_torch.ops import int8
     from lac_tpu_torch.ops import rans_kernels as rk
     from lac_tpu_torch.runtime import engine, lm_api, lm_engine, step_graph, turbo
     from lac_tpu_torch.stream import container
@@ -1380,13 +1599,26 @@ def main() -> int:
         with Phase("phase 5: windowed LM coding"):
             rk.reset_launches()
             A.reset_launches()
-            phase5_cli(torch, cli, container, smoke, root, work)
+            bpb16 = phase5_cli(torch, cli, container, smoke, root, work)
             phase5_byte6l(torch, ttrain, lm_api, smoke, root)
-            phase5_steps(torch, T, ttrain, lm_engine, step_graph, smoke, root, smi)
+            float_ring = phase5_steps(torch, T, ttrain, lm_engine, step_graph, smoke, root, smi)
             window_counts = {**rk.launches, **A.launches}
             print(f"window path launches of K1-K12: {window_counts}", flush=True)
             check(set(window_counts.values()) == {0},
                   "the windowed path launched a TPU-kernel port")
+
+        with Phase("phase 6: the int8 LM modes (kv8, w8)"):
+            rk.reset_launches()
+            A.reset_launches()
+            phase6_cli(torch, cli, container, smoke, corpus, work)
+            phase5_cli(torch, cli, container, smoke, root, work, ("--kv8", "--w8"), bpb16)
+            tl = phase6_tinyllama(torch, T, lm_engine, corpus, smi, dev)
+            phase6_steps(torch, T, ttrain, lm_engine, step_graph, smoke, root, smi, float_ring,
+                         tl, corpus, dev)
+            phase6_exact(torch, int8, lm_engine, dev)
+            q8_counts = {**rk.launches, **A.launches}
+            print(f"q8 (f) int8 path launches of K1-K12: {q8_counts}", flush=True)
+            check(set(q8_counts.values()) == {0}, "the int8 LM path launched a TPU-kernel port")
 
         library_ms = {k: atimes[k]["library_ms"] for k in ATTN}
         kernels = [

@@ -8,10 +8,12 @@ stays as it is). It imports ``torch`` and NumPy, never JAX and nothing of
 - ``coder``   - the rANS-32/16 and rANS-64/32 NumPy specs, and the batched
                 rANS-64/32 coder of the LM path;
 - ``models``  - the turbo byte models as torch functions over lanes, and
-                the transformer LM's float forward (prefill and cached
-                decode step, the slide ring) with its presets and model refs;
+                the transformer LM's float and int8 (kv8, w8) forwards
+                (prefill and cached decode step, the slide ring) with its
+                presets and model refs;
 - ``ops``     - the CUDA kernels (``csrc/``), their build and their wrappers,
-                each beside its plain PyTorch version;
+                each beside its plain PyTorch version; the exact int8
+                products of the int8 LM modes (``int8.py``);
 - ``runtime`` - the turbo byte path, the LM coding engine (its step as a
                 CUDA graph) and the file-level APIs;
 - ``train``   - byte-LM training and the ``.npz`` checkpoint format;
@@ -20,10 +22,10 @@ stays as it is). It imports ``torch`` and NumPy, never JAX and nothing of
 Entry points run on the card unless the caller passes ``device="cpu"``.
 The turbo byte path is ported for all four of its codecs: order0n (the
 default), order1n, order2n and order0c; training with its fused causal
-attention; and LM coding (``--model lm``) with the float forward, for
-blocks within the model context and past it (the slide and reprime
-schedules), its step replayed as a CUDA graph on the card; see ROADMAP.md
-for the rest.
+attention; and LM coding (``--model lm``) with the float forward and the
+int8 modes (``--kv8``, ``--w8``), for blocks within the model context and
+past it (the slide and reprime schedules), its step replayed as a CUDA
+graph on the card; see ROADMAP.md for the rest.
 
 Importing the package sets ``CUBLAS_WORKSPACE_CONFIG`` (unless the caller
 has): cuBLAS reads it when its first call of the process sets up, and the

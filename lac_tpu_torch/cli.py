@@ -9,9 +9,10 @@ flag of :252-291 and the same defaults: ``prng:byte-12l:0``, block 512,
 4096, rate 4; train: byte-6l, 2000 steps, batch 32, seq 256, lr 3e-4).
 The ``--device`` option picks the device; its default is ``cuda``, and the
 CPU runs only with ``--device cpu``. As in the reference, ``train`` leaves
-the fused attention off. A flag whose mode is not ported (``--det8``,
-``--kv8``, ``--w8``, a mesh) exits naming its ROADMAP item; ``bench`` is
-ROADMAP A3.
+the fused attention off. ``--kv8`` and ``--w8`` (the int8 KV cache and
+int8 weights) code with ``--model lm``, alone or together. A flag whose
+mode is not ported (``--det8``, a mesh) exits naming its ROADMAP item;
+``bench`` is ROADMAP A3.
 """
 
 from __future__ import annotations
@@ -25,9 +26,8 @@ def _lm_compress(args, data: bytes) -> bytes:
     from .config import LMCodingConfig
     from .runtime.lm_api import lm_compress_bytes
 
-    for flag, item in (("det8", "A8"), ("kv8", "A7"), ("w8", "A7")):
-        if getattr(args, flag):
-            raise SystemExit(f"--{flag} is not ported to lac_tpu_torch yet (ROADMAP {item})")
+    if args.det8:
+        raise SystemExit("--det8 is not ported to lac_tpu_torch yet (ROADMAP A8)")
     if args.mesh_data != 0 or args.mesh_model != 1:
         raise SystemExit("--mesh-data / --mesh-model are not ported to lac_tpu_torch yet "
                          "(ROADMAP A13)")
@@ -38,6 +38,8 @@ def _lm_compress(args, data: bytes) -> bytes:
         prob_bits=args.prob_bits,
         window=args.window,
         overlap=args.overlap,
+        kv8=args.kv8,
+        w8=args.w8,
         cache_grow=args.cache_grow,
         window_mode=args.window_mode,
         slide_seg=args.slide_seg,
@@ -234,8 +236,11 @@ def main(argv=None) -> int:
                         "slide for rope models, recorded resolved in the container")
     c.add_argument("--slide-seg", type=int, default=None, metavar="S",
                    help="float slide-mode segment length (recorded in the container)")
-    c.add_argument("--w8", action="store_true", help="int8 weights (ROADMAP A7)")
-    c.add_argument("--kv8", action="store_true", help="int8 KV cache (ROADMAP A7)")
+    c.add_argument("--w8", action="store_true",
+                   help="int8 weights (W8A8 projections; changes the bitstream, recorded in "
+                        "the container; combinable with --kv8)")
+    c.add_argument("--kv8", action="store_true",
+                   help="int8 KV cache (changes the bitstream, recorded in the container)")
     c.add_argument("--det8", action="store_true",
                    help="integer-reduction LM forward (ROADMAP A8)")
     c.add_argument("--mesh-data", type=int, default=0,

@@ -41,8 +41,8 @@ class LMCodingConfig:
     window: int | None = None           # context window cap in tokens
     overlap: int = 2                    # window keep fraction denominator
     det8: bool = False                  # integer-reduction forward (A8)
-    kv8: bool = False                   # int8 KV cache (A7)
-    w8: bool = False                    # int8 weights (A7)
+    kv8: bool = False                   # int8 KV cache
+    w8: bool = False                    # int8 weights
     cache_grow: int = 128               # KV-cache growth bucket (0 = fixed)
     window_mode: str = "auto"           # "auto" | "reprime" | "slide"; the
                                         # container records the resolved mode

@@ -20,7 +20,10 @@ params pytree of ``lac_tpu.models.transformer`` (``init_params``'
 stacked layout: ``layers/<name>`` with a leading ``[n_layers]`` axis) to
 and from the port's ``Transformer`` module, with no arithmetic: arrays
 are copied bit for bit, and bf16 travels as uint16 bit patterns, since
-NumPy has no bf16 of its own.
+NumPy has no bf16 of its own. A w8 tree (``lac_tpu``'s ``ensure_w8``:
+each ``W8_KEYS`` leaf and ``head`` a ``(int8 q, f32 scale)`` tuple) goes
+to and from a quantized model, its tuples the ``W8`` modules' ``q`` and
+``s``.
 """
 
 from __future__ import annotations
@@ -111,22 +114,41 @@ def _array(t: torch.Tensor) -> np.ndarray:
     return t.numpy().copy()
 
 
-def _set(module: torch.nn.Module, name: str, value: torch.Tensor) -> None:
-    setattr(module, name, torch.nn.Parameter(value, requires_grad=True))
+def _set(module: torch.nn.Module, name: str, value) -> None:
+    """A float leaf as a parameter; a w8 ``(q, scale)`` tuple as a ``W8``."""
+    from .models.transformer import W8
+
+    if isinstance(value, tuple):
+        q, s = value
+        setattr(module, name, W8(q.t().contiguous().t(), s))
+    else:
+        setattr(module, name, torch.nn.Parameter(value, requires_grad=True))
+
+
+def _leaf(arr, device, i=None):
+    """A tree leaf (or layer ``i`` of a stacked one) as a tensor, or a w8
+    tuple as a tuple of tensors."""
+    if isinstance(arr, tuple):
+        return tuple(_leaf(a, device, i) for a in arr)
+    return _tensor(np.asarray(arr) if i is None else np.asarray(arr)[i], device)
 
 
 def lm_params_from_jax(cfg, tree: dict, device="cpu"):
     """``lac_tpu``'s LM params pytree, its leaves NumPy arrays (bf16 leaves
     as ml_dtypes bfloat16 or as uint16 bit patterns), stacked layers ->
     a ``models.transformer.Transformer`` on ``device`` holding the same
-    bits. Each tensor keeps its array's shape."""
+    bits. Each tensor keeps its array's shape. A w8 tree needs ``cfg.w8``
+    and gives a quantized model."""
     from .models.transformer import Transformer
 
-    model = Transformer(cfg, device="meta")
+    w8 = isinstance(tree.get("head"), tuple)
+    if w8 != cfg.w8:
+        raise ValueError(f"a {'w8' if w8 else 'float'} params tree under cfg.w8={cfg.w8}")
+    model = Transformer(cfg, device="meta", w8=w8)
     _set(model, "embed", _tensor(tree["embed"], device))
     for name in ("pos_embed", "head"):
         if name in tree:
-            _set(model, name, _tensor(tree[name], device))
+            _set(model, name, _leaf(tree[name], device))
         elif getattr(model, name) is not None:
             raise ValueError(f"the params lack {name!r}, which the config needs")
     for name, arr in tree["final_norm"].items():
@@ -136,10 +158,11 @@ def lm_params_from_jax(cfg, tree: dict, device="cpu"):
         for name, arr in layers.items():
             if isinstance(arr, dict):  # ln1 / ln2
                 for sub, a in arr.items():
-                    _set(getattr(block, name), sub, _tensor(np.asarray(a)[i], device))
+                    _set(getattr(block, name), sub, _leaf(a, device, i))
             else:
-                _set(block, name, _tensor(np.asarray(arr)[i], device))
-    left = [n for n, p in model.named_parameters() if p.device.type == "meta"]
+                _set(block, name, _leaf(arr, device, i))
+    left = [n for n, p in (*model.named_parameters(), *model.named_buffers())
+            if p.device.type == "meta"]
     if left:
         raise ValueError(f"the params lack {left}")
     return model
@@ -149,17 +172,25 @@ def lm_params_to_jax(model) -> dict:
     """The port's ``Transformer`` -> ``lac_tpu``'s params pytree of NumPy
     arrays, layers stacked on a leading axis; bf16 tensors come out as
     uint16 bit patterns (``a.view(jnp.bfloat16)`` on the JAX side). The
-    layer keys are sorted, as ``jax.tree.map`` leaves them."""
+    layer keys are sorted, as ``jax.tree.map`` leaves them. A quantized
+    model gives a w8 tree: each ``W8`` a ``(q, s)`` tuple."""
+    from .models.transformer import W8
+
     tree = {"embed": _array(model.embed),
             "final_norm": {n: _array(p) for n, p in model.final_norm.named_parameters()}}
     per_layer: dict = {}
     for block in model.layers:
         for name, p in block.named_parameters():
             per_layer.setdefault(name, []).append(_array(p))
+        for name, m in block.named_children():
+            if isinstance(m, W8):
+                per_layer.setdefault(name, []).append((_array(m.q), _array(m.s)))
     layers: dict = {}
     for name in sorted(per_layer):
         head, _, sub = name.partition(".")
-        stacked = np.stack(per_layer[name])
+        leaves = per_layer[name]
+        stacked = (tuple(np.stack(x) for x in zip(*leaves)) if isinstance(leaves[0], tuple)
+                   else np.stack(leaves))
         if sub:
             layers.setdefault(head, {})[sub] = stacked
         else:
@@ -168,6 +199,8 @@ def lm_params_to_jax(model) -> dict:
                       for k, v in sorted(layers.items())}
     if model.pos_embed is not None:
         tree["pos_embed"] = _array(model.pos_embed)
-    if model.head is not None:
+    if isinstance(model.head, W8):
+        tree["head"] = (_array(model.head.q), _array(model.head.s))
+    elif model.head is not None:
         tree["head"] = _array(model.head)
     return tree

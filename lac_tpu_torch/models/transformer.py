@@ -1,17 +1,18 @@
-"""Decoder-only transformer LM: the float prefill forward, as ``nn.Module``s.
+"""Decoder-only transformer LM: the float and int8 forwards, as ``nn.Module``s.
 
-Ports the float path of ``lac_tpu/models/transformer.py``: ``LMConfig``
+Ports ``lac_tpu/models/transformer.py`` but det8: ``LMConfig``
 (:67-153), ``tiny_config`` (:155-163), the presets ``GPT2_SMALL``,
 ``TINYLLAMA_1B``, ``LLAMA2_7B`` and ``LLAMA3_8B`` (:166-183),
-``init_params`` (:191-237), ``init_cache`` (:336-375, float branch),
-``_norm`` (:376-388), ``_rope`` (:401-430), ``_act`` (:460), ``_mlp``
-(float branch :979-993), ``_attention`` (:771-949, float branches) with
+``init_params`` (:191-237), ``init_params_w8`` (:239-326), ``init_cache``
+(:336-375), ``_norm`` (:376-388), ``_rope`` (:401-430), ``_act`` (:460),
+``_q8``, ``W8_KEYS``, ``ensure_w8`` and ``_w8_dot`` (:484-550), ``_mlp``
+(:967-993), ``_attention`` (:771-949, the float and kv8 branches) with
 ``_FUSED`` (:703), ``_splash_prefill`` (:706-722), ``_bf16s_prefill``
 (:725-743) and ``_flash_prefill`` (:746-768), and ``forward``
-(:994-1116, float branch): the prefill (``prefill=True``) and the cached
-decode step (``prefill=False``). Both GPT-2-style (learned positions,
-LayerNorm, GELU, biases, tied head) and Llama-style (RoPE, RMSNorm,
-SiLU-GLU, GQA, no biases) models, as in the reference.
+(:994-1116): the prefill (``prefill=True``) and the cached decode step
+(``prefill=False``). Both GPT-2-style (learned positions, LayerNorm,
+GELU, biases, tied head) and Llama-style (RoPE, RMSNorm, SiLU-GLU, GQA,
+no biases) models, as in the reference.
 
 Numerics follow the reference's explicit types: activations in
 ``cfg.dtype``; a projection is a ``cfg.dtype`` product with f32
@@ -49,8 +50,38 @@ validity mask ``w < pos`` stay global, so at step ``p >= W`` the cache
 holds exactly tokens ``[p - W, p)`` and every slot counts. A call of S > 1
 tokens adds the ring-age mask (:902-911): query ``i`` does not see the
 ``i`` oldest slots, which serial steps would have evicted. A call's write
-may not wrap partway. The det8, w8 and kv8 modes raise
-``NotImplementedError`` naming the ROADMAP item that ports them.
+may not wrap partway.
+
+The int8 modes (``cfg.w8``, ``cfg.kv8``; alone or together):
+
+- w8 (:484-550, :796-834, :967-978, :1069-1070): every ``W8_KEYS``
+  projection and the head (even when tied to the embedding) is a ``W8``
+  module, an int8 ``q`` [K, N] quantized over K and an f32 scale ``s``
+  [1, N] with 1/127^2 folded in (``ensure_w8``, ``init_params_w8``).
+  ``_w8_dot`` quantizes the activations per row (``_q8``), forms the
+  exact int32 product (``ops/int8.py``) and dequantizes as
+  ``(acc * sx) * s``; a bias adds in f32, then one cast. Embeddings,
+  norms and biases stay float.
+- kv8 (:354-362, :877-940, :1094-1107): the cache holds ``k`` and ``v``
+  as int8 [L, B, W, KVH, Dh] and their per-row scales ``ks`` and ``vs``
+  [L, B, W, KVH, 1] f32, in the reference's layout. The cache's scores
+  are the exact int32 product of the query quantized per row and the int8
+  K, dequantized as ``(acc * sq) * (sk * (scale / 127^2))``; the fresh
+  scores use the unquantized fresh K; one softmax over both. The cache's
+  PV product takes the probabilities times V's row scales, quantized per
+  row over W, dequantized by the row scale times 1/127^2; the fresh PV
+  product is the float path's; their f32 sum is cast once. A cache write
+  (the step's at ``pos``, the prefill's at 0..S-1) quantizes each fresh
+  K/V row over Dh.
+
+``lac_tpu`` pins each of these f32 chains with ``optimization_barrier``,
+since XLA regrouped ``acc * sx * ws`` differently in the encoder's and the
+decoder's programs (its hazard #5); eager torch and a CUDA graph run each
+op as written, so each product here is its own op, in the reference's
+grouping, and nothing passes through ``torch.compile``. Given the same
+inputs, ``_q8``, the quantized weights and every dequant chain equal
+``lac_tpu``'s bit for bit. det8 raises ``NotImplementedError`` naming
+ROADMAP A8.
 
 Training-only fused attention: ``forward(..., fused=True)`` routes the
 attention of an MHA model (``n_heads == n_kv_heads``) through
@@ -71,13 +102,18 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..ops.attention import causal_attention
+from ..ops.int8 import int8_bmm, int8_mm
 
 __all__ = [
     "LMConfig",
     "Norm",
     "Block",
     "Transformer",
+    "W8",
+    "W8_KEYS",
     "init_params",
+    "init_params_w8",
+    "ensure_w8",
     "init_cache",
     "forward",
     "tiny_config",
@@ -113,9 +149,11 @@ class LMConfig:
     dtype: torch.dtype = torch.bfloat16
     rope_theta: float = 10000.0
     norm_eps: float = 1e-5
-    # forward modes of lac_tpu that the port does not have yet (ROADMAP
-    # A7, A8); kept so configs and checkpoints carry the same fields
+    # the integer-reduction forward, not ported yet (ROADMAP A8); kept so
+    # configs and checkpoints carry the same fields
     det8: bool = False
+    # int8 weights (W8A8 projections) and the int8 KV cache (module
+    # docstring); each changes the bitstream
     w8: bool = False
     kv8: bool = False
     # the ring cache past the model context (module docstring); the coding
@@ -177,9 +215,8 @@ def _not_ported(what: str, item: str):
 
 
 def _check_float_path(cfg: LMConfig) -> None:
-    for flag, item in (("det8", "A8"), ("w8", "A7"), ("kv8", "A7")):
-        if getattr(cfg, flag):
-            raise _not_ported(f"the {flag} forward", item)
+    if cfg.det8:
+        raise _not_ported("the det8 forward", "A8")
 
 
 # --------------------------------------------------------------------------
@@ -219,25 +256,56 @@ def _bias_shapes(cfg: LMConfig):
             ("b_up", (ff,)), ("b_down", (d,))]
 
 
+class W8(nn.Module):
+    """An int8 weight of the w8 forward (``lac_tpu``'s ``(q, scale)``
+    tuple): ``q`` [K, N] int8, quantized over K, stored column-major (the
+    layout of the card's int8 products; its values are the reference's),
+    and ``s`` [1, N] f32, the per-column scale with 1/127^2 folded in."""
+
+    def __init__(self, q: torch.Tensor, s: torch.Tensor):
+        super().__init__()
+        self.register_buffer("q", q)
+        self.register_buffer("s", s)
+
+    @classmethod
+    def empty(cls, k: int, n: int, device=None) -> "W8":
+        return cls(torch.zeros((n, k), dtype=torch.int8, device=device).t(),
+                   torch.ones((1, n), dtype=f32, device=device))
+
+    @classmethod
+    def quantize(cls, w: torch.Tensor) -> "W8":
+        """``w`` [K, N] quantized over K (``_quantize_w8``'s ``qw``)."""
+        with torch.no_grad():
+            q, s = _q8(w.float(), 0)
+            return cls(q.t().contiguous().t(), s * _DEQUANT)
+
+
+W8_KEYS = ("wq", "wk", "wv", "wo", "w_up", "w_gate", "w_down")
+
+
 class Block(nn.Module):
     """One layer: ``ln1``, ``ln2`` and the projections of ``_layer_shapes``
-    and ``_bias_shapes``."""
+    and ``_bias_shapes``; with ``w8``, each projection a ``W8``."""
 
-    def __init__(self, cfg: LMConfig, dtype=None, device=None):
+    def __init__(self, cfg: LMConfig, dtype=None, device=None, w8: bool = False):
         super().__init__()
         dtype = dtype or cfg.dtype
         self.ln1 = Norm(cfg, dtype, device)
         self.ln2 = Norm(cfg, dtype, device)
-        for name, shape in _layer_shapes(cfg) + _bias_shapes(cfg):
+        for name, shape in _layer_shapes(cfg):
+            setattr(self, name, W8.empty(*shape, device) if w8 else _param(shape, dtype, device))
+        for name, shape in _bias_shapes(cfg):
             setattr(self, name, _param(shape, dtype, device))
 
 
 class Transformer(nn.Module):
     """The parameters of one model: ``embed`` [vocab + 1, d] (the last row is
     BOS), ``pos_embed`` [max_seq, d] for learned positions, ``head``
-    [d, vocab] unless tied, ``final_norm`` and ``layers``."""
+    [d, vocab] unless tied, ``final_norm`` and ``layers``. With ``w8``
+    (what ``ensure_w8`` and ``init_params_w8`` give), the projections and
+    the head, tied or not, are ``W8`` modules."""
 
-    def __init__(self, cfg: LMConfig, dtype=None, device=None):
+    def __init__(self, cfg: LMConfig, dtype=None, device=None, w8: bool = False):
         super().__init__()
         dtype = dtype or cfg.dtype
         self.cfg = cfg
@@ -246,21 +314,37 @@ class Transformer(nn.Module):
         self.final_norm = Norm(cfg, dtype, device)
         self.pos_embed = (_param((cfg.max_seq, d), dtype, device)
                           if cfg.pos_embedding == "learned" else None)
-        self.head = None if cfg.tie_embeddings else _param((d, cfg.vocab), dtype, device)
-        self.layers = nn.ModuleList(Block(cfg, dtype, device) for _ in range(cfg.n_layers))
+        if w8:
+            self.head = W8.empty(d, cfg.vocab, device)
+        else:
+            self.head = None if cfg.tie_embeddings else _param((d, cfg.vocab), dtype, device)
+        self.layers = nn.ModuleList(Block(cfg, dtype, device, w8) for _ in range(cfg.n_layers))
 
 
-def init_params(cfg: LMConfig, seed: int = 0, device=None) -> Transformer:
-    """Random init (scaled normal), the reference's distributions and order
-    of draws, from a CPU ``torch.Generator`` seeded with ``seed`` (the same
-    weights on every device), then moved to ``device`` (the CPU when None).
-    The bits differ from ``jax.random``'s."""
+def is_w8(params: Transformer) -> bool:
+    """Whether ``params`` holds the w8 forward's quantized weights."""
+    return isinstance(params.head, W8)
+
+
+def _draws(cfg: LMConfig, seed: int):
+    """``dense(fan_in, shape)``: the next scaled-normal draw in cfg.dtype,
+    from a CPU ``torch.Generator`` seeded with ``seed``."""
     g = torch.Generator().manual_seed(seed)
 
     def dense(fan_in, shape):
         return (torch.randn(shape, generator=g, dtype=f32)
                 / torch.sqrt(torch.tensor(float(fan_in), dtype=f32))).to(cfg.dtype)
 
+    return dense
+
+
+def init_params(cfg: LMConfig, seed: int = 0, device=None) -> Transformer:
+    """Random init (scaled normal), the reference's distributions and order
+    of draws, from a CPU ``torch.Generator`` seeded with ``seed`` (the same
+    weights on every device), then moved to ``device`` (the CPU when None).
+    The bits differ from ``jax.random``'s. The weights are float whatever
+    ``cfg.w8`` says, as in the reference (``ensure_w8`` quantizes them)."""
+    dense = _draws(cfg, seed)
     model = Transformer(cfg)
     with torch.no_grad():
         model.embed.copy_(dense(1, model.embed.shape) * 0.02)
@@ -276,19 +360,107 @@ def init_params(cfg: LMConfig, seed: int = 0, device=None) -> Transformer:
     return model.to(device) if device is not None else model
 
 
+def _q8(x: torch.Tensor, dim: int):
+    """int8 quantization of f32 ``x`` with one max per slice along ``dim``
+    (the reference's ``_q8``, :484-492): ``s = max(max |x|, 1e-30)``,
+    ``q = round((x / s) * 127)``, one f32 division then one f32 multiply,
+    rounding half to even, as ``jnp.round``. Returns (q int8, s f32)."""
+    s = x.abs().amax(dim, keepdim=True).clamp_min(1e-30)
+    return torch.round(x / s * 127.0).to(torch.int8), s
+
+
+def _norm_like(cfg: LMConfig, device) -> Norm:
+    norm = Norm(cfg, cfg.dtype, device)
+    with torch.no_grad():
+        norm.scale.fill_(1)
+    return norm
+
+
+def init_params_w8(cfg: LMConfig, seed: int = 0, device=None) -> Transformer:
+    """``ensure_w8(cfg, init_params(cfg, seed, device))`` without the whole
+    float model (the reference's staged ``init_params_w8``, :239-326, for
+    7B/8B): the same draws in the same order, each layer's weights moved to
+    ``device`` and quantized at once, only the int8 copy kept, so the peak
+    is one layer's float tensors. Same structure, shapes, types and bits as
+    the unstaged model."""
+    if not cfg.w8:
+        raise ValueError("init_params_w8 requires cfg.w8")
+    dense = _draws(cfg, seed)
+    dev = torch.device("cpu" if device is None else device)
+    d = cfg.d_model
+    model = Transformer(cfg, device="meta", w8=True)
+    with torch.no_grad():
+        model.embed = nn.Parameter((dense(1, (cfg.vocab + 1, d)) * 0.02).to(dev))
+        if cfg.pos_embedding == "learned":
+            model.pos_embed = nn.Parameter((dense(1, (cfg.max_seq, d)) * 0.01).to(dev))
+        wh = model.embed[: cfg.vocab].T if cfg.tie_embeddings else dense(d, (d, cfg.vocab))
+        model.head = W8.quantize(wh.to(dev))
+        model.final_norm = _norm_like(cfg, dev)
+        for lyr in model.layers:
+            lyr.ln1, lyr.ln2 = _norm_like(cfg, dev), _norm_like(cfg, dev)
+            for name, shape in _layer_shapes(cfg):
+                setattr(lyr, name, W8.quantize(dense(shape[0], shape).to(dev)))
+            for name, shape in _bias_shapes(cfg):
+                setattr(lyr, name, _param(shape, cfg.dtype, dev))
+    return model
+
+
+def ensure_w8(cfg: LMConfig, params: Transformer) -> Transformer:
+    """The w8 forward's model (the reference's ``ensure_w8`` and
+    ``_quantize_w8``, :498-527): every ``W8_KEYS`` weight and the head (for
+    a tied head, ``embed[:vocab].T``) quantized over K into a ``W8``, from
+    its values as stored, as the reference quantizes them (its bf16
+    configs store the embedding in f32); the embeddings, norms and biases
+    are ``params``' own tensors, shared.
+    Idempotent: a quantized model, or any model under a float ``cfg``,
+    comes back as it is. ``params`` is left as it was."""
+    if not cfg.w8 or is_w8(params):
+        return params
+    with torch.no_grad():
+        model = Transformer(cfg, device="meta", w8=True)
+        model.embed, model.final_norm = params.embed, params.final_norm
+        model.pos_embed = params.pos_embed
+        wh = params.embed[: cfg.vocab].T if cfg.tie_embeddings else params.head
+        model.head = W8.quantize(wh)
+        for lyr, src in zip(model.layers, params.layers):
+            lyr.ln1, lyr.ln2 = src.ln1, src.ln2
+            for name, _ in _layer_shapes(cfg):
+                setattr(lyr, name, W8.quantize(getattr(src, name)))
+            for name, _ in _bias_shapes(cfg):
+                setattr(lyr, name, getattr(src, name))
+    return model
+
+
 def init_cache(cfg: LMConfig, batch: int, window: int | None = None, device=None) -> dict:
     """KV cache over the context window: ``k`` and ``v`` ``[L, B, W, KVH,
-    Dh]`` in ``cfg.dtype`` (zeros), and ``pos``, the shared cursor (all
-    lanes run lock-step), a 0-d int64 tensor on ``device``. ``window``
-    (default ``cfg.max_seq``, capped there) sizes the cache: every step
-    reads all of it, so the coding engine sizes it to the block or grows
-    it; under slide it is the ring."""
+    Dh]`` in ``cfg.dtype`` (zeros), or under kv8 in int8 with their per-row
+    scales ``ks`` and ``vs`` ``[L, B, W, KVH, 1]`` f32, and ``pos``, the
+    shared cursor (all lanes run lock-step), a 0-d int64 tensor on
+    ``device``. ``window`` (default ``cfg.max_seq``, capped there) sizes
+    the cache: every step reads all of it, so the coding engine sizes it to
+    the block or grows it; under slide it is the ring."""
     _check_float_path(cfg)
     w = cfg.max_seq if window is None else min(window, cfg.max_seq)
     shape = (cfg.n_layers, batch, w, cfg.n_kv_heads, cfg.head_dim)
+    pos = torch.zeros((), dtype=torch.int64, device=device)
+    if cfg.kv8:
+        rows = shape[:-1] + (1,)
+        return {"k": torch.zeros(shape, dtype=torch.int8, device=device),
+                "ks": torch.zeros(rows, dtype=f32, device=device),
+                "v": torch.zeros(shape, dtype=torch.int8, device=device),
+                "vs": torch.zeros(rows, dtype=f32, device=device), "pos": pos}
     return {"k": torch.zeros(shape, dtype=cfg.dtype, device=device),
-            "v": torch.zeros(shape, dtype=cfg.dtype, device=device),
-            "pos": torch.zeros((), dtype=torch.int64, device=device)}
+            "v": torch.zeros(shape, dtype=cfg.dtype, device=device), "pos": pos}
+
+
+def _cache_rows(cfg: LMConfig, k: torch.Tensor, v: torch.Tensor) -> dict:
+    """The cache entries of fresh K/V [B, S, KVH, Dh], keyed as the cache:
+    themselves, or under kv8 each row quantized over Dh (:1094-1107)."""
+    if not cfg.kv8:
+        return {"k": k, "v": v}
+    k8, ks = _q8(k.float(), -1)
+    v8, vs = _q8(v.float(), -1)
+    return {"k": k8, "ks": ks, "v": v8, "vs": vs}
 
 
 def index_write(buf: torch.Tensor, dim: int, index: torch.Tensor, src: torch.Tensor) -> None:
@@ -328,6 +500,10 @@ def _f32(x: float) -> float:
     """``x`` rounded to f32, as a Python float: a scalar operand that an f32
     tensor op uses exactly, with no copy to the device."""
     return float(np.float32(x))
+
+
+# the reference's f32(1 / 127^2): w8's folded scale and kv8's PV dequant
+_DEQUANT = _f32(1.0 / (127.0 * 127.0))
 
 
 def _norm(cfg: LMConfig, p: Norm, x: torch.Tensor) -> torch.Tensor:
@@ -376,6 +552,21 @@ def _dot_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """The same product kept in f32 (f32 upcasts: exact products of the
     operands, f32 sums)."""
     return torch.matmul(x.float(), w.float())
+
+
+def _w8_dot(x: torch.Tensor, w: W8) -> torch.Tensor:
+    """x [..., K] times an int8 weight -> f32 [..., N] (the reference's
+    ``_w8_dot``, :530-550): x quantized per row, the exact int32 product
+    (``ops.int8.int8_mm``), then ``(acc * sx) * s``, two f32 multiplies in
+    that grouping."""
+    xq, sx = _q8(x.float(), -1)
+    acc = int8_mm(xq.reshape(-1, xq.shape[-1]), w.q)
+    return (acc.to(f32).reshape(*x.shape[:-1], -1) * sx) * w.s
+
+
+def _bias_f32(cfg: LMConfig, y: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """A w8 product's f32 result plus the bias, as stored, in f32."""
+    return y + b.float() if cfg.use_bias else y
 
 
 def _scale_f32(hd: int) -> float:
@@ -428,9 +619,13 @@ def _qkv(cfg: LMConfig, p: Block, x: torch.Tensor):
     b, s, _ = x.shape
 
     def proj(w, bias_name, heads):
-        y = _dot(x, _c(cfg, getattr(p, w)))
-        if cfg.use_bias:
-            y = y + _c(cfg, getattr(p, bias_name))
+        if cfg.w8:
+            y = _bias_f32(cfg, _w8_dot(x, getattr(p, w)), getattr(p, bias_name, None))
+            y = y.to(cfg.dtype)
+        else:
+            y = _dot(x, _c(cfg, getattr(p, w)))
+            if cfg.use_bias:
+                y = y + _c(cfg, getattr(p, bias_name))
         return y.reshape(b, s, heads, cfg.head_dim)
 
     return proj("wq", "bq", cfg.n_heads), proj("wk", "bk", cfg.n_kv_heads), \
@@ -439,6 +634,8 @@ def _qkv(cfg: LMConfig, p: Block, x: torch.Tensor):
 
 def _out_proj(cfg: LMConfig, p: Block, out: torch.Tensor) -> torch.Tensor:
     """The attention output [B, S, H*Dh] through ``wo``."""
+    if cfg.w8:
+        return _bias_f32(cfg, _w8_dot(out, p.wo), getattr(p, "bo", None)).to(cfg.dtype)
     y = _dot(out, _c(cfg, p.wo))
     if cfg.use_bias:
         y = y + _c(cfg, p.bo)
@@ -457,8 +654,8 @@ def _attention(cfg: LMConfig, p: Block, x: torch.Tensor, fused: bool = False,
         q = _rope(cfg, q, positions)
         k = _rope(cfg, k, positions)
     if cache is not None:
-        cache["k"][layer, :, :s] = k
-        cache["v"][layer, :, :s] = v
+        for key, t in _cache_rows(cfg, k, v).items():
+            cache[key][layer, :, :s] = t
     scale = _scale_f32(hd)
 
     if fused and h == kvh:
@@ -478,53 +675,114 @@ def _attention(cfg: LMConfig, p: Block, x: torch.Tensor, fused: bool = False,
     return _out_proj(cfg, p, out.reshape(b, s, h * hd))
 
 
+def _heads_f32(t: torch.Tensor) -> torch.Tensor:
+    """[B, N, KVH, ...] -> contiguous f32 [B, KVH, N, ...]."""
+    return t.transpose(1, 2).to(f32, memory_format=torch.contiguous_format)
+
+
+def _mask(scores: torch.Tensor, w_len: int, drop, keep) -> None:
+    """-inf, in place, at the cache slots ``drop`` and the fresh scores off
+    ``keep`` (``_attention_cached``)."""
+    scores[..., :w_len].masked_fill_(drop, float("-inf"))
+    if keep is not None:
+        scores[..., w_len:].masked_fill_(~keep, float("-inf"))
+
+
+def _attend_float(cfg: LMConfig, qf, kf, vf, ck, cv, drop, keep, scale) -> torch.Tensor:
+    """The float cache route: f32 upcasts of the cache slice ``ck``, ``cv``
+    [B, W, KVH, Dh]; returns [B, KVH, R*S, Dh] in cfg.dtype."""
+    w_len = ck.shape[1]
+    ckf, cvf = _heads_f32(ck), _heads_f32(cv)
+    # the cache's scores [.., W] and the fresh ones [.., S], then the scale
+    scores = torch.cat([torch.matmul(qf, ckf.transpose(-1, -2)),
+                        torch.matmul(qf, kf.transpose(-1, -2))], dim=-1) * scale
+    _mask(scores, w_len, drop, keep)
+    # one softmax over both; the probabilities rounded to cfg.dtype, then
+    # the cache's and the fresh products summed in f32
+    probs = torch.softmax(scores, dim=-1).to(cfg.dtype).float()
+    out = torch.matmul(probs[..., :w_len], cvf) + torch.matmul(probs[..., w_len:], vf)
+    return out.to(cfg.dtype)
+
+
+def _kv8_scores(qf: torch.Tensor, c8: dict, scale: float) -> torch.Tensor:
+    """The cache's scores under kv8 (:877-899): the queries qf [B, KVH,
+    R*S, Dh] quantized per row over Dh, the exact int32 product with the
+    int8 K, then ``(acc * sq) * (sk * (scale / 127^2))``, ``scale / 127^2``
+    an f32 division as in the reference. Returns f32 [B, KVH, R*S, W]."""
+    q8, sq = _q8(qf, -1)
+    sci = int8_bmm(q8, c8["k"].permute(0, 2, 3, 1))
+    skc = c8["ks"].permute(0, 2, 3, 1) * _f32(np.float32(scale) / np.float32(127.0 * 127.0))
+    return (sci.to(f32) * sq) * skc
+
+
+def _kv8_pv(probs: torch.Tensor, c8: dict) -> torch.Tensor:
+    """The cache's PV product under kv8 (:924-936): the probabilities
+    [B, KVH, R*S, W] times V's row scales, quantized per row over W, the
+    exact int32 product with the int8 V, then ``acc * (sp * 1/127^2)``.
+    Returns f32 [B, KVH, R*S, Dh]."""
+    p8, sp = _q8(probs * c8["vs"].permute(0, 2, 3, 1), -1)
+    oci = int8_bmm(p8, c8["v"].transpose(1, 2))
+    return oci.to(f32) * (sp * _DEQUANT)
+
+
+def _attend_kv8(cfg: LMConfig, qf, kf, vf, c8: dict, drop, keep, scale) -> torch.Tensor:
+    """The kv8 cache route on the layer's int8 slice ``c8`` (``k``, ``v``
+    [B, W, KVH, Dh], ``ks``, ``vs`` [B, W, KVH, 1]): the cache's scores
+    beside the fresh ones (unquantized fresh K), one softmax, the cache's
+    PV product plus the fresh one in f32, one cast. Returns [B, KVH, R*S,
+    Dh] in cfg.dtype."""
+    w_len = c8["k"].shape[1]
+    scores = torch.cat([_kv8_scores(qf, c8, scale),
+                        torch.matmul(qf, kf.transpose(-1, -2)) * scale], dim=-1)
+    _mask(scores, w_len, drop, keep)
+    probs = torch.softmax(scores, dim=-1)
+    outf = torch.matmul(probs[..., w_len:].to(cfg.dtype).float(), vf)
+    return (_kv8_pv(probs[..., :w_len], c8) + outf).to(cfg.dtype)
+
+
 def _attention_cached(cfg: LMConfig, p: Block, x: torch.Tensor, cache: dict, layer: int,
                       rope, drop, keep, slots) -> torch.Tensor:
     """One layer's attention for S tokens at ``cache["pos"]`` against the
     layer's cache slice and the call's fresh K/V (the reference's
-    ``prefill=False`` float branch), then the fresh K/V written into the
-    slice at ``slots``. ``rope``: the call's (cos, sin), or None. ``drop``:
-    the cache slots no query may see, [W] or [R*S, W]. ``keep``: the causal
-    mask of the fresh scores [R*S, S], or None at S 1, where it keeps
-    everything. ``slots``: [S] cache slots of the call's tokens."""
+    ``prefill=False`` branches, float or kv8), then the fresh K/V written
+    into the slice at ``slots``. ``rope``: the call's (cos, sin), or None.
+    ``drop``: the cache slots no query may see, [W] or [R*S, W]. ``keep``:
+    the causal mask of the fresh scores [R*S, S], or None at S 1, where it
+    keeps everything. ``slots``: [S] cache slots of the call's tokens."""
     b, s, _ = x.shape
     h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    ck, cv = cache["k"][layer], cache["v"][layer]  # [B, W, KVH, Dh]
-    w_len = ck.shape[1]
+    slice_ = {key: t[layer] for key, t in cache.items() if key != "pos"}
     q, k, v = _qkv(cfg, p, x)
     if rope is not None:  # q and k rotated as one tensor: the same values
         q, k = _rope_apply(torch.cat([q, k], dim=2), *rope).split([h, kvh], dim=2)
     scale = _scale_f32(hd)
     # GQA: the query heads of a KV head fold into the rows, [B, KVH, R*S, Dh]
-    # in (r, s) order; every product below is one batched matmul over
-    # (B, KVH) on f32 upcasts, with each operand made contiguous first
+    # in (r, s) order; every product is one batched matmul over (B, KVH),
+    # with each operand made contiguous first
     rep = h // kvh
-
-    def heads_f32(t):  # [B, N, KVH, ...] -> contiguous f32 [B, KVH, N, ...]
-        return t.transpose(1, 2).to(f32, memory_format=torch.contiguous_format)
-
-    qf = heads_f32(q.reshape(b, s, kvh, rep, hd)).transpose(2, 3).reshape(b, kvh, rep * s, hd)
-    ckf, cvf = heads_f32(ck), heads_f32(cv)
-    kf, vf = heads_f32(k), heads_f32(v)
-    # the cache's scores [.., W] and the fresh ones [.., S], then the scale
-    scores = torch.cat([torch.matmul(qf, ckf.transpose(-1, -2)),
-                        torch.matmul(qf, kf.transpose(-1, -2))], dim=-1) * scale
-    scores[..., :w_len].masked_fill_(drop, float("-inf"))
-    if keep is not None:
-        scores[..., w_len:].masked_fill_(~keep, float("-inf"))
-    # one softmax over both; the probabilities rounded to cfg.dtype, then
-    # the cache's and the fresh products summed in f32
-    probs = torch.softmax(scores, dim=-1).to(cfg.dtype).float()
-    out = torch.matmul(probs[..., :w_len], cvf) + torch.matmul(probs[..., w_len:], vf)
-    out = out.to(cfg.dtype).reshape(b, kvh, rep, s, hd).permute(0, 3, 1, 2, 4)
+    qf = _heads_f32(q.reshape(b, s, kvh, rep, hd)).transpose(2, 3).reshape(b, kvh, rep * s, hd)
+    kf, vf = _heads_f32(k), _heads_f32(v)
+    if cfg.kv8:
+        out = _attend_kv8(cfg, qf, kf, vf, slice_, drop, keep, scale)
+    else:
+        out = _attend_float(cfg, qf, kf, vf, slice_["k"], slice_["v"], drop, keep, scale)
+    out = out.reshape(b, kvh, rep, s, hd).permute(0, 3, 1, 2, 4)
     y = _out_proj(cfg, p, out.reshape(b, s, h * hd))
     # after this layer's reads: the fresh K/V into its slice
-    index_write(ck, 1, slots, k)
-    index_write(cv, 1, slots, v)
+    for key, t in _cache_rows(cfg, k, v).items():
+        index_write(slice_[key], 1, slots, t)
     return y
 
 
 def _mlp(cfg: LMConfig, p: Block, x: torch.Tensor) -> torch.Tensor:
+    if cfg.w8:  # (:967-978) f32 between the products, one cast before w_down
+        up = _bias_f32(cfg, _w8_dot(x, p.w_up), getattr(p, "b_up", None))
+        if cfg.act == "silu_glu":
+            up = F.silu(_w8_dot(x, p.w_gate)) * up
+        else:
+            up = F.gelu(up, approximate="tanh")
+        y = _w8_dot(up.to(cfg.dtype), p.w_down)
+        return _bias_f32(cfg, y, getattr(p, "b_down", None)).to(cfg.dtype)
     up = _dot(x, _c(cfg, p.w_up))
     if cfg.use_bias:
         up = up + _c(cfg, p.b_up)
@@ -548,6 +806,8 @@ def _layer(cfg: LMConfig, p: Block, x: torch.Tensor, fused: bool, cache: dict | 
 def _head(cfg: LMConfig, params: Transformer, x: torch.Tensor) -> torch.Tensor:
     """Final norm and the output head: f32 logits [B, S, vocab]."""
     x = _norm(cfg, params.final_norm, x)
+    if cfg.w8:
+        return _w8_dot(x, params.head)
     embed = _c(cfg, params.embed)
     wh = embed[: cfg.vocab].T if cfg.tie_embeddings else _c(cfg, params.head)
     return _dot_f32(x, wh)
@@ -618,6 +878,9 @@ def forward(cfg: LMConfig, params: Transformer, tokens: torch.Tensor, cache: dic
     summation order from the exact branch, so coding paths must not set
     it."""
     _check_float_path(cfg)
+    if is_w8(params) != cfg.w8:
+        raise ValueError("the w8 forward needs the model ensure_w8 gives, and the float "
+                         f"forward a float one (cfg.w8 {cfg.w8}, quantized {is_w8(params)})")
     if not prefill:
         if cache is None:
             raise ValueError("forward(prefill=False) needs a cache from init_cache")

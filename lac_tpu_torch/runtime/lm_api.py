@@ -13,20 +13,24 @@ container). A block longer than the model context runs the windowed
 schedule that ``window_mode`` names (``runtime/lm_engine.py``). The
 container config holds the same keys as ``lac_tpu``'s.
 
-Not ported, and raising with the ROADMAP item that ports them: the det8,
-kv8 and w8 forwards (A8, A7), a ``mesh`` (A13); the token alphabet and
-text front-end are A9. Entry points run on the card unless the caller passes
+The kv8 and w8 forwards code through every call (``kv8``, ``w8``; the
+header records them, and a decoder resolves the container's modes). Not
+ported, and raising with the ROADMAP item that ports them: the det8
+forward (A8), a ``mesh`` (A13); the token alphabet and text front-end
+are A9. Entry points run on the card unless the caller passes
 ``device="cpu"``.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
 
 from ..coder.rans import encode_capacity
 from ..models.lm_registry import resolve_lm
-from ..models.transformer import LMConfig, Transformer
+from ..models.transformer import LMConfig, Transformer, ensure_w8
 from ..stream.container import (CODEC_RANS64, BlockEntry, ContainerHeader, read_container,
                                 scan_container, write_container)
 from ..utils.device import resolve_device
@@ -42,9 +46,6 @@ __all__ = [
     "auto_prob_bits",
 ]
 
-_MODE_ITEMS = (("det8", "A8"), ("kv8", "A7"), ("w8", "A7"))
-
-
 def _no_mesh(mesh) -> None:
     if mesh is not None:
         raise NotImplementedError(
@@ -53,15 +54,25 @@ def _no_mesh(mesh) -> None:
 
 def _cfg_for_det8(cfg: LMConfig, det8: bool, decoding: bool = False, kv8: bool = False,
                   w8: bool = False) -> LMConfig:
-    """The forward-mode handshake: the port codes with the float forward
-    only, so a det8, kv8 or w8 request (or container) raises, naming the
-    ROADMAP item that ports the mode."""
-    for name, item in _MODE_ITEMS:
-        if {"det8": det8, "kv8": kv8, "w8": w8}[name] or getattr(cfg, name):
-            what = "a container coded with" if decoding else "coding with"
-            raise NotImplementedError(
-                f"{what} the {name} forward is not ported to lac_tpu_torch yet "
-                f"(ROADMAP {item})")
+    """The forward-mode handshake (the reference's, :116-141): det8 with
+    kv8 or w8 is refused; a requested mode upgrades ``cfg``; at decode, a
+    model resolved with a mode the container lacks is refused, naming the
+    mode. det8 then raises, naming ROADMAP A8."""
+    if det8 and (kv8 or w8):
+        raise ValueError("det8 is mutually exclusive with kv8/w8 forward modes")
+    for name, want in (("det8", det8), ("kv8", kv8), ("w8", w8)):
+        have = getattr(cfg, name)
+        if want and not have:
+            cfg = dataclasses.replace(cfg, **{name: True})
+        elif decoding and have and not want:
+            raise ValueError(
+                f"container was encoded WITHOUT {name} but the model was resolved with "
+                f"{name}=True: the forward modes produce different bitstreams; re-resolve "
+                f"the model without {name}")
+    if cfg.det8:
+        what = "a container coded with" if decoding else "coding with"
+        raise NotImplementedError(
+            f"{what} the det8 forward is not ported to lac_tpu_torch yet (ROADMAP A8)")
     return cfg
 
 
@@ -130,11 +141,14 @@ def lm_compress_bytes(
     ``slide_seg`` (None: 512 for slide past the context) bounds
     ``lac_tpu``'s compiled scans and changes no step here. Both resolve and
     are recorded as in ``lac_tpu`` (the fingerprint folds ``slide_seg``),
-    and the decoder replays the recorded mode."""
+    and the decoder replays the recorded mode. ``kv8`` and ``w8`` code with
+    the int8 KV cache and the int8 weights (``models/transformer.py``;
+    the model is quantized once for the call); ``det8`` raises (A8)."""
     _no_mesh(mesh)
     dev = resolve_device(device)
     cfg, params = _model_on(model, model_ref, max_seq, dev)
     cfg = _cfg_for_det8(cfg, det8, kv8=kv8, w8=w8)
+    params = ensure_w8(cfg, params)  # once for the call, not once a wave
     window_mode = _resolve_window_mode(window_mode, cfg)
     slide_seg = _resolve_slide_seg(slide_seg, window_mode, cfg, block_tokens)
     if cfg.vocab < 256:
@@ -190,6 +204,7 @@ def _lm_decode_setup(header: ContainerHeader, model, mesh, dev: torch.device):
     cfg, params = _model_on(model, c["model_ref"], c["max_seq"], dev)
     cfg = _cfg_for_det8(cfg, bool(c.get("det8")), decoding=True, kv8=bool(c.get("kv8")),
                         w8=bool(c.get("w8")))
+    params = ensure_w8(cfg, params)
     fp = lm_fingerprint(cfg, params, header.prob_bits, int(c.get("cache_grow", 0)),
                         int(c.get("slide_seg", 0)))
     if fp != c["fingerprint"]:

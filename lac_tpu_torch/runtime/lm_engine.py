@@ -13,8 +13,11 @@ context (ROADMAP A6): ``window_schedule`` (:339-358), ``_reprime_cdf``
 :441-444, :590-591), reprime mode with growth in the first window only
 when ``max_seq % cache_grow == 0`` (:445-478, :592-623), and
 ``lm_encode_windowed`` / ``lm_decode_windowed`` (:396-478, :556-623);
-and ``lm_fingerprint`` (:629-672). det8's slide paths (:140-170, its
-segmented decode) are A8, the kv8 and w8 forwards A7: the transformer
+and ``lm_fingerprint`` (:629-672). The int8 modes (kv8, w8) run on every
+schedule: each coding call quantizes a float model once on entry
+(``ensure_w8``, as the reference's :297, :315, :419, :563, :644), and
+``_grow_cache`` copies every buffer of the cache, kv8's scales too. det8's
+slide paths (:140-170, its segmented decode) are A8: the transformer
 raises for them.
 
 One function, ``_schedule``, walks every schedule for both directions. The
@@ -58,7 +61,7 @@ import numpy as np
 import torch
 
 from ..coder.vector import _encode_scan
-from ..models.transformer import LMConfig, Transformer, forward, init_cache
+from ..models.transformer import LMConfig, Transformer, ensure_w8, forward, init_cache
 from ..ops.quantize import cdf_from_freq, quantize_logits
 from .step_graph import SegDecode, SegIntervals, _Runner, _step_cdf
 
@@ -127,12 +130,14 @@ def _first_width(t_len: int, bucket: int) -> int:
 
 
 def _grow_cache(cfg: LMConfig, cache: dict, new_w: int) -> dict:
-    """A cache ``new_w`` wide holding ``cache``'s entries at the front (and
-    its ``pos`` tensor)."""
+    """A cache ``new_w`` wide holding every buffer of ``cache`` (``k`` and
+    ``v``, and kv8's ``ks`` and ``vs``) at the front, and its ``pos``
+    tensor."""
     k = cache["k"]
     grown = init_cache(cfg, k.shape[1], new_w, device=k.device)
-    for key in ("k", "v"):
-        grown[key][:, :, : k.shape[2]] = cache[key]
+    for key, val in cache.items():
+        if key != "pos":
+            grown[key][:, :, : k.shape[2]] = val
     grown["pos"] = cache["pos"]
     return grown
 
@@ -265,6 +270,7 @@ def _as_tensor(a, dtype, device) -> torch.Tensor:
 def _encode(cfg: LMConfig, params: Transformer, tokens, lengths, prob_bits: int,
             cache_grow: int, mode: str, overlap: int):
     _check_grow(cache_grow)
+    params = ensure_w8(cfg, params)
     dev = _device(params)
     tokens = _as_tensor(tokens, torch.int64, dev)
     lengths = _as_tensor(lengths, torch.int64, dev)
@@ -278,6 +284,7 @@ def _encode(cfg: LMConfig, params: Transformer, tokens, lengths, prob_bits: int,
 def _decode(cfg: LMConfig, params: Transformer, words, lengths, prob_bits: int, t_len: int,
             cache_grow: int, mode: str, overlap: int) -> torch.Tensor:
     _check_grow(cache_grow)
+    params = ensure_w8(cfg, params)
     dev = _device(params)
     words = _as_tensor(words, torch.int64, dev)
     lengths = _as_tensor(lengths, torch.int64, dev)
@@ -340,9 +347,10 @@ def lm_fingerprint(cfg: LMConfig, params: Transformer, prob_bits: int, cache_gro
                    slide_seg: int = 0) -> int:
     """Determinism fingerprint stored in the container: the crc32 of the
     quantized CDF of a fixed probe (the BOS step from an empty cache of
-    ``cfg.max_seq`` slots, batch 1), with ``cache_grow`` and ``slide_seg``
-    folded in as ``lac_tpu`` folds them, and then this stack's tag
-    (``stack_tag``).
+    ``cfg.max_seq`` slots, batch 1, on the model ``ensure_w8`` gives), with
+    ``cache_grow``, ``slide_seg`` and the int8 modes' tags (``w8v2``,
+    ``kv8v2``) folded in as ``lac_tpu`` folds them, in its order, and then
+    this stack's tag (``stack_tag``).
 
     The probe is one batch-1 step and can collide across stacks; the tag
     makes every float container of another stack or device kind fail the
@@ -350,6 +358,7 @@ def lm_fingerprint(cfg: LMConfig, params: Transformer, prob_bits: int, cache_gro
     and the port's CPU containers on the card. Whether det8 containers can
     be identical across the stacks is ROADMAP A8's question; its tag
     belongs there."""
+    params = ensure_w8(cfg, params)
     dev = _device(params)
     cache = init_cache(cfg, 1, device=dev)
     with _coding(dev):
@@ -360,4 +369,8 @@ def lm_fingerprint(cfg: LMConfig, params: Transformer, prob_bits: int, cache_gro
         crc = zlib.crc32(f"cache_grow={cache_grow}".encode(), crc)
     if slide_seg:
         crc = zlib.crc32(f"slide_seg={slide_seg}".encode(), crc)
+    if cfg.w8:
+        crc = zlib.crc32(b"w8v2", crc)
+    if cfg.kv8:  # the probe's empty cache never reaches the kv8 route
+        crc = zlib.crc32(b"kv8v2", crc)
     return zlib.crc32(stack_tag(dev).encode(), crc)

@@ -11,8 +11,9 @@ step launches some 800-1,000 small kernels (PERF.md section 5).
 A runner holds one coding call's static state: the previous tokens, the
 device index ``t`` of the position the next step codes, the block's
 symbols and the outputs ``[B, T]``, and its graphs; the cache's cursor
-``pos`` is a device tensor too (``models/transformer.py``). A step reads
-only these tensors and the parameters: the model step and the integer CDF
+``pos`` is a device tensor too (``models/transformer.py``; under kv8 the
+cache holds four buffers, all captured). A step reads only these tensors
+and the parameters: the model step and the integer CDF
 (``_step_cdf``), then the direction's tail, which codes position ``t`` from
 the CDF (``SegIntervals``: its interval, ``gather_intervals``;
 ``SegDecode``: its symbol, ``_decode_step``), writes it at column ``t``

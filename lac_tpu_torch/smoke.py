@@ -53,6 +53,13 @@ model=load_checkpoint(checkpoint), **coding)``; ``tests/test_torch_window.py``
 recomputes them (the byte-16l one in a test marked ``slow``), and
 ``chip_smoke.py``'s phase 5 holds the port's containers on the card to
 them within 1 %.
+
+``GOLDEN_Q8_BPB`` holds ``lac_tpu``'s bits/byte for the int8 LM modes:
+``GOLDEN_LM_BPB``'s call (byte-6l, the corpus's first ``LM_BPB_BYTES`` at
+``LM_CODING``) with ``kv8=True``, ``w8=True`` or both, computed on the CPU
+as ``GOLDEN_LM_BPB`` was; ``tests/test_torch_q8_golden.py`` recomputes
+them, and ``chip_smoke.py``'s phase 6 holds the port's containers, made
+through the CLI's ``--kv8`` / ``--w8``, on the card to them within 1 %.
 """
 
 from __future__ import annotations
@@ -66,7 +73,8 @@ import numpy as np
 __all__ = ["SMOKE_BYTES", "GOLDEN", "GOLDEN_LM", "LM_CHECKPOINT", "GOLDEN_LM_BPB",
            "LM_BPB_BYTES", "LM_CODING", "HELDOUT_BYTES", "HELDOUT_CRC", "GOLDEN_WINDOW_BPB",
            "WINDOW_BPB_BYTES", "WINDOW_CODING", "SLIDE16_CHECKPOINT", "GOLDEN_SLIDE16_BPB",
-           "SLIDE16_BYTES", "SLIDE16_CODING", "smoke_corpus", "container_digest",
+           "SLIDE16_BYTES", "SLIDE16_CODING", "GOLDEN_Q8_BPB", "smoke_corpus",
+           "container_digest",
            "lm_windows", "heldout_slice"]
 
 SMOKE_BYTES = 32 << 20  # bench.py's corpus size
@@ -114,6 +122,9 @@ GOLDEN_SLIDE16_BPB = 0.8763427734375
 SLIDE16_BYTES = HELDOUT_BYTES
 SLIDE16_CODING = dict(block_tokens=4096, lanes=64, prob_bits=16, overlap=8, cache_grow=128,
                       window_mode="slide")
+
+# lac_tpu's bits/byte for GOLDEN_LM_BPB's call in each int8 mode
+GOLDEN_Q8_BPB = {"kv8": 2.14013671875, "w8": 2.13525390625, "kv8+w8": 2.138916015625}
 
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _HELDOUT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data",

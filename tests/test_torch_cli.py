@@ -111,11 +111,27 @@ def test_lm_model_not_ported(one_thread, corpus_file, capsys):
     assert "bpb" in capsys.readouterr().out
 
 
-@pytest.mark.parametrize("flag,item", [("--det8", "A8"), ("--kv8", "A7"), ("--w8", "A7"),
-                                       ("--mesh-model=2", "A13")])
+@pytest.mark.parametrize("flag,item", [("--det8", "A8"), ("--mesh-model=2", "A13")])
 def test_lm_unported_flags_exit(one_thread, corpus_file, flag, item):
     with pytest.raises(SystemExit, match=item):
         cli.main(["compress", corpus_file, *LM_SMALL, flag])
+
+
+@pytest.mark.parametrize("flags", [["--kv8"], ["--w8"], ["--kv8", "--w8"]])
+def test_lm_int8_flags_round_trip(one_thread, corpus_file, flags):
+    """--kv8 and --w8 (alone and together) reach the coding config: the
+    header records them, and decompress, which reads the modes from the
+    header, gives the bytes back."""
+    from lac_tpu_torch.stream.container import read_container
+
+    assert cli.main(["compress", corpus_file, *LM_SMALL, *flags]) == 0
+    with open(corpus_file + ".lac", "rb") as f:
+        header, _ = read_container(f.read())
+    assert (header.config["kv8"], header.config["w8"]) == ("--kv8" in flags, "--w8" in flags)
+    os.remove(corpus_file)
+    assert cli.main(["decompress", corpus_file + ".lac", "--device", "cpu"]) == 0
+    with open(corpus_file, "rb") as f:
+        assert f.read() == smoke_corpus(6000)
 
 
 def test_lm_block_past_the_context_exits(one_thread, corpus_file):

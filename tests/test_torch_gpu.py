@@ -528,3 +528,113 @@ def test_lm_windowed_round_trip_on_the_card(cuda, mode):
     assert header.config["window_mode"] == mode and all(b.token_count for b in blocks)
     assert lm_api.lm_decompress_bytes(c, model=model) == data
     assert lm_api.lm_compress_bytes(data, model_ref="file:" + LM_CKPT, model=model, **kw) == c
+
+
+# --------------------------------------------------------------------------
+# The int8 LM modes on the card (kv8, w8): the exact int8 products and the
+# kv8+w8 step as a CUDA graph
+# --------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("m", [1, 4, 16, 17, 64])
+def test_int8_mm_exact_on_the_card(cuda, m):
+    """ops.int8.int8_mm through its padding against the host's exact product
+    (float64: every partial sum of int8 products is below 2^53), seeded and
+    at every value +-127, b row- and column-major."""
+    from lac_tpu_torch.ops.int8 import int8_mm
+
+    rng = np.random.default_rng(m)
+    for n in (61, 256, 32000):
+        for k in (64, 2048, 5632):
+            for worst in (False, True):
+                a = np.full((m, k), 127, np.int8) if worst else rng.integers(
+                    -127, 128, (m, k), dtype=np.int8)
+                b = np.full((k, n), -127, np.int8) if worst else rng.integers(
+                    -127, 128, (k, n), dtype=np.int8)
+                want = a.astype(np.float64) @ b.astype(np.float64)
+                bt = torch.from_numpy(b).to(cuda)
+                for bb in (bt, bt.t().contiguous().t()):
+                    got = int8_mm(torch.from_numpy(a).to(cuda), bb)
+                    assert np.array_equal(got.cpu().numpy().astype(np.float64), want), (n, k)
+
+
+@pytest.mark.parametrize("w", [1024, 1040, 2048])
+def test_int8_bmm_exact_on_the_card(cuda, w):
+    """The chunked product over W terms under the coding context (TF32 off),
+    seeded and worst case; with TF32 on it refuses."""
+    from lac_tpu_torch.ops.int8 import int8_bmm
+    from lac_tpu_torch.runtime.lm_engine import _coding
+
+    rng = np.random.default_rng(w)
+    for worst in (False, True):
+        a = np.full((2, 4, 8, w), 127, np.int8) if worst else rng.integers(
+            -127, 128, (2, 4, 8, w), dtype=np.int8)
+        b = np.full((2, 4, w, 64), 127, np.int8) if worst else rng.integers(
+            -127, 128, (2, 4, w, 64), dtype=np.int8)
+        with _coding(cuda):
+            got = int8_bmm(torch.from_numpy(a).to(cuda), torch.from_numpy(b).to(cuda))
+        assert np.array_equal(got.cpu().numpy().astype(np.float64),
+                              np.matmul(a.astype(np.float64), b.astype(np.float64)))
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        with pytest.raises(RuntimeError, match="TF32"):
+            int8_bmm(torch.from_numpy(a).to(cuda), torch.from_numpy(b).to(cuda))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+
+
+@pytest.mark.parametrize("slide", [False, True])
+def test_lm_kv8_w8_graph_step_equals_the_eager_step(cuda, slide):
+    """test_lm_graph_step_equals_the_eager_step with the int8 KV cache and
+    int8 weights: 12 steps' CDFs and intervals equal bit for bit, the
+    four-buffer cache captured and replayed."""
+    import dataclasses
+
+    from lac_tpu_torch.models import transformer as T
+    from lac_tpu_torch.models.lm_registry import resolve_lm
+    from lac_tpu_torch.runtime import lm_engine, step_graph
+
+    cfg, params = resolve_lm("prng:tiny:0", max_seq=64)
+    cfg = dataclasses.replace(cfg, slide=slide, kv8=True, w8=True)
+    params = T.ensure_w8(cfg, params)
+    start = 64 if slide else 40
+    toks = torch.from_numpy(np.random.default_rng(1).integers(0, 256, (6, start + 12))).to(cuda)
+    cdfs, runs = [], []
+    with lm_engine._coding(cuda):
+        base = T.init_cache(cfg, 6, 64, device=cuda)
+        T.forward(cfg, params, toks[:, :start], base, prefill=True)
+        for graphed in (False, True):
+            run = step_graph.SegIntervals(cfg, params, 16, toks[:, start:])
+            run.prev.copy_(toks[:, start - 1])
+            cache = {k: v.clone() for k, v in base.items()}
+            got = []
+            for _ in range(12):
+                run.steps(cache, 1) if graphed else run._step(cache)
+                got.append(run.cdf.clone())
+            cdfs.append(torch.stack(got))
+            runs.append(run)
+    assert sorted(base) == ["k", "ks", "pos", "v", "vs"] and base["k"].dtype == torch.int8
+    assert torch.equal(cdfs[0], cdfs[1])
+    assert torch.equal(runs[0].lo, runs[1].lo) and torch.equal(runs[0].f, runs[1].f)
+    assert len(runs[1]._graphs) == 1
+
+
+def test_lm_int8_round_trip_on_the_card(cuda):
+    """byte-6l with kv8 and w8 at LM_SMALL: every block coded, the header's
+    flags, the round trip equal, a second encode equal."""
+    import os
+
+    from lac_tpu_torch.runtime import lm_api
+    from lac_tpu_torch.stream.container import read_container
+    from lac_tpu_torch.train import load_checkpoint
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    model = load_checkpoint(os.path.join(root, LM_CKPT))
+    data = _lm_data()
+    kw = dict(LM_SMALL, kv8=True, w8=True)
+    c = lm_api.lm_compress_bytes(data, model_ref="file:" + LM_CKPT, model=model, **kw)
+    header, blocks = read_container(c)
+    assert header.config["kv8"] and header.config["w8"] and all(b.token_count for b in blocks)
+    assert lm_api.lm_decompress_bytes(c, model=model) == data
+    assert lm_api.lm_compress_bytes(data, model_ref="file:" + LM_CKPT, model=model, **kw) == c

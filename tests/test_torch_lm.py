@@ -331,10 +331,17 @@ def test_engine_fixed_and_grown_schedules_round_trip(trained):
 
 
 def test_unported_modes_and_refs_raise(trained):
+    """det8, a mesh and hf: refs raise, naming their ROADMAP items; kv8 and
+    w8 (A7, held to lac_tpu's in tests/test_torch_q8.py) code and
+    round-trip."""
     cfg, model, _, _ = trained
-    for flag, item in (("det8", "A8"), ("kv8", "A7"), ("w8", "A7")):
-        with pytest.raises(NotImplementedError, match=item):
-            lm_api.lm_compress_bytes(DATA, model=(cfg, model), device="cpu", **{flag: True})
+    with pytest.raises(NotImplementedError, match="A8"):
+        lm_api.lm_compress_bytes(DATA, model=(cfg, model), device="cpu", det8=True)
+    for flag in ("kv8", "w8"):
+        c = lm_api.lm_compress_bytes(DATA[:200], model=(cfg, model), device="cpu",
+                                     block_tokens=64, lanes=4, **{flag: True})
+        assert read_container(c)[0].config[flag]
+        assert lm_api.lm_decompress_bytes(c, model=(cfg, model), device="cpu") == DATA[:200]
     with pytest.raises(NotImplementedError, match="A13"):
         lm_api.lm_compress_bytes(DATA, model=(cfg, model), device="cpu", mesh=object())
     # a block past the context codes (tests/test_torch_window.py); det8's

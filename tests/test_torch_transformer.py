@@ -132,22 +132,31 @@ def test_gqa_takes_the_exact_branch(monkeypatch):
 
 
 def test_unported_modes_raise():
-    """The det8, w8 and kv8 forwards raise, naming their ROADMAP items, for
-    the prefill and for the cached decode step (which A5 ported:
-    tests/test_torch_lm.py). The slide forward (A6, held to lac_tpu's in
-    tests/test_torch_window.py) runs both."""
+    """The det8 forward raises, naming ROADMAP A8, for the prefill, for the
+    cached decode step (which A5 ported: tests/test_torch_lm.py) and for
+    its cache. The w8 and kv8 forwards (A7, held to lac_tpu's in
+    tests/test_torch_q8.py) run both, w8 on the model ensure_w8 gives. The
+    slide forward (A6, held to lac_tpu's in tests/test_torch_window.py)
+    runs both."""
     cfg = T.tiny_config()
     model = T.init_params(cfg)
     toks = torch.zeros(1, 4, dtype=torch.long)
     cache = T.init_cache(cfg, 1, 8)
-    for flag, item in (("w8", "A7"), ("kv8", "A7"), ("det8", "A8")):
+    det8 = dataclasses.replace(cfg, det8=True)
+    with pytest.raises(NotImplementedError, match="A8"):
+        T.forward(det8, model, toks, prefill=True)
+    with pytest.raises(NotImplementedError, match="A8"):
+        T.forward(det8, model, toks, cache)
+    with pytest.raises(NotImplementedError, match="A8"):
+        T.init_cache(det8, 1, 8)
+    for flag in ("w8", "kv8"):
         mode = dataclasses.replace(cfg, **{flag: True})
-        with pytest.raises(NotImplementedError, match=item):
-            T.forward(mode, model, toks, prefill=True)
-        with pytest.raises(NotImplementedError, match=item):
-            T.forward(mode, model, toks, cache)
-        with pytest.raises(NotImplementedError, match=item):
-            T.init_cache(mode, 1, 8)
+        params = T.ensure_w8(mode, model)
+        with torch.no_grad():
+            assert tuple(T.forward(mode, params, toks, prefill=True).shape) == (1, 4, cfg.vocab)
+            logits, step = T.forward(mode, params, toks, T.init_cache(mode, 1, 8))
+        assert tuple(logits.shape) == (1, 4, cfg.vocab) and int(step["pos"]) == 4
+        assert step["k"].dtype == (torch.int8 if flag == "kv8" else cfg.dtype)
     slide = dataclasses.replace(cfg, slide=True)
     with torch.no_grad():
         assert tuple(T.forward(slide, model, toks, prefill=True).shape) == (1, 4, cfg.vocab)
