@@ -2,8 +2,10 @@ import faulthandler; faulthandler.dump_traceback_later(1100, exit=True)  # noqa:
 
 # Drive lac_tpu_torch's main path on one CUDA card and check it.
 #
-#   python3 chip_smoke.py              phases 0-6, about eight minutes
-#   python3 chip_smoke.py --flagship   the flagship schedule alone (below)
+#   python3 chip_smoke.py              phases 0-7
+#   python3 chip_smoke.py --flagship   the flagship schedules alone (below)
+#   python3 chip_smoke.py --det8       phase 7 alone (its float comparisons
+#                                      against smoke's goldens)
 #
 # Phase 0  the card's name and power limit; build the CUDA kernels; the
 #          launch shapes of the order0n (K1, K3), order1n (K4, K5) and
@@ -120,13 +122,33 @@ import faulthandler; faulthandler.dump_traceback_later(1100, exit=True)  # noqa:
 #          and column-major) and int8_bmm at W 1024, 1040, 2048, seeded and
 #          at every value +-127, against the host's exact products, and
 #          int8_bmm refusing TF32; (f) no launch of K1-K12.
+# Phase 7  det8, the integer-reduction forward (slice 14; no TPU kernel, so
+#          K1-K12 must not launch): (a) byte-6l through the CLI with --det8
+#          at smoke.LM_CODING on the corpus's first 32 KiB: round trip, the
+#          header's flag, the container equal byte for byte to the port's
+#          CPU one (smoke.GOLDEN_DET8_PORT), bits/byte within 0.1 % of
+#          lac_tpu's (smoke.GOLDEN_DET8_BPB) and beside phase 4 (b)'s float
+#          figure; (b) phase 5 (a)'s byte-16l run through the CLI with
+#          --det8: round trip, slide_seg 0, bits/byte within 1 % of phase 5
+#          (a)'s float figure, tokens/s a side; (c) the chunked encode
+#          against serial steps on byte-16l's 1024-slot ring after a
+#          1024-token prefill, 256 positions at 64 lanes, chunks of 128 and
+#          of 37: the intervals equal bit for bit; (d) the card against the
+#          CPU, bit for bit: each elementwise det8 function on 2^20 values,
+#          the bf16 rounding, the det8 CDF, byte-6l's det8 logits for 16
+#          positions (a chunk and serial steps), the RoPE tables against
+#          smoke.GOLDEN_DET8_ROPE; (e) graph against eager, det8 steps at
+#          byte-16l's two ring shapes beside phase 5 (c)'s float steps;
+#          (f) no launch of K1-K12.
 #
 # --flagship: the shipped flagship configuration (bench.py: byte-16l, block
 # 65536, 4 lanes, overlap 8, slide, slide_seg 512) on the whole held-out
 # slice, 65,536 steps a side, through lm_compress_bytes and
 # lm_decompress_bytes: the round trip equal, bits/byte beside lac_tpu's
-# 0.8032 (a v5e), seconds a side and ms a step. Run it through the chip
-# tool with a timeout of about 1500 s.
+# 0.8032 (a v5e), seconds a side and ms a step; then byte-16l with det8,
+# slide, block 16384, 16 lanes, on the whole slice (lac_tpu's
+# measurements/r4_slide_det8_b16k.log): the round trip, bits/byte, seconds
+# a side and ms a position. It needs about 1500 s on one H100.
 #
 # It imports the standard library, numpy, torch and lac_tpu_torch only. A
 # hang ends in a traceback and a non-zero exit (faulthandler above). Without
@@ -347,6 +369,21 @@ FLAGSHIP_HANG_S = 2400  # the hang guard of a --flagship run
 # TinyLlama's lanes, tokens a lane and cache bucket
 Q8_FLAGS = {"kv8": ["--kv8"], "w8": ["--w8"], "kv8+w8": ["--kv8", "--w8"]}
 TL_LANES, TL_TOKENS, TL_GROW = 64, 512, 128
+# phase 7, det8: the card's byte-6l container against the port's CPU one
+# (smoke.GOLDEN_DET8_PORT) byte for byte, its bits/byte against lac_tpu's
+# (smoke.GOLDEN_DET8_BPB); the chunked encode against serial steps from
+# DET8_PREFILL tokens on byte-16l's ring, DET8_CHUNK_POS positions at chunk
+# 128 and at 37 (a ragged tail); DET8_LOGIT_POS positions of byte-6l's
+# logits and DET8_MATH_N values of each elementwise function, card against
+# CPU; --flagship's det8 run
+DET8_BPB_TOL = 1e-3
+DET8_PREFILL, DET8_CHUNK_POS, DET8_CHUNKS = 1024, 256, (128, 37)
+DET8_LOGIT_POS, DET8_MATH_N = 16, 1 << 20
+DET8_FLAGSHIP = dict(block_tokens=16384, lanes=16, prob_bits=16, overlap=8, cache_grow=128,
+                     window_mode="slide")
+# lac_tpu's det8 flagship on a v5e, context only (measurements/
+# r4_slide_det8_b16k.log): bits/byte, encode and decode seconds
+V5E_DET8_FLAGSHIP = (0.8196, 113, 240)
 
 
 class Phase:
@@ -969,13 +1006,16 @@ def lm_step_bound(torch, cfg, params, b: int, width: float) -> dict:
     element and a 4-byte scale a row), over HBM_BYTES_PER_S; against the
     step's operations (2 a multiply-add of every product) over the peak of
     their type: int8 for w8's projections and kv8's cache products, bf16
-    for the rest."""
+    for the rest. Under det8 (the model ``ensure_det8`` gives: int8 codes
+    and f32 scales, the head among them) every product is int8 and runs
+    twice, its dual-int8 operand's high and low bytes."""
     es = torch.finfo(cfg.dtype).bits // 8
     tensors = [*params.named_parameters(), *params.named_buffers()]
     weights = sum(t.numel() * t.element_size() for name, t in tensors
                   if name not in ("embed", "pos_embed"))
     emb = b * cfg.d_model * es * (2 if cfg.pos_embedding == "learned" else 1)
-    float_head = cfg.tie_embeddings and not cfg.w8  # a w8 head is its own buffer
+    # a w8 or det8 head is its own buffer
+    float_head = cfg.tie_embeddings and not (cfg.w8 or cfg.det8)
     head = cfg.vocab * cfg.d_model * es if float_head else 0
     row = cfg.head_dim + 4 if cfg.kv8 else cfg.head_dim * es
     kv_row = 2 * cfg.n_layers * b * cfg.n_kv_heads * row
@@ -987,6 +1027,8 @@ def lm_step_bound(torch, cfg, params, b: int, width: float) -> dict:
     fresh = 2 * cfg.n_layers * b * cfg.n_heads * cfg.head_dim
     int8 = (proj if cfg.w8 else 0) + (cache if cfg.kv8 else 0)
     macs = proj + cache + fresh
+    if cfg.det8:
+        macs = int8 = 2 * macs
     t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
     t_ops = 1e3 * 2 * (int8 / PEAK_FLOPS["int8"] + (macs - int8) / PEAK_FLOPS["bf16"])
     return {"bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops
@@ -1151,13 +1193,20 @@ def phase5_cli(torch, cli, container_mod, smoke, root, work, flags=(), float_bpb
         c = f.read()
     header, blocks = container_mod.read_container(c)
     got = {k: header.config[k] for k in ("window_mode", "slide_seg", "max_seq", "lanes",
-                                         "block_tokens", "overlap", "kv8", "w8")}
-    want = {"window_mode": "slide", "slide_seg": 512, "max_seq": 1024, "lanes": kw["lanes"],
-            "block_tokens": kw["block_tokens"], "overlap": kw["overlap"],
-            "kv8": "--kv8" in flags, "w8": "--w8" in flags}
+                                         "block_tokens", "overlap", "kv8", "w8", "det8")}
+    det8 = "--det8" in flags
+    want = {"window_mode": "slide", "slide_seg": 0 if det8 else 512, "max_seq": 1024,
+            "lanes": kw["lanes"], "block_tokens": kw["block_tokens"], "overlap": kw["overlap"],
+            "kv8": "--kv8" in flags, "w8": "--w8" in flags, "det8": det8}
     check(got == want, f"byte-16l container header {got}")
     bpb = 8 * len(c) / len(data)
-    if flags:
+    if det8:
+        what, against = "det8 (b) byte-16l slide --det8", (
+            f"the float run's {float_bpb:.6f} from (a) of phase 5 (relative "
+            f"{bpb / float_bpb - 1:+.2e}, tolerance {LM_BPB_TOL}; lac_tpu on a v5e: float "
+            f"{V5E_SLIDE16_BPB}, det8 0.8758, measurements/r3_slide_det8_seg.log, context only)")
+        rel = bpb / float_bpb - 1
+    elif flags:
         what, against = f"q8 (b) byte-16l slide {' '.join(flags)}", (
             f"the float run's {float_bpb:.6f} from (a) of phase 5 (relative "
             f"{bpb / float_bpb - 1:+.2e}, tolerance {LM_BPB_TOL}; lac_tpu on a v5e: kv8 +0.16 % "
@@ -1202,9 +1251,9 @@ def phase5_byte6l(torch, ttrain, lm_api, smoke, root):
 def ring_steps(torch, T, lm_engine, step_graph, smoke, cfg, params, smi, what):
     """byte-16l ``cfg`` on the ring, 1024 wide, past the first window: graph
     against eager at 64 lanes and at 4; returns {lanes: (numbers, bound)}."""
-    scfg = lm_engine._slide_cfg(cfg)
-    w = scfg.max_seq
+    w = cfg.max_seq
     n = w + STEP_BUDGET
+    scfg = lm_engine._slide_cfg(cfg, n)  # det8's RoPE tables reach position n
     arr = np.frombuffer(smoke.heldout_slice(), dtype=np.uint8)
     out = {}
     for b in (64, 4):
@@ -1379,6 +1428,200 @@ def phase6_exact(torch, int8, lm_engine, dev):
           flush=True)
 
 
+# --------------------------------------------------------------------------
+# Phase 7: det8, the integer-reduction forward
+# --------------------------------------------------------------------------
+
+
+def phase7_cli(torch, cli, container_mod, smoke, corpus, work, float_bpb):
+    """(a): byte-6l through the CLI with --det8 at smoke.LM_CODING: the
+    round trip, the header's flag, the container against the port's CPU
+    one (smoke.GOLDEN_DET8_PORT) byte for byte, bits/byte against lac_tpu's
+    (smoke.GOLDEN_DET8_BPB) and beside the float run's (phase 4 (b))."""
+    data = corpus[: smoke.LM_BPB_BYTES]
+    path = os.path.join(work, "det8.bin")
+    with open(path, "wb") as f:
+        f.write(data)
+    kw = smoke.LM_CODING
+    args = ["--model", "lm", "--model-ref", "file:" + smoke.LM_CHECKPOINT, "--block-tokens",
+            str(kw["block_tokens"]), "--lanes", str(kw["lanes"]), "--prob-bits",
+            str(kw["prob_bits"]), "--cache-grow", str(kw["cache_grow"]), "--window-mode",
+            kw["window_mode"], "--det8"]
+    rc, enc_ms = sync_time(torch, lambda: cli.main(["compress", path, *args, "-o",
+                                                    path + ".lac"]))
+    check(rc == 0, "cli compress --model lm --det8")
+    rc, dec_ms = sync_time(torch, lambda: cli.main(["decompress", path + ".lac", "-o",
+                                                    path + ".out"]))
+    check(rc == 0, "cli decompress, det8")
+    with open(path + ".out", "rb") as f:
+        check(f.read() == data, "det8 (a): the cli round trip differs")
+    with open(path + ".lac", "rb") as f:
+        c = f.read()
+    header, blocks = container_mod.read_container(c)
+    check(header.config["det8"] is True, f"det8 (a): header det8 {header.config['det8']}")
+    digest = smoke.container_digest(c)
+    bpb = 8 * len(c) / len(data)
+    rel = bpb / smoke.GOLDEN_DET8_BPB - 1
+    print(f"det8 (a) byte-6l --det8, cli: {len(data)} -> {len(c)} bytes, {bpb:.6f} bits/byte, "
+          f"lac_tpu {smoke.GOLDEN_DET8_BPB:.6f} on the CPU (relative {rel:+.2e}, tolerance "
+          f"{DET8_BPB_TOL}), the float run {float_bpb:.6f} (phase 4 (b)); crc32 and length "
+          f"{digest}, the port's CPU container {smoke.GOLDEN_DET8_PORT}; "
+          f"{sum(b.token_count > 0 for b in blocks)} of {len(blocks)} blocks coded; round "
+          f"trip equal; encode {enc_ms / 1e3:.2f} s, decode {dec_ms / 1e3:.2f} s", flush=True)
+    check(digest == smoke.GOLDEN_DET8_PORT,
+          f"det8 (a): the card's container {digest} is not the CPU's {smoke.GOLDEN_DET8_PORT}")
+    check(abs(rel) <= DET8_BPB_TOL, f"det8 (a): bits/byte {bpb} off by {rel:+.3e}")
+
+
+def det8_byte16l(T, ttrain, smoke, root):
+    """byte-16l's det8 (cfg, model ensure_det8 gives)."""
+    cfg, params = ttrain.load_checkpoint(os.path.join(root, smoke.SLIDE16_CHECKPOINT))
+    cfg = dataclasses.replace(cfg, det8=True)
+    return cfg, T.ensure_det8(cfg, params)
+
+
+def phase7_chunks(torch, T, lm_engine, step_graph, smoke, model, smi):
+    """(c): on byte-16l's 1024-slot ring after a prefill of DET8_PREFILL
+    tokens, the chunked encode's intervals over DET8_CHUNK_POS positions (at
+    each of DET8_CHUNKS) against the serial steps' (graph replays), bit for
+    bit."""
+    cfg, params = model
+    dev = params.embed.device
+    n = DET8_PREFILL + DET8_CHUNK_POS
+    scfg = lm_engine._slide_cfg(cfg, n)
+    arr = np.frombuffer(smoke.heldout_slice(), dtype=np.uint8)
+    b = 64
+    toks = np.stack([arr[i * n : (i + 1) * n] for i in range(b)]).astype(np.int64)
+    tokens = torch.from_numpy(toks).to(dev)
+    with lm_engine._coding(dev):
+        base = T.init_cache(scfg, b, device=dev)
+        T.forward(scfg, params, tokens[:, :DET8_PREFILL], base, prefill=True)
+        got = {}
+        for name, chunk in (("serial", 0), *((f"chunk {c}", c) for c in DET8_CHUNKS)):
+            cache = {k: v.clone() for k, v in base.items()}
+            seg = tokens[:, DET8_PREFILL:]
+            run = (step_graph.SegChunks(scfg, params, 16, seg, chunk=chunk) if chunk
+                   else step_graph.SegIntervals(scfg, params, 16, seg))
+            run.prev.copy_(tokens[:, DET8_PREFILL - 1])
+            _, ms = sync_time(torch, lambda r=run, c=cache: r.steps(c, DET8_CHUNK_POS))
+            got[name] = (run.lo.clone(), run.f.clone(), ms)
+    lo, f, ms = got["serial"]
+    for name, (clo, cf, cms) in got.items():
+        check(torch.equal(clo, lo) and torch.equal(cf, f),
+              f"det8 (c): the {name} intervals differ from the serial steps'")
+    print(f"det8 (c) [{smi}] byte-16l ring {scfg.max_seq}, {b} lanes, positions "
+          f"{DET8_PREFILL}-{n - 1}: the intervals of chunks of "
+          f"{', '.join(str(c) for c in DET8_CHUNKS)} equal the serial steps' bit for bit; "
+          + "; ".join(f"{name} {v[2]:.1f} ms ({v[2] / DET8_CHUNK_POS:.3f} ms a position)"
+                      for name, v in got.items()), flush=True)
+
+
+def det8_math_inputs(torch, n):
+    """Seeded f32 inputs of each elementwise det8 function: exp's x <= 0
+    (with -inf, 0 and the underflow edge), both signs for silu, gelu and the
+    logits, positive values for sqrt and rsqrt over 60 binades."""
+    rng = np.random.default_rng(SEED)
+    neg = -np.abs(rng.standard_normal(n)) * rng.choice([0.01, 1.0, 10.0, 100.0], n)
+    neg[:4] = [-np.inf, 0.0, -87.3, -126 * np.log(2)]
+    both = rng.standard_normal(n) * rng.choice([0.1, 1.0, 5.0, 30.0], n)
+    pos = np.abs(rng.standard_normal(n)) * np.exp2(rng.integers(-30, 30, n))
+    logits = rng.standard_normal((n // 256, 256)) * rng.choice([0.1, 3.0, 20.0], (n // 256, 1))
+    return {k: torch.from_numpy(v.astype(np.float32)) for k, v in
+            (("neg", neg), ("both", both), ("pos", pos), ("logits", logits))}
+
+
+def phase7_card_vs_cpu(torch, T, detmath, quantize, lm_engine, ttrain, smoke, root, dev, smi):
+    """(d): the card against the CPU, bit for bit: each elementwise det8
+    function on DET8_MATH_N seeded values, the rounding to bf16 (_act), the
+    det8 CDF; byte-6l's det8 logits for DET8_LOGIT_POS positions, as one
+    cached chunk and as serial steps, from an empty cache; the RoPE tables'
+    crc32 against smoke.GOLDEN_DET8_ROPE and the device table's bytes."""
+    x = det8_math_inputs(torch, DET8_MATH_N)
+    bf16 = T.tiny_config(dtype=torch.bfloat16, det8=True)
+    fns = {
+        "det_exp": (detmath.det_exp, "neg"), "det_silu": (detmath.det_silu, "both"),
+        "det_gelu_tanh": (detmath.det_gelu_tanh, "both"), "det_sqrt": (detmath.det_sqrt, "pos"),
+        "det_rsqrt": (detmath.det_rsqrt, "pos"),
+        "fma32": (lambda v: detmath.fma32(v, v * 0.75, -v), "both"),
+        "_act (bf16)": (lambda v: T._act(bf16, v * 1e3), "both"),
+        "quantize_logits(det)": (lambda v: quantize.quantize_logits(v, 16, det=True), "logits"),
+    }
+    for name, (fn, key) in fns.items():
+        want, got = fn(x[key]), fn(x[key].to(dev)).cpu()
+        check(torch.equal(got.view(torch.int32), want.view(torch.int32)),
+              f"det8 (d): {name} on the card differs from the CPU in "
+              f"{int((got != want).sum())} values")
+    arr = np.frombuffer(smoke.smoke_corpus(4 * DET8_LOGIT_POS), dtype=np.uint8)
+    toks = torch.from_numpy(arr.reshape(4, DET8_LOGIT_POS).astype(np.int64))
+    out = {}
+    for where in (torch.device("cpu"), dev):
+        cfg, params = ttrain.load_checkpoint(os.path.join(root, smoke.LM_CHECKPOINT),
+                                             device=where)
+        cfg = dataclasses.replace(cfg, det8=True)
+        p = T.ensure_det8(cfg, params)
+        t = toks.to(where)
+        with lm_engine._coding(where):
+            chunk, _ = T.forward(cfg, p, t, T.init_cache(cfg, 4, 128, device=where))
+            cache = T.init_cache(cfg, 4, 128, device=where)
+            serial = torch.cat([T.forward(cfg, p, t[:, i : i + 1], cache)[0]
+                                for i in range(DET8_LOGIT_POS)], 1)
+        out[str(where)] = (chunk.cpu(), serial.cpu())
+    (c_cpu, s_cpu), (c_dev, s_dev) = out["cpu"], out[str(dev)]
+    check(torch.equal(c_cpu, s_cpu), "det8 (d): the CPU's chunk differs from its steps")
+    for name, a in (("chunk", c_dev), ("serial steps", s_dev)):
+        diff = int((a != c_cpu).sum())
+        check(diff == 0, f"det8 (d): byte-6l's logits ({name}) on the card differ from the "
+                         f"CPU's in {diff} of {a.numel()}")
+    crcs = {}
+    for n, crc in smoke.GOLDEN_DET8_ROPE.items():
+        cos, sin = T.rope_table(n, 64, 10000.0)
+        crcs[n] = zlib.crc32(sin.tobytes(), zlib.crc32(cos.tobytes()))
+        on_card = T._rope_table_on(n, 64, 10000.0, dev).cpu().numpy()
+        check(crcs[n] == crc and on_card.tobytes() == np.stack([cos, sin]).tobytes(),
+              f"det8 (d): the RoPE tables at {n} positions (crc32 {crcs[n]}, golden {crc})")
+    print(f"det8 (d) [{smi}]: the card equals the CPU bit for bit: {', '.join(fns)} on "
+          f"{DET8_MATH_N} values each; byte-6l's det8 logits for {DET8_LOGIT_POS} positions "
+          f"of 4 lanes, as one chunk and as serial steps; the RoPE tables' crc32 {crcs} "
+          f"equal smoke.GOLDEN_DET8_ROPE and the device's copy", flush=True)
+
+
+def phase7_steps(torch, T, lm_engine, step_graph, smoke, model, smi, float_ring):
+    """(e): graph against eager, det8 steps at byte-16l's two ring shapes,
+    beside phase 5 (c)'s float steps."""
+    cfg, params = model
+    ring = ring_steps(torch, T, lm_engine, step_graph, smoke, cfg, params, smi, "det8 (e)")
+    for b, nums in ring.items():
+        if float_ring is not None:
+            print_beside(f"det8 (e) [{smi}] byte-16l ring 1024, {b} lanes, det8 against float",
+                         nums, float_ring[b])
+
+
+def flagship_det8(torch, T, ttrain, lm_api, container_mod, smoke, root, smi):
+    """--flagship's det8 run: byte-16l, slide, block 16384, 16 lanes, on the
+    whole held-out slice (lac_tpu's measurements/r4_slide_det8_b16k.log)."""
+    data = smoke.heldout_slice()
+    model = ttrain.load_checkpoint(os.path.join(root, smoke.SLIDE16_CHECKPOINT))
+    kw = DET8_FLAGSHIP
+    c, enc_ms = sync_time(torch, lambda: lm_api.lm_compress_bytes(
+        data, model_ref="file:" + smoke.SLIDE16_CHECKPOINT, model=model, det8=True, **kw))
+    out, dec_ms = sync_time(torch, lambda: lm_api.lm_decompress_bytes(c, model=model))
+    check(out == data, "det8 flagship: round trip")
+    header, blocks = container_mod.read_container(c)
+    got = {k: header.config[k] for k in ("block_tokens", "lanes", "overlap", "window_mode",
+                                         "slide_seg", "det8")}
+    check(got == {**{k: kw[k] for k in got if k in kw}, "slide_seg": 0, "det8": True},
+          f"det8 flagship header {got}")
+    steps = kw["block_tokens"]
+    bpb = 8 * len(c) / len(data)
+    v5e_bpb, v5e_enc, v5e_dec = V5E_DET8_FLAGSHIP
+    print(f"flagship det8 [{smi}] byte-16l, {got}: {len(data)} -> {len(c)} bytes, {bpb:.6f} "
+          f"bits/byte (lac_tpu on a v5e: {v5e_bpb}, encode {v5e_enc} s, decode {v5e_dec} s; "
+          f"context only); {sum(b.token_count > 0 for b in blocks)} of {len(blocks)} blocks "
+          f"coded; round trip equal; encode {enc_ms / 1e3:.1f} s ({enc_ms / steps:.3f} ms a "
+          f"position, chunked), decode {dec_ms / 1e3:.1f} s ({dec_ms / steps:.3f} ms a step), "
+          f"{steps} positions a side, checkpoint load excluded", flush=True)
+
+
 def flagship(torch, ttrain, lm_api, container_mod, smoke, root, smi):
     """--flagship: the shipped configuration on the whole held-out slice."""
     data = smoke.heldout_slice()
@@ -1401,6 +1644,24 @@ def flagship(torch, ttrain, lm_api, container_mod, smoke, root, smi):
           f"({enc_ms / steps:.3f} ms a step, {len(data) / (enc_ms / 1e3):.1f} tokens/s), decode "
           f"{dec_ms / 1e3:.1f} s ({dec_ms / steps:.3f} ms a step, "
           f"{len(data) / (dec_ms / 1e3):.1f} tokens/s), {steps} steps a side", flush=True)
+
+
+def phase7(torch, T, cli, container, detmath, quantize, lm_engine, step_graph, ttrain, rk, A,
+           smoke, root, work, corpus, dev, smi, float_bpb6, float_bpb16, float_ring):
+    """Phase 7, det8 (a)-(f); ``float_ring``: phase 5 (c)'s steps, or None."""
+    with Phase("phase 7: det8, the integer-reduction forward"):
+        rk.reset_launches()
+        A.reset_launches()
+        phase7_cli(torch, cli, container, smoke, corpus, work, float_bpb6)
+        phase5_cli(torch, cli, container, smoke, root, work, ("--det8",), float_bpb16)
+        model = det8_byte16l(T, ttrain, smoke, root)
+        phase7_chunks(torch, T, lm_engine, step_graph, smoke, model, smi)
+        phase7_card_vs_cpu(torch, T, detmath, quantize, lm_engine, ttrain, smoke, root, dev,
+                           smi)
+        phase7_steps(torch, T, lm_engine, step_graph, smoke, model, smi, float_ring)
+        counts = {**rk.launches, **A.launches}
+        print(f"det8 (f) det8 path launches of K1-K12: {counts}", flush=True)
+        check(set(counts.values()) == {0}, "the det8 path launched a TPU-kernel port")
 
 
 def path_kernels(codec: str) -> tuple:
@@ -1430,7 +1691,7 @@ def main() -> int:
     from lac_tpu_torch.models import transformer as T
     from lac_tpu_torch.ops import _build
     from lac_tpu_torch.ops import attention as A
-    from lac_tpu_torch.ops import int8
+    from lac_tpu_torch.ops import detmath, int8, quantize
     from lac_tpu_torch.ops import rans_kernels as rk
     from lac_tpu_torch.runtime import engine, lm_api, lm_engine, step_graph, turbo
     from lac_tpu_torch.stream import container
@@ -1441,6 +1702,24 @@ def main() -> int:
         print(f"nvidia-smi: {smi}")
         with Phase("flagship: byte-16l slide, block 65536, 4 lanes"):
             flagship(torch, ttrain, lm_api, container, smoke, root, smi)
+        with Phase("flagship: byte-16l det8, slide, block 16384, 16 lanes"):
+            flagship_det8(torch, T, ttrain, lm_api, container, smoke, root, smi)
+        print(smi)
+        print(device_line(torch))
+        return 0
+    if sys.argv[1:] == ["--det8"]:
+        smi = nvidia_smi_line()
+        print(f"nvidia-smi: {smi}")
+        work = os.path.join(root, "smoke_work")
+        shutil.rmtree(work, ignore_errors=True)
+        os.makedirs(work)
+        try:
+            phase7(torch, T, cli, container, detmath, quantize, lm_engine, step_graph, ttrain,
+                   rk, A, smoke, root, work, smoke.smoke_corpus(smoke.LM_BPB_BYTES),
+                   torch.device("cuda", 0), smi, smoke.GOLDEN_LM_BPB, smoke.GOLDEN_SLIDE16_BPB,
+                   None)
+        finally:
+            shutil.rmtree(work, ignore_errors=True)
         print(smi)
         print(device_line(torch))
         return 0
@@ -1619,6 +1898,9 @@ def main() -> int:
             q8_counts = {**rk.launches, **A.launches}
             print(f"q8 (f) int8 path launches of K1-K12: {q8_counts}", flush=True)
             check(set(q8_counts.values()) == {0}, "the int8 LM path launched a TPU-kernel port")
+
+        phase7(torch, T, cli, container, detmath, quantize, lm_engine, step_graph, ttrain, rk,
+               A, smoke, root, work, corpus, dev, smi, bpb_b, bpb16, float_ring)
 
         library_ms = {k: atimes[k]["library_ms"] for k in ATTN}
         kernels = [

@@ -10,9 +10,10 @@ flag of :252-291 and the same defaults: ``prng:byte-12l:0``, block 512,
 The ``--device`` option picks the device; its default is ``cuda``, and the
 CPU runs only with ``--device cpu``. As in the reference, ``train`` leaves
 the fused attention off. ``--kv8`` and ``--w8`` (the int8 KV cache and
-int8 weights) code with ``--model lm``, alone or together. A flag whose
-mode is not ported (``--det8``, a mesh) exits naming its ROADMAP item;
-``bench`` is ROADMAP A3.
+int8 weights) code with ``--model lm``, alone or together, and ``--det8``
+(the integer-reduction forward, whose containers are the same on the CPU
+and on the card) alone. A mesh exits naming ROADMAP A13; ``bench`` is
+ROADMAP A3.
 """
 
 from __future__ import annotations
@@ -26,8 +27,6 @@ def _lm_compress(args, data: bytes) -> bytes:
     from .config import LMCodingConfig
     from .runtime.lm_api import lm_compress_bytes
 
-    if args.det8:
-        raise SystemExit("--det8 is not ported to lac_tpu_torch yet (ROADMAP A8)")
     if args.mesh_data != 0 or args.mesh_model != 1:
         raise SystemExit("--mesh-data / --mesh-model are not ported to lac_tpu_torch yet "
                          "(ROADMAP A13)")
@@ -38,6 +37,7 @@ def _lm_compress(args, data: bytes) -> bytes:
         prob_bits=args.prob_bits,
         window=args.window,
         overlap=args.overlap,
+        det8=args.det8,
         kv8=args.kv8,
         w8=args.w8,
         cache_grow=args.cache_grow,
@@ -242,7 +242,8 @@ def main(argv=None) -> int:
     c.add_argument("--kv8", action="store_true",
                    help="int8 KV cache (changes the bitstream, recorded in the container)")
     c.add_argument("--det8", action="store_true",
-                   help="integer-reduction LM forward (ROADMAP A8)")
+                   help="integer-reduction LM forward: the same container on the CPU and "
+                        "the card (recorded in the container; not with --kv8 or --w8)")
     c.add_argument("--mesh-data", type=int, default=0,
                    help="device mesh data-parallel span (ROADMAP A13)")
     c.add_argument("--mesh-model", type=int, default=1,

@@ -40,7 +40,7 @@ class LMCodingConfig:
     prob_bits: int = 16
     window: int | None = None           # context window cap in tokens
     overlap: int = 2                    # window keep fraction denominator
-    det8: bool = False                  # integer-reduction forward (A8)
+    det8: bool = False                  # integer-reduction forward
     kv8: bool = False                   # int8 KV cache
     w8: bool = False                    # int8 weights
     cache_grow: int = 128               # KV-cache growth bucket (0 = fixed)

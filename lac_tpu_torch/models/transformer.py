@@ -1,18 +1,19 @@
-"""Decoder-only transformer LM: the float and int8 forwards, as ``nn.Module``s.
+"""Decoder-only transformer LM: the float, int8 and det8 forwards, as ``nn.Module``s.
 
-Ports ``lac_tpu/models/transformer.py`` but det8: ``LMConfig``
+Ports ``lac_tpu/models/transformer.py``: ``LMConfig``
 (:67-153), ``tiny_config`` (:155-163), the presets ``GPT2_SMALL``,
 ``TINYLLAMA_1B``, ``LLAMA2_7B`` and ``LLAMA3_8B`` (:166-183),
 ``init_params`` (:191-237), ``init_params_w8`` (:239-326), ``init_cache``
-(:336-375), ``_norm`` (:376-388), ``_rope`` (:401-430), ``_act`` (:460),
-``_q8``, ``W8_KEYS``, ``ensure_w8`` and ``_w8_dot`` (:484-550), ``_mlp``
-(:967-993), ``_attention`` (:771-949, the float and kv8 branches) with
-``_FUSED`` (:703), ``_splash_prefill`` (:706-722), ``_bf16s_prefill``
-(:725-743) and ``_flash_prefill`` (:746-768), and ``forward``
-(:994-1116): the prefill (``prefill=True``) and the cached decode step
-(``prefill=False``). Both GPT-2-style (learned positions, LayerNorm,
-GELU, biases, tied head) and Llama-style (RoPE, RMSNorm, SiLU-GLU, GQA,
-no biases) models, as in the reference.
+(:336-375), ``_norm`` (:376-388), ``_rope_table`` and ``_rope``
+(:390-423), ``_act`` (:460-481), ``_q8``, ``W8_KEYS``, ``ensure_w8`` and
+``_w8_dot`` (:484-550), the det8 primitives (:553-694), ``_mlp``
+(:952-991), ``_attention`` (:771-949) with ``_FUSED`` (:703),
+``_splash_prefill`` (:706-722), ``_bf16s_prefill`` (:725-743) and
+``_flash_prefill`` (:746-768), and ``forward`` (:994-1116): the prefill
+(``prefill=True``) and the cached decode step (``prefill=False``). Both
+GPT-2-style (learned positions, LayerNorm, GELU, biases, tied head) and
+Llama-style (RoPE, RMSNorm, SiLU-GLU, GQA, no biases) models, as in the
+reference.
 
 Numerics follow the reference's explicit types: activations in
 ``cfg.dtype``; a projection is a ``cfg.dtype`` product with f32
@@ -80,8 +81,42 @@ decoder's programs (its hazard #5); eager torch and a CUDA graph run each
 op as written, so each product here is its own op, in the reference's
 grouping, and nothing passes through ``torch.compile``. Given the same
 inputs, ``_q8``, the quantized weights and every dequant chain equal
-``lac_tpu``'s bit for bit. det8 raises ``NotImplementedError`` naming
-ROADMAP A8.
+``lac_tpu``'s bit for bit.
+
+det8 (``cfg.det8``, :425-694), the integer-reduction forward. Every
+order-sensitive reduction is an int32 sum and every quantization scale is
+a row's own maximum, so its bits depend on neither the shape nor the
+device: the port's CPU and card runs give the same logits, and so do an
+S-token chunk and S serial steps.
+
+- Activations are f32 tensors holding ``cfg.dtype`` values (``_act``
+  rounds them); the cache holds them in ``cfg.dtype``, exactly.
+- Every product is integer: a dual-int8 operand (``_dual16``: int16
+  precision as hi * 256 + lo, one scale a row) against int8 rows (``_q8``,
+  one scale a row or column), both halves in one exact product
+  (``ops/int8.py``: ``int8_mm`` for the projections and the head,
+  ``int8_bmm`` for the scores and PV), recombined as ``hi * 256 + lo`` in
+  f32. The weights' codes are a pure function of the weights, computed
+  once a coding call (``ensure_det8``, ``D8``).
+- The softmax sums ``round(det_exp(x - max) * 2^sb)`` in int32; the cached
+  route pins ``sb`` with the cap ``2 * W``. The norms' statistics are
+  int32 sums of int16 codes; ``det_rsqrt`` is ``1 / sqrt``. RoPE reads
+  host tables (numpy float64, rounded to f32), gathered on the device.
+- The float ops are elementwise and correctly rounded, each its own torch
+  op, in the reference's grouping. Where XLA's CPU backend fuses a product
+  into the add after it, the port computes ``detmath.fma32`` there, so
+  that it equals ``lac_tpu`` bit for bit. Each site was measured against
+  the jitted reference, at S 1 and S 24: ``mean_sq + eps`` in the norms;
+  LayerNorm's ``x * scale + bias``; RoPE's ``x1 * cos - x2 * sin`` and
+  ``x2 * cos + x1 * sin`` (the first product); every bias add after a
+  product (``_det_proj``); and the residual add after ``wo`` and
+  ``w_down`` in an f32 model without biases, where ``_act`` rounds nothing
+  between them (``_det_out``, ``_residual``). LayerNorm's ``x - mean`` is
+  not fused. The attention layout ``[B, KVH, R*S, ...]`` moves no bit:
+  every quantization is per row.
+- ``det_rsqrt`` is the one primitive that differs from ``lac_tpu``'s,
+  whose XLA rewrite is up to 1 ulp off the documented ``1 / sqrt``
+  (ROADMAP C).
 
 Training-only fused attention: ``forward(..., fused=True)`` routes the
 attention of an MHA model (``n_heads == n_kv_heads``) through
@@ -93,6 +128,7 @@ GQA takes the exact branch, as in ``lac_tpu``.
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 
 import numpy as np
@@ -102,6 +138,8 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..ops.attention import causal_attention
+from ..ops.detmath import ceil_log2, det_exp, det_gelu_tanh, det_rsqrt, det_silu, fma32, \
+    int_sum_pow2
 from ..ops.int8 import int8_bmm, int8_mm
 
 __all__ = [
@@ -124,6 +162,18 @@ __all__ = [
 ]
 
 f32 = torch.float32
+
+
+def _f32(x: float) -> float:
+    """``x`` rounded to f32, as a Python float: a scalar operand that an f32
+    tensor op uses exactly, with no copy to the device."""
+    return float(np.float32(x))
+
+
+# the reference's f32(1 / 127^2): w8's folded scale and kv8's PV dequant
+_DEQUANT = _f32(1.0 / (127.0 * 127.0))
+# the dequant constant of a dual16 x q8 product (the reference's _DUAL_K)
+_DUAL_K = _f32(1.0 / (32512.0 * 127.0))
 
 # Training-only fused-attention implementation selector (lac_tpu's _FUSED,
 # transformer.py:703; training scripts may override). flash_bs / splash_bs
@@ -149,8 +199,8 @@ class LMConfig:
     dtype: torch.dtype = torch.bfloat16
     rope_theta: float = 10000.0
     norm_eps: float = 1e-5
-    # the integer-reduction forward, not ported yet (ROADMAP A8); kept so
-    # configs and checkpoints carry the same fields
+    # the integer-reduction forward (module docstring): the same bits on
+    # every device and at every split of the positions
     det8: bool = False
     # int8 weights (W8A8 projections) and the int8 KV cache (module
     # docstring); each changes the bitstream
@@ -210,15 +260,6 @@ LLAMA3_8B = LMConfig(
 )
 
 
-def _not_ported(what: str, item: str):
-    return NotImplementedError(f"{what} is not ported to lac_tpu_torch yet (ROADMAP {item})")
-
-
-def _check_float_path(cfg: LMConfig) -> None:
-    if cfg.det8:
-        raise _not_ported("the det8 forward", "A8")
-
-
 # --------------------------------------------------------------------------
 # Parameters
 # --------------------------------------------------------------------------
@@ -256,11 +297,13 @@ def _bias_shapes(cfg: LMConfig):
             ("b_up", (ff,)), ("b_down", (d,))]
 
 
-class W8(nn.Module):
-    """An int8 weight of the w8 forward (``lac_tpu``'s ``(q, scale)``
-    tuple): ``q`` [K, N] int8, quantized over K, stored column-major (the
-    layout of the card's int8 products; its values are the reference's),
-    and ``s`` [1, N] f32, the per-column scale with 1/127^2 folded in."""
+class _Int8Weight(nn.Module):
+    """An int8 weight: ``q`` [K, N] int8, quantized over K, stored
+    column-major (the layout of the card's int8 products; its values are
+    the reference's), and ``s`` [1, N] f32, the per-column scale times the
+    class's dequant constant ``FOLD``."""
+
+    FOLD: float
 
     def __init__(self, q: torch.Tensor, s: torch.Tensor):
         super().__init__()
@@ -268,16 +311,34 @@ class W8(nn.Module):
         self.register_buffer("s", s)
 
     @classmethod
-    def empty(cls, k: int, n: int, device=None) -> "W8":
+    def empty(cls, k: int, n: int, device=None):
         return cls(torch.zeros((n, k), dtype=torch.int8, device=device).t(),
                    torch.ones((1, n), dtype=f32, device=device))
 
     @classmethod
-    def quantize(cls, w: torch.Tensor) -> "W8":
-        """``w`` [K, N] quantized over K (``_quantize_w8``'s ``qw``)."""
+    def quantize(cls, w: torch.Tensor):
+        """``w`` [K, N] quantized over K (``_q8(w, axis=0)``), the scale
+        times ``FOLD`` in one f32 multiply."""
         with torch.no_grad():
             q, s = _q8(w.float(), 0)
-            return cls(q.t().contiguous().t(), s * _DEQUANT)
+            return cls(q.t().contiguous().t(), s * cls.FOLD)
+
+
+class W8(_Int8Weight):
+    """An int8 weight of the w8 forward (``lac_tpu``'s ``(q, scale)``
+    tuple, ``_quantize_w8``'s ``qw``): 1/127^2 folded into ``s``."""
+
+    FOLD = _DEQUANT
+
+
+class D8(_Int8Weight):
+    """A weight of the det8 forward: ``_det_dot8``'s ``_q8(w, axis=0)``
+    (:585), a pure function of the weight, quantized once for a coding call
+    (``ensure_det8``) where the reference quantizes it in every step (the
+    same bits); ``s`` is ``sw * _DUAL_K``, the factor of the reference's
+    ``sx * (sw * _DUAL_K)``."""
+
+    FOLD = _DUAL_K
 
 
 W8_KEYS = ("wq", "wk", "wv", "wo", "w_up", "w_gate", "w_down")
@@ -324,6 +385,11 @@ class Transformer(nn.Module):
 def is_w8(params: Transformer) -> bool:
     """Whether ``params`` holds the w8 forward's quantized weights."""
     return isinstance(params.head, W8)
+
+
+def is_det8(params: Transformer) -> bool:
+    """Whether ``params`` holds the det8 forward's quantized weights."""
+    return isinstance(params.head, D8)
 
 
 def _draws(cfg: LMConfig, seed: int):
@@ -405,30 +471,51 @@ def init_params_w8(cfg: LMConfig, seed: int = 0, device=None) -> Transformer:
     return model
 
 
-def ensure_w8(cfg: LMConfig, params: Transformer) -> Transformer:
-    """The w8 forward's model (the reference's ``ensure_w8`` and
-    ``_quantize_w8``, :498-527): every ``W8_KEYS`` weight and the head (for
-    a tied head, ``embed[:vocab].T``) quantized over K into a ``W8``, from
-    its values as stored, as the reference quantizes them (its bf16
-    configs store the embedding in f32); the embeddings, norms and biases
-    are ``params``' own tensors, shared.
-    Idempotent: a quantized model, or any model under a float ``cfg``,
-    comes back as it is. ``params`` is left as it was."""
-    if not cfg.w8 or is_w8(params):
-        return params
+def _quantized(cfg: LMConfig, params: Transformer, cls) -> Transformer:
+    """``params`` with every ``W8_KEYS`` weight and the head (for a tied
+    head, ``embed[:vocab].T``) quantized over K into a ``cls``, from its
+    values as stored, as the reference quantizes them (its bf16 configs
+    store the embedding in f32); the embeddings, norms and biases are
+    ``params``' own tensors, shared. ``params`` is left as it was."""
     with torch.no_grad():
         model = Transformer(cfg, device="meta", w8=True)
         model.embed, model.final_norm = params.embed, params.final_norm
         model.pos_embed = params.pos_embed
         wh = params.embed[: cfg.vocab].T if cfg.tie_embeddings else params.head
-        model.head = W8.quantize(wh)
+        model.head = cls.quantize(wh)
         for lyr, src in zip(model.layers, params.layers):
             lyr.ln1, lyr.ln2 = src.ln1, src.ln2
             for name, _ in _layer_shapes(cfg):
-                setattr(lyr, name, W8.quantize(getattr(src, name)))
+                setattr(lyr, name, cls.quantize(getattr(src, name)))
             for name, _ in _bias_shapes(cfg):
                 setattr(lyr, name, getattr(src, name))
     return model
+
+
+def ensure_w8(cfg: LMConfig, params: Transformer) -> Transformer:
+    """The w8 forward's model (the reference's ``ensure_w8`` and
+    ``_quantize_w8``, :498-527): ``_quantized`` with ``W8``. Idempotent: a
+    quantized model, or any model under a cfg without w8, comes back as it
+    is."""
+    if not cfg.w8 or is_w8(params):
+        return params
+    return _quantized(cfg, params, W8)
+
+
+def ensure_det8(cfg: LMConfig, params: Transformer) -> Transformer:
+    """The det8 forward's model: ``_quantized`` with ``D8``, the weights'
+    quantization that the reference's ``_det_dot8`` repeats in every step,
+    done once. Idempotent, as ``ensure_w8``."""
+    if not cfg.det8 or is_det8(params):
+        return params
+    return _quantized(cfg, params, D8)
+
+
+def ensure_quantized(cfg: LMConfig, params: Transformer) -> Transformer:
+    """The model ``forward`` runs under ``cfg``: ``ensure_w8``'s under w8,
+    ``ensure_det8``'s under det8 (the two exclude each other), else
+    ``params``. The coding engine calls it once a coding call."""
+    return ensure_det8(cfg, ensure_w8(cfg, params))
 
 
 def init_cache(cfg: LMConfig, batch: int, window: int | None = None, device=None) -> dict:
@@ -439,7 +526,6 @@ def init_cache(cfg: LMConfig, batch: int, window: int | None = None, device=None
     ``device``. ``window`` (default ``cfg.max_seq``, capped there) sizes
     the cache: every step reads all of it, so the coding engine sizes it to
     the block or grows it; under slide it is the ring."""
-    _check_float_path(cfg)
     w = cfg.max_seq if window is None else min(window, cfg.max_seq)
     shape = (cfg.n_layers, batch, w, cfg.n_kv_heads, cfg.head_dim)
     pos = torch.zeros((), dtype=torch.int64, device=device)
@@ -456,8 +542,8 @@ def init_cache(cfg: LMConfig, batch: int, window: int | None = None, device=None
 def _cache_rows(cfg: LMConfig, k: torch.Tensor, v: torch.Tensor) -> dict:
     """The cache entries of fresh K/V [B, S, KVH, Dh], keyed as the cache:
     themselves, or under kv8 each row quantized over Dh (:1094-1107)."""
-    if not cfg.kv8:
-        return {"k": k, "v": v}
+    if not cfg.kv8:  # det8's rows hold cfg.dtype values: the cast is exact
+        return {"k": k.to(cfg.dtype), "v": v.to(cfg.dtype)}
     k8, ks = _q8(k.float(), -1)
     v8, vs = _q8(v.float(), -1)
     return {"k": k8, "ks": ks, "v": v8, "vs": vs}
@@ -492,21 +578,34 @@ def _c(cfg: LMConfig, p: torch.Tensor) -> torch.Tensor:
 
 
 def _act(cfg: LMConfig, x: torch.Tensor) -> torch.Tensor:
-    """Round an activation to the model dtype (the float path's cast)."""
+    """Round an activation to the model dtype (:460-481): the float path's
+    cast; under det8 the value rounds to ``cfg.dtype`` (round to nearest
+    even, as ``reduce_precision``) and stays f32."""
+    if cfg.det8:
+        return x.float() if cfg.dtype == f32 else x.to(cfg.dtype).float()
     return x if x.dtype == cfg.dtype else x.to(cfg.dtype)
 
 
-def _f32(x: float) -> float:
-    """``x`` rounded to f32, as a Python float: a scalar operand that an f32
-    tensor op uses exactly, with no copy to the device."""
-    return float(np.float32(x))
-
-
-# the reference's f32(1 / 127^2): w8's folded scale and kv8's PV dequant
-_DEQUANT = _f32(1.0 / (127.0 * 127.0))
+def _det_norm(cfg: LMConfig, p: Norm, x: torch.Tensor) -> torch.Tensor:
+    """det8's norm (:376-387): the statistics of ``_det_mean_sq`` and
+    ``_det_mean``, ``det_rsqrt``; the scale and bias as stored, in f32.
+    ``mean_sq + eps`` is ``fma32(t, (s * s) * cc, eps)`` and LayerNorm's
+    bias add ``fma32(x, scale, bias)``: XLA fuses each product into the
+    add that follows it. It does not fuse the mean's product into the
+    centring ``x - mean`` (measured with an f32 model)."""
+    xf = x.float()
+    eps = _f32(cfg.norm_eps)
+    if cfg.norm == "rmsnorm":
+        xf = xf * det_rsqrt(fma32(*_det_mean_sq_parts(xf), eps))
+        return _act(cfg, xf * p.scale.float())
+    xc = xf - _det_mean(xf)
+    xf = xc * det_rsqrt(fma32(*_det_mean_sq_parts(xc), eps))
+    return _act(cfg, fma32(xf, p.scale.float(), p.bias.float()))
 
 
 def _norm(cfg: LMConfig, p: Norm, x: torch.Tensor) -> torch.Tensor:
+    if cfg.det8:
+        return _det_norm(cfg, p, x)
     # a cfg.dtype operand of an f32 op is widened exactly inside the op
     # (type promotion), as an explicit f32 cast would widen it
     xf = x.float()
@@ -520,9 +619,33 @@ def _norm(cfg: LMConfig, p: Norm, x: torch.Tensor) -> torch.Tensor:
     return _act(cfg, xf * scale + _c(cfg, p.bias))
 
 
+@functools.lru_cache(maxsize=16)
+def rope_table(n: int, hd: int, theta: float):
+    """det8's host RoPE tables (:390-398): cos and sin [n, hd/2] of the
+    angles in numpy float64, each rounded to f32."""
+    half = hd // 2
+    fr = np.exp(np.arange(half, dtype=np.float64) * (-np.log(float(theta)) * 2.0 / hd))
+    ang = np.arange(n, dtype=np.float64)[:, None] * fr[None, :]
+    return np.cos(ang).astype(np.float32), np.sin(ang).astype(np.float32)
+
+
+@functools.lru_cache(maxsize=16)
+def _rope_table_on(n: int, hd: int, theta: float, device: torch.device) -> torch.Tensor:
+    """``rope_table`` as one f32 tensor [2, n, hd/2] on ``device``, put
+    there once: a captured step gathers from it."""
+    return torch.from_numpy(np.stack(rope_table(n, hd, theta))).to(device)
+
+
 def _rope_tables(cfg: LMConfig, positions: torch.Tensor):
     """(cos, sin) [1, S, 1, Dh/2] f32 of the rotary angles at ``positions``
-    [S]; the same for every layer, so a step computes them once."""
+    [S]; the same for every layer, so a step computes them once. Under
+    det8, the rows of the host tables at the positions (:405-409), sized
+    ``max(max_seq, rope_positions)``, gathered on the device."""
+    if cfg.det8:
+        n = max(cfg.max_seq, cfg.rope_positions)
+        table = _rope_table_on(n, cfg.head_dim, float(cfg.rope_theta), positions.device)
+        rows = table.index_select(1, positions)
+        return rows[0][None, :, None, :], rows[1][None, :, None, :]
     half = cfg.head_dim // 2
     coef = -np.log(np.float32(cfg.rope_theta)) * np.float32(2.0) / np.float32(cfg.head_dim)
     freqs = torch.exp(torch.arange(0, half, dtype=f32, device=positions.device) * float(coef))
@@ -530,17 +653,24 @@ def _rope_tables(cfg: LMConfig, positions: torch.Tensor):
     return torch.cos(ang)[None, :, None, :], torch.sin(ang)[None, :, None, :]
 
 
-def _rope_apply(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
-    """Rotary embedding, half-split. x: [B, S, H, Dh]."""
+def _rope_apply(cfg: LMConfig, x: torch.Tensor, cos: torch.Tensor,
+                sin: torch.Tensor) -> torch.Tensor:
+    """Rotary embedding, half-split. x: [B, S, H, Dh]. Under det8 each
+    half's first product is fused into its add or subtract, as XLA
+    computes it (:418), then ``_act``."""
     half = x.shape[-1] // 2
     x1, x2 = x[..., :half], x[..., half:]  # widened to f32 by the products
+    if cfg.det8:
+        x1, x2 = x1.float(), x2.float()
+        out = torch.cat([fma32(x1, cos, -(x2 * sin)), fma32(x2, cos, x1 * sin)], dim=-1)
+        return _act(cfg, out)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
 
 
 def _rope(cfg: LMConfig, x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
     """Rotary embedding, half-split. x: [B, S, H, Dh]; positions: [S]."""
-    return _rope_apply(x, *_rope_tables(cfg, positions))
+    return _rope_apply(cfg, x, *_rope_tables(cfg, positions))
 
 
 def _dot(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -562,6 +692,163 @@ def _w8_dot(x: torch.Tensor, w: W8) -> torch.Tensor:
     xq, sx = _q8(x.float(), -1)
     acc = int8_mm(xq.reshape(-1, xq.shape[-1]), w.q)
     return (acc.to(f32).reshape(*x.shape[:-1], -1) * sx) * w.s
+
+
+# --------------------------------------------------------------------------
+# det8: the integer-reduction forward (module docstring)
+# --------------------------------------------------------------------------
+
+
+def _row_max(x: torch.Tensor) -> torch.Tensor:
+    """max(max |x| over the last axis, 1e-30), keepdim: every det8 scale."""
+    return x.abs().amax(-1, keepdim=True).clamp_min(1e-30)
+
+
+def _dual16(x: torch.Tensor):
+    """int16-precision dual-int8 row quantization over the last axis
+    (:553-560): x ~= (256 hi + lo) s / 32512, hi in [-127, 127], lo in
+    [-128, 127]. Returns (hi, lo int8, s f32)."""
+    s = _row_max(x)
+    q = torch.round(x / s * 32512.0).to(torch.int32)
+    hi = (q + 128) >> 8  # round-to-nearest high byte
+    lo = q - (hi << 8)
+    return hi.to(torch.int8), lo.to(torch.int8), s
+
+
+def _dual_acc(acc: torch.Tensor, m: int) -> torch.Tensor:
+    """The int32 products of ``cat([hi, lo])`` rows [.., 2m, N] recombined
+    as ``dhi * 256 + dlo`` in f32 (:566-579): an exact product, one
+    rounded add."""
+    return acc[..., :m, :].float() * 256.0 + acc[..., m:, :].float()
+
+
+def _det_dot8_parts(x: torch.Tensor, w: D8):
+    """x [..., K] times a det8 weight (:582-586) as its two f32 factors
+    ``(dual, sx * (sw * _DUAL_K))`` [..., N]: x in dual-int8 rows, hi and lo
+    against the int8 weight in one exact product (``ops.int8.int8_mm``, the
+    two stacked along M)."""
+    hi, lo, sx = _dual16(x.float())
+    k = x.shape[-1]
+    m = hi.numel() // k
+    acc = int8_mm(torch.cat([hi.reshape(m, k), lo.reshape(m, k)]), w.q)
+    return _dual_acc(acc, m).reshape(*x.shape[:-1], -1), sx * w.s
+
+
+def _det_dot8(x: torch.Tensor, w: D8) -> torch.Tensor:
+    """x [..., K] times a det8 weight -> f32 [..., N]: ``dual * (sx * (sw *
+    _DUAL_K))``."""
+    dual, scale = _det_dot8_parts(x, w)
+    return dual * scale
+
+
+def _det_proj(cfg: LMConfig, x: torch.Tensor, w: D8, b) -> torch.Tensor:
+    """``_det_dot8`` plus the bias in f32, where the model has biases
+    (:791-794, :825-828, :953-956, :964-966): ``fma32(dual, scale, b)``,
+    since XLA fuses the product into the add."""
+    if not cfg.use_bias:
+        return _det_dot8(x, w)
+    return fma32(*_det_dot8_parts(x, w), b.float())
+
+
+def _det_out(cfg: LMConfig, x: torch.Tensor, w: D8, b):
+    """A layer's last product (``wo``, ``w_down``), which the residual add
+    takes: ``_act`` of ``_det_proj``, or, where ``_act`` rounds nothing (an
+    f32 model) and no bias comes between, its two factors, for the add to
+    fuse the product as XLA does (``_residual``)."""
+    if cfg.dtype == f32 and b is None:
+        return _det_dot8_parts(x, w)
+    return _act(cfg, _det_proj(cfg, x, w, b))
+
+
+def _residual(cfg: LMConfig, x: torch.Tensor, h) -> torch.Tensor:
+    """``_act(x + h)`` (:1053-1056), h a tensor or ``_det_out``'s factors,
+    fused as ``fma32(dual, scale, x)``."""
+    if isinstance(h, tuple):
+        return _act(cfg, fma32(*h, x))
+    return _act(cfg, x + h)
+
+
+def _det_softmax(scores: torch.Tensor, cap: int | None = None) -> torch.Tensor:
+    """Softmax over the last axis with an integer denominator (:589-598);
+    ``-inf`` entries give exactly 0; ``cap`` pins the quantization exponent
+    (``detmath.int_sum_pow2``)."""
+    e = det_exp(scores - scores.amax(-1, keepdim=True))
+    ei, tot, _ = int_sum_pow2(e, cap)
+    return ei.float() / tot.float()
+
+
+def _det_mean_sq_parts(x: torch.Tensor):
+    """``_det_mean_sq`` (:601-615) as its two factors ``(t, (s * s) *
+    cc)``: int16 row quantization, the squares' sum split into two int32
+    sums, recombined in f32 (an exact product, one add)."""
+    d = x.shape[-1]
+    s = _row_max(x)
+    q = torch.round(x / s * 32767.0).to(torch.int32)
+    sq = q * q  # <= 2^30
+    shift = max(12, ceil_log2(d) - 1)  # each sum fits int32
+    hi = (sq >> shift).sum(-1, keepdim=True, dtype=torch.int32).float()
+    lo = (sq & ((1 << shift) - 1)).sum(-1, keepdim=True, dtype=torch.int32).float()
+    t = hi * float(1 << shift) + lo
+    return t, (s * s) * _f32(1.0 / (32767.0 * 32767.0 * d))
+
+
+def _det_mean(x: torch.Tensor) -> torch.Tensor:
+    """Mean over the last axis from an int16 row quantization (:618-623):
+    ``sum q * (s * c)``."""
+    d = x.shape[-1]
+    s = _row_max(x)
+    q = torch.round(x / s * 32767.0).to(torch.int32)
+    return q.sum(-1, keepdim=True, dtype=torch.int32).float() * (s * _f32(1.0 / (32767.0 * d)))
+
+
+def _det_rows8(t: torch.Tensor):
+    """K or V rows [B, N, KVH, Dh] (any float type) quantized per row over
+    Dh (``_q8``; ``_det_v8``, :637-645), head-major: (int8 [B, KVH, N,
+    Dh], scales f32 [B, KVH, N, 1])."""
+    q, sc = _q8(t.float(), -1)
+    return q.transpose(1, 2), sc.transpose(1, 2)
+
+
+def _det_scores(qs: torch.Tensor, k8: torch.Tensor, sk: torch.Tensor) -> torch.Tensor:
+    """Scores with integer accumulation (:626-634): qs [B, KVH, M, Dh] f32
+    (pre-scaled queries, dual-int8 rows), k8 [B, KVH, J, Dh] int8 rows with
+    their scales sk [B, KVH, J, 1] -> f32 [B, KVH, M, J], ``(dots * sq) *
+    (sk * _DUAL_K)``."""
+    hi, lo, sq = _dual16(qs)
+    m = qs.shape[-2]
+    acc = int8_bmm(torch.cat([hi, lo], -2), k8.transpose(-1, -2))
+    return (_dual_acc(acc, m) * sq) * (sk.transpose(-1, -2) * _DUAL_K)
+
+
+def _det_pv(probs: torch.Tensor, v8: torch.Tensor, sv: torch.Tensor) -> torch.Tensor:
+    """probs [B, KVH, M, J] times V's int8 rows v8 [B, KVH, J, Dh] (scales
+    sv [B, KVH, J, 1]) -> f32 [B, KVH, M, Dh] (``_det_attn_out`` and
+    ``_det_attn_out_cached``, :648-694): V's scales folded into the
+    probabilities, those in dual-int8 rows over J, one exact product over
+    J (the reference's cache and fresh products summed in int32 are the
+    same integers), then ``out * (sp * _DUAL_K)``."""
+    hi, lo, sp = _dual16(probs * sv.transpose(-1, -2))
+    acc = int8_bmm(torch.cat([hi, lo], -2), v8)
+    return _dual_acc(acc, probs.shape[-2]) * (sp * _DUAL_K)
+
+
+def _attend_det8(cfg: LMConfig, qf, rows, w_len: int, drop, keep, scale,
+                 cap) -> torch.Tensor:
+    """det8 attention (:848-863, :875-923) of queries qf [B, KVH, R*S, Dh]
+    against ``rows`` [(K, V)] of [B, N, KVH, Dh] (the cache slice, ``w_len``
+    wide, then the call's fresh rows; or the fresh rows alone, ``w_len``
+    0), their scores side by side as the reference's concatenated axis:
+    every quantization is per row, so quantizing the parts apart gives the
+    same bits. ``drop`` / ``keep``: the masks of ``_mask``; ``cap``: the
+    softmax's (``2 * w_len`` with a cache, None without). Returns f32
+    [B, KVH, R*S, Dh], rounded by ``_act``."""
+    ks = [_det_rows8(k) for k, _ in rows]
+    vs = [_det_rows8(v) for _, v in rows]
+    k8, sk = (torch.cat(t, 2) for t in zip(*ks))
+    v8, sv = (torch.cat(t, 2) for t in zip(*vs))
+    scores = _det_scores(qf * scale, k8, sk)
+    _mask(scores, w_len, drop, keep)
+    return _act(cfg, _det_pv(_det_softmax(scores, cap), v8, sv))
 
 
 def _bias_f32(cfg: LMConfig, y: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -619,7 +906,9 @@ def _qkv(cfg: LMConfig, p: Block, x: torch.Tensor):
     b, s, _ = x.shape
 
     def proj(w, bias_name, heads):
-        if cfg.w8:
+        if cfg.det8:
+            y = _act(cfg, _det_proj(cfg, x, getattr(p, w), getattr(p, bias_name, None)))
+        elif cfg.w8:
             y = _bias_f32(cfg, _w8_dot(x, getattr(p, w)), getattr(p, bias_name, None))
             y = y.to(cfg.dtype)
         else:
@@ -634,6 +923,8 @@ def _qkv(cfg: LMConfig, p: Block, x: torch.Tensor):
 
 def _out_proj(cfg: LMConfig, p: Block, out: torch.Tensor) -> torch.Tensor:
     """The attention output [B, S, H*Dh] through ``wo``."""
+    if cfg.det8:
+        return _det_out(cfg, out, p.wo, getattr(p, "bo", None))
     if cfg.w8:
         return _bias_f32(cfg, _w8_dot(out, p.wo), getattr(p, "bo", None)).to(cfg.dtype)
     y = _dot(out, _c(cfg, p.wo))
@@ -658,7 +949,14 @@ def _attention(cfg: LMConfig, p: Block, x: torch.Tensor, fused: bool = False,
             cache[key][layer, :, :s] = t
     scale = _scale_f32(hd)
 
-    if fused and h == kvh:
+    if cfg.det8:  # the fused gate excludes det8, as the reference's (:840)
+        rep = h // kvh
+        qf = q.reshape(b, s, kvh, rep, hd).permute(0, 2, 3, 1, 4).reshape(b, kvh, rep * s, hd)
+        ar = torch.arange(s, device=x.device)
+        keep = ar[None, :] <= ar.repeat(rep)[:, None]  # causal, rows in (r, s) order
+        out = _attend_det8(cfg, qf, [(k, v)], 0, None, keep, scale, None)
+        out = out.reshape(b, kvh, rep, s, hd).permute(0, 3, 1, 2, 4)
+    elif fused and h == kvh:
         out = _fused_prefill(cfg, q, k, v, scale)
     else:
         # exact branch; GQA folds the query heads into groups [B, KVH, R, S, Dh]
@@ -682,8 +980,9 @@ def _heads_f32(t: torch.Tensor) -> torch.Tensor:
 
 def _mask(scores: torch.Tensor, w_len: int, drop, keep) -> None:
     """-inf, in place, at the cache slots ``drop`` and the fresh scores off
-    ``keep`` (``_attention_cached``)."""
-    scores[..., :w_len].masked_fill_(drop, float("-inf"))
+    ``keep`` (``_attention_cached``); either may be None."""
+    if drop is not None:
+        scores[..., :w_len].masked_fill_(drop, float("-inf"))
     if keep is not None:
         scores[..., w_len:].masked_fill_(~keep, float("-inf"))
 
@@ -754,18 +1053,22 @@ def _attention_cached(cfg: LMConfig, p: Block, x: torch.Tensor, cache: dict, lay
     slice_ = {key: t[layer] for key, t in cache.items() if key != "pos"}
     q, k, v = _qkv(cfg, p, x)
     if rope is not None:  # q and k rotated as one tensor: the same values
-        q, k = _rope_apply(torch.cat([q, k], dim=2), *rope).split([h, kvh], dim=2)
+        q, k = _rope_apply(cfg, torch.cat([q, k], dim=2), *rope).split([h, kvh], dim=2)
     scale = _scale_f32(hd)
     # GQA: the query heads of a KV head fold into the rows, [B, KVH, R*S, Dh]
     # in (r, s) order; every product is one batched matmul over (B, KVH),
     # with each operand made contiguous first
     rep = h // kvh
     qf = _heads_f32(q.reshape(b, s, kvh, rep, hd)).transpose(2, 3).reshape(b, kvh, rep * s, hd)
-    kf, vf = _heads_f32(k), _heads_f32(v)
-    if cfg.kv8:
-        out = _attend_kv8(cfg, qf, kf, vf, slice_, drop, keep, scale)
+    if cfg.det8:
+        w_len = slice_["k"].shape[1]
+        out = _attend_det8(cfg, qf, [(slice_["k"], slice_["v"]), (k, v)], w_len, drop, keep,
+                           scale, 2 * w_len)
+    elif cfg.kv8:
+        out = _attend_kv8(cfg, qf, _heads_f32(k), _heads_f32(v), slice_, drop, keep, scale)
     else:
-        out = _attend_float(cfg, qf, kf, vf, slice_["k"], slice_["v"], drop, keep, scale)
+        out = _attend_float(cfg, qf, _heads_f32(k), _heads_f32(v), slice_["k"], slice_["v"],
+                            drop, keep, scale)
     out = out.reshape(b, kvh, rep, s, hd).permute(0, 3, 1, 2, 4)
     y = _out_proj(cfg, p, out.reshape(b, s, h * hd))
     # after this layer's reads: the fresh K/V into its slice
@@ -775,6 +1078,13 @@ def _attention_cached(cfg: LMConfig, p: Block, x: torch.Tensor, cache: dict, lay
 
 
 def _mlp(cfg: LMConfig, p: Block, x: torch.Tensor) -> torch.Tensor:
+    if cfg.det8:  # (:952-966) each product's result rounded by _act, but the gate's
+        up = _act(cfg, _det_proj(cfg, x, p.w_up, getattr(p, "b_up", None)))
+        if cfg.act == "silu_glu":
+            up = _act(cfg, det_silu(_det_dot8(x, p.w_gate)) * up)
+        else:
+            up = _act(cfg, det_gelu_tanh(up))
+        return _det_out(cfg, up, p.w_down, getattr(p, "b_down", None))
     if cfg.w8:  # (:967-978) f32 between the products, one cast before w_down
         up = _bias_f32(cfg, _w8_dot(x, p.w_up), getattr(p, "b_up", None))
         if cfg.act == "silu_glu":
@@ -799,18 +1109,29 @@ def _mlp(cfg: LMConfig, p: Block, x: torch.Tensor) -> torch.Tensor:
 
 def _layer(cfg: LMConfig, p: Block, x: torch.Tensor, fused: bool, cache: dict | None = None,
            layer: int = 0) -> torch.Tensor:
-    x = _act(cfg, x + _attention(cfg, p, _norm(cfg, p.ln1, x), fused, cache, layer))
-    return _act(cfg, x + _mlp(cfg, p, _norm(cfg, p.ln2, x)))
+    x = _residual(cfg, x, _attention(cfg, p, _norm(cfg, p.ln1, x), fused, cache, layer))
+    return _residual(cfg, x, _mlp(cfg, p, _norm(cfg, p.ln2, x)))
 
 
 def _head(cfg: LMConfig, params: Transformer, x: torch.Tensor) -> torch.Tensor:
     """Final norm and the output head: f32 logits [B, S, vocab]."""
     x = _norm(cfg, params.final_norm, x)
+    if cfg.det8:
+        return _det_dot8(x, params.head)  # ensure_det8 quantized it, tied or not
     if cfg.w8:
         return _w8_dot(x, params.head)
     embed = _c(cfg, params.embed)
     wh = embed[: cfg.vocab].T if cfg.tie_embeddings else _c(cfg, params.head)
     return _dot_f32(x, wh)
+
+
+def _pos_add(cfg: LMConfig, x: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+    """The learned position rows [S, D] added to x [B, S, D]: in cfg.dtype,
+    or under det8 in f32 from the rows as stored, then ``_act``
+    (:1037-1043)."""
+    if cfg.det8:
+        return _act(cfg, x + rows.float()[None])
+    return x + _c(cfg, rows)[None]
 
 
 def _forward_cached(cfg: LMConfig, params: Transformer, tokens: torch.Tensor, cache: dict):
@@ -828,7 +1149,7 @@ def _forward_cached(cfg: LMConfig, params: Transformer, tokens: torch.Tensor, ca
     x = _act(cfg, _c(cfg, params.embed)[tokens])  # [B, S, D]
     rope = keep = None
     if cfg.pos_embedding == "learned":
-        x = x + _c(cfg, params.pos_embed)[positions][None, :, :]
+        x = _pos_add(cfg, x, params.pos_embed[positions])
     else:
         rope = _rope_tables(cfg, positions)
     w_ids = torch.arange(w_len, device=dev)
@@ -843,8 +1164,8 @@ def _forward_cached(cfg: LMConfig, params: Transformer, tokens: torch.Tensor, ca
     for layer, lp in enumerate(params.layers):
         h = _attention_cached(cfg, lp, _norm(cfg, lp.ln1, x), cache, layer, rope, drop, keep,
                               slots)
-        x = _act(cfg, x + h)
-        x = _act(cfg, x + _mlp(cfg, lp, _norm(cfg, lp.ln2, x)))
+        x = _residual(cfg, x, h)
+        x = _residual(cfg, x, _mlp(cfg, lp, _norm(cfg, lp.ln2, x)))
     cache["pos"] += s
     return _head(cfg, params, x), cache
 
@@ -877,10 +1198,12 @@ def forward(cfg: LMConfig, params: Transformer, tokens: torch.Tensor, cache: dic
     through ``_FUSED["impl"]`` (module docstring); different float
     summation order from the exact branch, so coding paths must not set
     it."""
-    _check_float_path(cfg)
-    if is_w8(params) != cfg.w8:
-        raise ValueError("the w8 forward needs the model ensure_w8 gives, and the float "
-                         f"forward a float one (cfg.w8 {cfg.w8}, quantized {is_w8(params)})")
+    want = "w8" if cfg.w8 else "det8" if cfg.det8 else "float"
+    have = "w8" if is_w8(params) else "det8" if is_det8(params) else "float"
+    if want != have:
+        raise ValueError("the w8 forward needs the model ensure_w8 gives, the det8 forward "
+                         "the one ensure_det8 gives, and the float forward a float one "
+                         f"(the forward is {want}, the model {have})")
     if not prefill:
         if cache is None:
             raise ValueError("forward(prefill=False) needs a cache from init_cache")
@@ -892,7 +1215,7 @@ def forward(cfg: LMConfig, params: Transformer, tokens: torch.Tensor, cache: dic
                          f"{cache['k'].shape[2]}")
     x = _act(cfg, _c(cfg, params.embed)[tokens])  # [B, S, D]
     if cfg.pos_embedding == "learned":
-        x = x + _c(cfg, params.pos_embed)[:s][None, :, :]
+        x = _pos_add(cfg, x, params.pos_embed[:s])
     for layer, lp in enumerate(params.layers):
         if remat and torch.is_grad_enabled():
             x = checkpoint(_layer, cfg, lp, x, fused, cache, layer, use_reentrant=False)

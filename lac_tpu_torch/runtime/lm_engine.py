@@ -13,12 +13,22 @@ context (ROADMAP A6): ``window_schedule`` (:339-358), ``_reprime_cdf``
 :441-444, :590-591), reprime mode with growth in the first window only
 when ``max_seq % cache_grow == 0`` (:445-478, :592-623), and
 ``lm_encode_windowed`` / ``lm_decode_windowed`` (:396-478, :556-623);
-and ``lm_fingerprint`` (:629-672). The int8 modes (kv8, w8) run on every
-schedule: each coding call quantizes a float model once on entry
-(``ensure_w8``, as the reference's :297, :315, :419, :563, :644), and
-``_grow_cache`` copies every buffer of the cache, kv8's scales too. det8's
-slide paths (:140-170, its segmented decode) are A8: the transformer
-raises for them.
+and ``lm_fingerprint`` (:629-672). The int8 modes (kv8, w8) and det8 run
+on every schedule: each coding call quantizes a float model once on entry
+(``ensure_quantized``: ``ensure_w8``, as the reference's :297, :315, :419,
+:563, :644, and det8's weights, which the reference quantizes in every
+step), and ``_grow_cache`` copies every buffer of the cache, kv8's scales
+too.
+
+det8's encoder runs the chunked encode (``step_graph.SegChunks``, the
+reference's ``_seg_intervals_chunked`` and ``_seg_intervals_any``,
+:88-128, :221-226) on every schedule: 128 positions a forward, split at
+the schedule's growth and re-prime boundaries and, under slide, at the
+ring's, on the decoder's cache widths, so the softmax cap ``2 * W`` is the
+same on both sides. The decoder steps serially, as for the float path.
+``lac_tpu`` decodes det8's slide in 512-step segments only to avoid a TPU
+worker fault (:482-516); here every ring step is the same replay, so no
+segment is needed, and the bits would not move if there were one.
 
 One function, ``_schedule``, walks every schedule for both directions. The
 encoder and the decoder differ only in the runner they hand it
@@ -48,7 +58,9 @@ algorithms on, TF32 and reduced-precision bf16 reductions off;
 ``lac_tpu_torch/__init__.py`` sets ``CUBLAS_WORKSPACE_CONFIG`` when the
 package is imported, before any cuBLAS call of the process. A container
 carries the fingerprint of the stack that wrote it, so a decoder on
-another stack fails loudly.
+another stack fails loudly. det8's results do not depend on the device
+(``models/transformer.py``), so its fingerprint names the package, not the
+device: a det8 container decodes on the CPU and on the card alike.
 """
 
 from __future__ import annotations
@@ -61,9 +73,9 @@ import numpy as np
 import torch
 
 from ..coder.vector import _encode_scan
-from ..models.transformer import LMConfig, Transformer, ensure_w8, forward, init_cache
+from ..models.transformer import LMConfig, Transformer, ensure_quantized, forward, init_cache
 from ..ops.quantize import cdf_from_freq, quantize_logits
-from .step_graph import SegDecode, SegIntervals, _Runner, _step_cdf
+from .step_graph import SegChunks, SegDecode, SegIntervals, _Runner, _step_cdf
 
 __all__ = [
     "GROW_BUCKET",
@@ -212,7 +224,7 @@ def _reprime_cdf(cfg: LMConfig, params: Transformer, kept: torch.Tensor, prob_bi
     """Prefill the kept tokens [B, keep] into ``cache`` (K/V at 0..keep-1,
     ``pos`` keep); returns (the CDF of the next token, cache)."""
     logits, cache = forward(cfg, params, kept, cache, prefill=True)
-    return cdf_from_freq(quantize_logits(logits[:, -1, :], prob_bits)), cache
+    return cdf_from_freq(quantize_logits(logits[:, -1, :], prob_bits, det=cfg.det8)), cache
 
 
 def _slide_cfg(cfg: LMConfig, t_len: int = 0) -> LMConfig:
@@ -270,13 +282,14 @@ def _as_tensor(a, dtype, device) -> torch.Tensor:
 def _encode(cfg: LMConfig, params: Transformer, tokens, lengths, prob_bits: int,
             cache_grow: int, mode: str, overlap: int):
     _check_grow(cache_grow)
-    params = ensure_w8(cfg, params)
+    params = ensure_quantized(cfg, params)
     dev = _device(params)
     tokens = _as_tensor(tokens, torch.int64, dev)
     lengths = _as_tensor(lengths, torch.int64, dev)
     t_len = tokens.shape[1]
     with _coding(dev):
-        run = SegIntervals(_step_cfg(cfg, t_len, mode), params, prob_bits, tokens)
+        runner = SegChunks if cfg.det8 else SegIntervals
+        run = runner(_step_cfg(cfg, t_len, mode), params, prob_bits, tokens)
         _schedule(run, t_len, cache_grow, overlap)
         return _encode_scan(run.lo, run.f, lengths, prob_bits, t_len + 2)
 
@@ -284,7 +297,7 @@ def _encode(cfg: LMConfig, params: Transformer, tokens, lengths, prob_bits: int,
 def _decode(cfg: LMConfig, params: Transformer, words, lengths, prob_bits: int, t_len: int,
             cache_grow: int, mode: str, overlap: int) -> torch.Tensor:
     _check_grow(cache_grow)
-    params = ensure_w8(cfg, params)
+    params = ensure_quantized(cfg, params)
     dev = _device(params)
     words = _as_tensor(words, torch.int64, dev)
     lengths = _as_tensor(lengths, torch.int64, dev)
@@ -347,18 +360,21 @@ def lm_fingerprint(cfg: LMConfig, params: Transformer, prob_bits: int, cache_gro
                    slide_seg: int = 0) -> int:
     """Determinism fingerprint stored in the container: the crc32 of the
     quantized CDF of a fixed probe (the BOS step from an empty cache of
-    ``cfg.max_seq`` slots, batch 1, on the model ``ensure_w8`` gives), with
-    ``cache_grow``, ``slide_seg`` and the int8 modes' tags (``w8v2``,
-    ``kv8v2``) folded in as ``lac_tpu`` folds them, in its order, and then
-    this stack's tag (``stack_tag``).
+    ``cfg.max_seq`` slots, batch 1, on the model ``ensure_quantized``
+    gives), with ``cache_grow``, ``slide_seg`` and the int8 modes' tags
+    (``w8v2``, ``kv8v2``) folded in as ``lac_tpu`` folds them, in its order,
+    and then this stack's tag: ``stack_tag(device)``, or under det8
+    ``lac_tpu_torch:det8``.
 
     The probe is one batch-1 step and can collide across stacks; the tag
     makes every float container of another stack or device kind fail the
     gate every time: ``lac_tpu``'s in the port, the port's in ``lac_tpu``,
-    and the port's CPU containers on the card. Whether det8 containers can
-    be identical across the stacks is ROADMAP A8's question; its tag
-    belongs there."""
-    params = ensure_w8(cfg, params)
+    and the port's CPU containers on the card. det8 gives the same bits on
+    the CPU and on the card, so its tag names no device; it still names
+    the package, because ``lac_tpu``'s det8 differs from the port's in
+    ``det_rsqrt`` (ROADMAP C), and each package refuses the other's det8
+    containers."""
+    params = ensure_quantized(cfg, params)
     dev = _device(params)
     cache = init_cache(cfg, 1, device=dev)
     with _coding(dev):
@@ -373,4 +389,5 @@ def lm_fingerprint(cfg: LMConfig, params: Transformer, prob_bits: int, cache_gro
         crc = zlib.crc32(b"w8v2", crc)
     if cfg.kv8:  # the probe's empty cache never reaches the kv8 route
         crc = zlib.crc32(b"kv8v2", crc)
-    return zlib.crc32(stack_tag(dev).encode(), crc)
+    tag = "lac_tpu_torch:det8" if cfg.det8 else stack_tag(dev)
+    return zlib.crc32(tag.encode(), crc)

@@ -30,6 +30,14 @@ the decoder run the same schedule, so the same positions run eagerly and
 the rest replay graphs of the same ops at the same shapes: the
 determinism contract of ``lm_engine.py`` carried over. A capture or replay
 that fails raises; nothing falls back to eager steps.
+
+Under det8 a step is the det8 forward with ``quantize_logits(det=True)``
+and captures and replays like a float step (its RoPE tables are a device
+tensor that the step gathers from). det8's encoder does not step:
+``SegChunks`` codes up to ``DET_ENCODE_CHUNK`` positions a forward,
+eagerly, and gives the serial steps' intervals bit for bit, since det8's
+logits do not depend on how the positions are split (``lac_tpu``'s
+chunked encode, ``lm_engine.py:72-154``).
 """
 
 from __future__ import annotations
@@ -40,14 +48,16 @@ from ..coder.vector import _decode_step, rans_decode_init
 from ..models.transformer import LMConfig, Transformer, forward, index_write
 from ..ops.quantize import cdf_from_freq, gather_intervals, quantize_logits
 
-__all__ = ["SegIntervals", "SegDecode"]
+__all__ = ["SegIntervals", "SegChunks", "SegDecode", "DET_ENCODE_CHUNK"]
+
+DET_ENCODE_CHUNK = 128  # positions a forward of det8's encode (lac_tpu's :85)
 
 
 def _step_cdf(cfg: LMConfig, params: Transformer, cache: dict, prev: torch.Tensor,
               prob_bits: int):
     """One lock-step model step: prev tokens [B] -> (cdf [B, V+1], cache)."""
     logits, cache = forward(cfg, params, prev[:, None], cache)
-    return cdf_from_freq(quantize_logits(logits[:, 0, :], prob_bits)), cache
+    return cdf_from_freq(quantize_logits(logits[:, 0, :], prob_bits, det=cfg.det8)), cache
 
 
 class _Runner:
@@ -127,6 +137,50 @@ class SegIntervals(_Runner):
         index_write(self.f, 1, self.t, f[:, None])
         self.prev.copy_(tok[:, 0])
         self.t += 1
+
+
+class SegChunks(SegIntervals):
+    """det8's encode (``lac_tpu``'s ``_chunk_intervals`` and
+    ``_seg_intervals_chunked``, :88-128): a run of n positions in chunks of
+    up to ``chunk``, each one cached forward of ``[prev | tokens[:, i : i +
+    m - 1]]`` that gives every position's interval at once. det8's logits
+    do not depend on how the positions are split, so a chunk gives the
+    intervals of its m serial steps (the decoder's) bit for bit. Under
+    slide, chunks also end at the ring's boundaries, so that no write
+    wraps. A chunk runs eagerly; ``code`` (a re-prime's position) is the
+    encoder's."""
+
+    def __init__(self, cfg: LMConfig, params: Transformer, prob_bits: int,
+                 tokens: torch.Tensor, chunk: int = DET_ENCODE_CHUNK):
+        super().__init__(cfg, params, prob_bits, tokens)
+        self.chunk = chunk
+        self.done = 0  # positions coded, on the host
+
+    def code(self, cdf: torch.Tensor) -> None:
+        super().code(cdf)
+        self.done += 1
+
+    def steps(self, cache: dict, n: int) -> None:
+        ring = cache["k"].shape[2] if self.cfg.slide else 0
+        end = self.done + n
+        while self.done < end:  # under slide the cursor is pos % ring, pos == done
+            m = min(self.chunk, end - self.done)
+            if ring:
+                m = min(m, ring - self.done % ring)
+            self._chunk(cache, m)
+
+    def _chunk(self, cache: dict, m: int) -> None:
+        t0 = self.done
+        seg = self.symbols[:, t0 : t0 + m]
+        inp = torch.cat([self.prev[:, None], seg[:, :-1]], dim=1)
+        logits, _ = forward(self.cfg, self.params, inp, cache)
+        cdf = cdf_from_freq(quantize_logits(logits, self.prob_bits, det=True))
+        lo, f = gather_intervals(cdf, seg)
+        self.lo[:, t0 : t0 + m] = lo
+        self.f[:, t0 : t0 + m] = f
+        self.prev.copy_(seg[:, -1])
+        self.t += m
+        self.done += m
 
 
 class SegDecode(_Runner):

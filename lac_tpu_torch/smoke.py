@@ -60,6 +60,24 @@ them within 1 %.
 as ``GOLDEN_LM_BPB`` was; ``tests/test_torch_q8_golden.py`` recomputes
 them, and ``chip_smoke.py``'s phase 6 holds the port's containers, made
 through the CLI's ``--kv8`` / ``--w8``, on the card to them within 1 %.
+
+The det8 slice's goldens. ``GOLDEN_DET8_BPB`` holds ``lac_tpu``'s bits/byte
+for ``GOLDEN_LM_BPB``'s call with ``det8=True``, computed on the CPU as
+``GOLDEN_LM_BPB`` was. ``GOLDEN_DET8_PORT`` holds the crc32 and length of
+the port's own det8 container of the same input, written on the CPU by
+``python -m lac_tpu_torch compress FILE --model lm --model-ref
+file:checkpoints/byte6l-pysrc.npz --det8 --device cpu`` at ``LM_CODING``
+(the CLI's defaults but the model): det8's bits do not depend on the
+device, so ``chip_smoke.py``'s phase 7 holds the card's container to it
+byte for byte, and its bits/byte to ``GOLDEN_DET8_BPB``. The two share
+every block's payload when ``lac_tpu``'s ``det_rsqrt`` is patched to the
+documented ``1 / sqrt`` (ROADMAP C); unpatched, every block's words
+differ, by the same total bytes. ``GOLDEN_DET8_ROPE`` holds the crc32 of
+det8's host RoPE tables (``models.transformer.rope_table``, cos then sin)
+of byte-16l (head dim 64, theta 10000) at the rope positions of phase 7's
+blocks, 4096 and the flagship's 16384: numpy's float64 ``cos`` and ``sin``
+on another machine could move an f32 value, and with it the card's
+containers. ``tests/test_torch_det8_golden.py`` recomputes all three.
 """
 
 from __future__ import annotations
@@ -73,7 +91,8 @@ import numpy as np
 __all__ = ["SMOKE_BYTES", "GOLDEN", "GOLDEN_LM", "LM_CHECKPOINT", "GOLDEN_LM_BPB",
            "LM_BPB_BYTES", "LM_CODING", "HELDOUT_BYTES", "HELDOUT_CRC", "GOLDEN_WINDOW_BPB",
            "WINDOW_BPB_BYTES", "WINDOW_CODING", "SLIDE16_CHECKPOINT", "GOLDEN_SLIDE16_BPB",
-           "SLIDE16_BYTES", "SLIDE16_CODING", "GOLDEN_Q8_BPB", "smoke_corpus",
+           "SLIDE16_BYTES", "SLIDE16_CODING", "GOLDEN_Q8_BPB", "GOLDEN_DET8_BPB",
+           "GOLDEN_DET8_PORT", "GOLDEN_DET8_ROPE", "smoke_corpus",
            "container_digest",
            "lm_windows", "heldout_slice"]
 
@@ -125,6 +144,13 @@ SLIDE16_CODING = dict(block_tokens=4096, lanes=64, prob_bits=16, overlap=8, cach
 
 # lac_tpu's bits/byte for GOLDEN_LM_BPB's call in each int8 mode
 GOLDEN_Q8_BPB = {"kv8": 2.14013671875, "w8": 2.13525390625, "kv8+w8": 2.138916015625}
+
+# lac_tpu's bits/byte for GOLDEN_LM_BPB's call with det8, and the (crc32,
+# length) of the port's det8 container of it, written on the CPU by the CLI
+GOLDEN_DET8_BPB = 2.13623046875
+GOLDEN_DET8_PORT = (2799385139, 8750)
+# rope positions -> crc32 of byte-16l's det8 RoPE tables (cos, then sin)
+GOLDEN_DET8_ROPE = {4096: 3990392779, 16384: 573036838}
 
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _HELDOUT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data",

@@ -111,7 +111,7 @@ def test_lm_model_not_ported(one_thread, corpus_file, capsys):
     assert "bpb" in capsys.readouterr().out
 
 
-@pytest.mark.parametrize("flag,item", [("--det8", "A8"), ("--mesh-model=2", "A13")])
+@pytest.mark.parametrize("flag,item", [("--mesh-model=2", "A13")])
 def test_lm_unported_flags_exit(one_thread, corpus_file, flag, item):
     with pytest.raises(SystemExit, match=item):
         cli.main(["compress", corpus_file, *LM_SMALL, flag])

@@ -638,3 +638,139 @@ def test_lm_int8_round_trip_on_the_card(cuda):
     assert header.config["kv8"] and header.config["w8"] and all(b.token_count for b in blocks)
     assert lm_api.lm_decompress_bytes(c, model=model) == data
     assert lm_api.lm_compress_bytes(data, model_ref="file:" + LM_CKPT, model=model, **kw) == c
+
+
+# --------------------------------------------------------------------------
+# det8: the card against the CPU, bit for bit
+# --------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("name", ["det_exp", "det_silu", "det_gelu_tanh", "det_sqrt",
+                                  "det_rsqrt", "quantize_det"])
+def test_det8_math_equals_the_cpus(cuda, name):
+    """Each elementwise det8 function and the det8 CDF's float stage on
+    2^20 seeded values: the card's bits are the CPU's."""
+    from lac_tpu_torch.ops import detmath, quantize
+
+    rng = np.random.default_rng(7)
+    n = 1 << 20
+    if name == "det_exp":
+        x = -np.abs(rng.standard_normal(n)) * rng.choice([0.01, 1.0, 10.0, 100.0], n)
+        x[:3] = [-np.inf, 0.0, -87.3]
+    elif name in ("det_sqrt", "det_rsqrt"):
+        x = np.abs(rng.standard_normal(n)) * np.exp2(rng.integers(-30, 30, n))
+    elif name == "quantize_det":
+        x = rng.standard_normal((n // 256, 256)) * rng.choice([0.1, 3.0, 20.0], (n // 256, 1))
+    else:
+        x = rng.standard_normal(n) * rng.choice([0.1, 1.0, 5.0, 30.0], n)
+    t = torch.from_numpy(x.astype(np.float32))
+    fn = ((lambda v: quantize.quantize_det(v, 16)) if name == "quantize_det"
+          else getattr(detmath, name))
+    assert torch.equal(fn(t.to(cuda)).cpu(), fn(t))
+
+
+def _det8_tiny_model(cuda, **kw):
+    import dataclasses
+
+    from lac_tpu_torch.models import transformer as T
+    from lac_tpu_torch.models.lm_registry import resolve_lm
+
+    """(det8 cfg, prng:tiny:0's det8 model on the CPU, the same on the card):
+    the weights are drawn on the CPU, so the two hold the same values."""
+    models = [resolve_lm("prng:tiny:0", max_seq=64, device=dev) for dev in ("cpu", cuda)]
+    cfg = dataclasses.replace(models[0][0], det8=True, **kw)
+    return (cfg, *(T.ensure_det8(cfg, p) for _, p in models))
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_det8_logits_equal_the_cpus(cuda, dtype):
+    """prng:tiny:0 with det8 (and in bf16): the prefill, a 20-token cached
+    chunk at pos 9 and serial steps give the CPU's logits bit for bit."""
+    from lac_tpu_torch.models import transformer as T
+    from lac_tpu_torch.runtime.lm_engine import _coding
+
+    cfg, cpu_p, dev_p = _det8_tiny_model(
+        cuda, dtype=torch.float32 if dtype == "f32" else torch.bfloat16)
+    toks = torch.from_numpy(np.random.default_rng(3).integers(0, 256, (3, 29)))
+    out = []
+    for dev, p in ((torch.device("cpu"), cpu_p), (cuda, dev_p)):
+        t = toks.to(dev)
+        with _coding(dev):
+            pre = T.forward(cfg, p, t, prefill=True)
+            cache = T.init_cache(cfg, 3, 64, device=dev)
+            head = torch.cat([T.forward(cfg, p, t[:, i : i + 1], cache)[0] for i in range(9)], 1)
+            chunk = T.forward(cfg, p, t[:, 9:], cache)[0]
+        out.append([x.cpu() for x in (pre, head, chunk)])
+    for a, b in zip(*out):
+        assert torch.equal(a, b)
+
+
+def test_det8_chunked_encode_equals_serial_steps_on_the_card(cuda):
+    """The engine's chunked det8 encode (chunks of 5, split at the ring's
+    boundaries) against serial graph-replayed steps, past the context in
+    slide mode, and the intervals equal the CPU's."""
+    from lac_tpu_torch.runtime import lm_engine as E
+    from lac_tpu_torch.runtime import step_graph as G
+
+    cfg, cpu_p, dev_p = _det8_tiny_model(cuda)
+    toks = torch.from_numpy(np.random.default_rng(4).integers(0, 256, (4, 150)))
+    got = []
+    for dev, p, runner, kw in ((cuda, dev_p, G.SegIntervals, {}),
+                               (cuda, dev_p, G.SegChunks, {"chunk": 5}),
+                               (torch.device("cpu"), cpu_p, G.SegChunks, {})):
+        with E._coding(dev):
+            run = runner(E._step_cfg(cfg, 150, "slide"), p, 16, toks.to(dev), **kw)
+            E._schedule(run, 150, 0, 2)
+        got.append((run.lo.cpu(), run.f.cpu()))
+    for lo, f in got[1:]:
+        assert torch.equal(lo, got[0][0]) and torch.equal(f, got[0][1])
+
+
+def test_det8_graph_step_equals_the_eager_step(cuda):
+    """12 det8 steps on the ring past its first window: the graph's CDFs
+    and intervals equal the eager steps' bit for bit."""
+    import dataclasses
+
+    from lac_tpu_torch.models import transformer as T
+    from lac_tpu_torch.runtime import lm_engine, step_graph
+
+    cfg, _, params = _det8_tiny_model(cuda)
+    cfg = dataclasses.replace(cfg, slide=True, rope_positions=76)
+    toks = torch.from_numpy(np.random.default_rng(5).integers(0, 256, (6, 76))).to(cuda)
+    cdfs, runs = [], []
+    with lm_engine._coding(cuda):
+        base = T.init_cache(cfg, 6, 64, device=cuda)
+        T.forward(cfg, params, toks[:, :64], base, prefill=True)
+        for graphed in (False, True):
+            run = step_graph.SegIntervals(cfg, params, 16, toks[:, 64:])
+            run.prev.copy_(toks[:, 63])
+            cache = {k: v.clone() for k, v in base.items()}
+            got = []
+            for _ in range(12):
+                run.steps(cache, 1) if graphed else run._step(cache)
+                got.append(run.cdf.clone())
+            cdfs.append(torch.stack(got))
+            runs.append(run)
+    assert torch.equal(cdfs[0], cdfs[1])
+    assert torch.equal(runs[0].lo, runs[1].lo) and torch.equal(runs[0].f, runs[1].f)
+
+
+def test_det8_cpu_container_decodes_on_the_card(cuda, tmp_path):
+    """The GOLDEN_DET8_PORT input: the CPU's det8 container (made here on
+    the CPU, equal to the golden) decodes on the card, and the card's
+    container is the same bytes."""
+    import os
+
+    from lac_tpu_torch import smoke
+    from lac_tpu_torch.runtime import lm_api
+    from lac_tpu_torch.train import load_checkpoint
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    data = smoke.smoke_corpus(smoke.LM_BPB_BYTES)
+    kw = dict(model_ref="file:" + smoke.LM_CHECKPOINT, det8=True, **smoke.LM_CODING)
+    cpu = lm_api.lm_compress_bytes(data, model=load_checkpoint(
+        os.path.join(root, smoke.LM_CHECKPOINT), device="cpu"), device="cpu", **kw)
+    assert smoke.container_digest(cpu) == smoke.GOLDEN_DET8_PORT
+    model = load_checkpoint(os.path.join(root, smoke.LM_CHECKPOINT))
+    assert lm_api.lm_decompress_bytes(cpu, model=model) == data
+    assert lm_api.lm_compress_bytes(data, model=model, **kw) == cpu

@@ -331,24 +331,24 @@ def test_engine_fixed_and_grown_schedules_round_trip(trained):
 
 
 def test_unported_modes_and_refs_raise(trained):
-    """det8, a mesh and hf: refs raise, naming their ROADMAP items; kv8 and
-    w8 (A7, held to lac_tpu's in tests/test_torch_q8.py) code and
-    round-trip."""
+    """A mesh and hf: refs raise, naming their ROADMAP items; kv8, w8 (A7,
+    held to lac_tpu's in tests/test_torch_q8.py) and det8 (A8,
+    tests/test_torch_det8.py) code and round-trip, det8 past the context in
+    slide mode too."""
     cfg, model, _, _ = trained
-    with pytest.raises(NotImplementedError, match="A8"):
-        lm_api.lm_compress_bytes(DATA, model=(cfg, model), device="cpu", det8=True)
-    for flag in ("kv8", "w8"):
+    for flag in ("kv8", "w8", "det8"):
         c = lm_api.lm_compress_bytes(DATA[:200], model=(cfg, model), device="cpu",
                                      block_tokens=64, lanes=4, **{flag: True})
         assert read_container(c)[0].config[flag]
         assert lm_api.lm_decompress_bytes(c, model=(cfg, model), device="cpu") == DATA[:200]
     with pytest.raises(NotImplementedError, match="A13"):
         lm_api.lm_compress_bytes(DATA, model=(cfg, model), device="cpu", mesh=object())
-    # a block past the context codes (tests/test_torch_window.py); det8's
-    # slide schedule stays A8
-    with pytest.raises(NotImplementedError, match="A8"):
-        E.lm_encode_windowed(dataclasses.replace(cfg, det8=True), model,
-                             np.zeros((1, 300), np.int64), np.ones(1), 16, mode="slide")
+    # a block past the context codes (tests/test_torch_window.py), det8's too
+    det8 = dataclasses.replace(cfg, det8=True)
+    toks = np.frombuffer(DATA[:300], dtype=np.uint8).astype(np.int64)[None]
+    words, _ = E.lm_encode_windowed(det8, model, toks, np.full(1, 300), 16, mode="slide")
+    out = E.lm_decode_windowed(det8, model, words, np.full(1, 300), 16, 300, mode="slide")
+    assert np.array_equal(out.numpy(), toks)
     with pytest.raises(NotImplementedError, match="A11"):
         treg.resolve_lm("hf:some/model", device="cpu")
     with pytest.raises(ValueError, match="cache_grow"):

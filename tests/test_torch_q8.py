@@ -484,7 +484,9 @@ def test_each_package_refuses_the_others_int8_container(trained, containers):
 
 def test_decode_handshake_refuses_mismatched_modes(trained, containers):
     """A model resolved with a mode the container lacks is refused, naming
-    the mode; det8 with kv8 or w8 is a ValueError; det8 alone is A8."""
+    the mode; det8 with kv8 or w8 is a ValueError; det8 alone codes
+    (tests/test_torch_det8.py) and its container is refused by this
+    model's int8 modes."""
     cfg, model, _, _ = trained
     mode, port, _ = containers
     for other in ("kv8", "w8"):
@@ -495,8 +497,12 @@ def test_decode_handshake_refuses_mismatched_modes(trained, containers):
     with pytest.raises(ValueError, match="mutually exclusive"):
         lm_api.lm_compress_bytes(DATA, model=(cfg, model), device="cpu", det8=True,
                                  **MODES[mode])
-    with pytest.raises(NotImplementedError, match="A8"):
-        lm_api.lm_compress_bytes(DATA, model=(cfg, model), device="cpu", det8=True)
+    det8 = lm_api.lm_compress_bytes(DATA[:200], model=(cfg, model), device="cpu", det8=True,
+                                    block_tokens=64, lanes=4)
+    assert read_container(det8)[0].config["det8"]
+    with pytest.raises(ValueError, match="mutually exclusive"):
+        lm_api.lm_decompress_bytes(
+            det8, model=(dataclasses.replace(cfg, **MODES[mode]), model), device="cpu")
 
 
 def test_fingerprint_folds_the_mode_tags_in_lac_tpus_order(trained):

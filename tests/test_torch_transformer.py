@@ -132,23 +132,24 @@ def test_gqa_takes_the_exact_branch(monkeypatch):
 
 
 def test_unported_modes_raise():
-    """The det8 forward raises, naming ROADMAP A8, for the prefill, for the
-    cached decode step (which A5 ported: tests/test_torch_lm.py) and for
-    its cache. The w8 and kv8 forwards (A7, held to lac_tpu's in
-    tests/test_torch_q8.py) run both, w8 on the model ensure_w8 gives. The
-    slide forward (A6, held to lac_tpu's in tests/test_torch_window.py)
-    runs both."""
+    """Named for what it checked before the modes were ported; now every
+    mode runs the prefill and the cached step: det8 (A8, held to lac_tpu's
+    in tests/test_torch_det8.py) on the model ensure_det8 gives, with its
+    cache in cfg.dtype, and the float model refused under det8; the w8 and
+    kv8 forwards (A7, tests/test_torch_q8.py), w8 on the model ensure_w8
+    gives; the slide forward (A6, tests/test_torch_window.py)."""
     cfg = T.tiny_config()
     model = T.init_params(cfg)
     toks = torch.zeros(1, 4, dtype=torch.long)
-    cache = T.init_cache(cfg, 1, 8)
     det8 = dataclasses.replace(cfg, det8=True)
-    with pytest.raises(NotImplementedError, match="A8"):
+    with pytest.raises(ValueError, match="ensure_det8"):
         T.forward(det8, model, toks, prefill=True)
-    with pytest.raises(NotImplementedError, match="A8"):
-        T.forward(det8, model, toks, cache)
-    with pytest.raises(NotImplementedError, match="A8"):
-        T.init_cache(det8, 1, 8)
+    d8 = T.ensure_det8(det8, model)
+    with torch.no_grad():
+        assert tuple(T.forward(det8, d8, toks, prefill=True).shape) == (1, 4, cfg.vocab)
+        logits, step = T.forward(det8, d8, toks, T.init_cache(det8, 1, 8))
+    assert tuple(logits.shape) == (1, 4, cfg.vocab) and int(step["pos"]) == 4
+    assert step["k"].dtype == cfg.dtype
     for flag in ("w8", "kv8"):
         mode = dataclasses.replace(cfg, **{flag: True})
         params = T.ensure_w8(mode, model)

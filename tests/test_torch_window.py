@@ -247,8 +247,10 @@ def test_windowed_round_trip(mode, t_len, cache_grow):
 
 
 def test_windowed_schedules_differ_and_det8_slide_raises():
-    """Past the context, reprime and slide are different schedules (their
-    words differ); det8's slide paths are ROADMAP A8 and raise."""
+    """Named for what it checked before det8 was ported. Past the context,
+    reprime and slide are different schedules (their words differ); det8's
+    slide paths (A8, tests/test_torch_det8.py) round-trip, its encode
+    chunked at the ring's boundaries."""
     _, _, tcfg, model = _tiny()
     toks, _ = _inputs(2, T_LEN, seed=3)
     lengths = np.full(2, T_LEN)
@@ -258,10 +260,9 @@ def test_windowed_schedules_differ_and_det8_slide_raises():
     with pytest.raises(ValueError, match="window mode"):
         E.lm_encode_windowed(tcfg, model, toks, lengths, 14, mode="ring")
     det8 = dataclasses.replace(tcfg, det8=True)
-    with pytest.raises(NotImplementedError, match="A8"):
-        E.lm_encode_windowed(det8, model, toks, lengths, 14, mode="slide")
-    with pytest.raises(NotImplementedError, match="A8"):
-        E.lm_decode_windowed(det8, model, slide, lengths, 14, T_LEN, mode="slide")
+    words, _ = E.lm_encode_windowed(det8, model, toks, lengths, 14, mode="slide")
+    out = E.lm_decode_windowed(det8, model, words, lengths, 14, T_LEN, mode="slide")
+    assert np.array_equal(out.numpy(), toks)
 
 
 # --------------------------------------------------------------------------
