@@ -1,11 +1,12 @@
-import faulthandler; faulthandler.dump_traceback_later(1100, exit=True)  # noqa: E702
+import faulthandler; faulthandler.dump_traceback_later(1150, exit=True)  # noqa: E702
 
 # Drive lac_tpu_torch's main path on one CUDA card and check it.
 #
-#   python3 chip_smoke.py              phases 0-7
+#   python3 chip_smoke.py              phases 0-8
 #   python3 chip_smoke.py --flagship   the flagship schedules alone (below)
 #   python3 chip_smoke.py --det8       phase 7 alone (its float comparisons
 #                                      against smoke's goldens)
+#   python3 chip_smoke.py --phase8     phase 8 alone
 #
 # Phase 0  the card's name and power limit; build the CUDA kernels; the
 #          launch shapes of the order0n (K1, K3), order1n (K4, K5) and
@@ -140,6 +141,28 @@ import faulthandler; faulthandler.dump_traceback_later(1100, exit=True)  # noqa:
 #          smoke.GOLDEN_DET8_ROPE; (e) graph against eager, det8 steps at
 #          byte-16l's two ring shapes beside phase 5 (c)'s float steps;
 #          (f) no launch of K1-K12.
+# Phase 8  the token alphabet and the scan codecs (slice 15; no TPU kernel,
+#          so K1-K12 must not launch): (a) Llama-3-8B at full width
+#          (prng:llama3-8b:0's preset: 32 layers, d 4096, GQA 32/8, vocab
+#          128,256, rope theta 5e5) with w8 (init_params_w8) and kv8 through
+#          lm_compress_tokens / lm_decompress_tokens, 64 lanes x 512 seeded
+#          Zipf ids through a permutation of the vocab (ids above 65,535 and
+#          vocab - 1 among them) at the CLI's LM defaults: the round trip
+#          exact, the header's alphabet, vocab, prob_bits 18 and length;
+#          then the peak memory of det8's encode chunk (64 lanes x 128
+#          positions) at that vocab on a small det8 model; (b) byte-6l at
+#          smoke.LM_CODING on the corpus's first 32 KiB with the bytes as
+#          ids: the token container's blocks equal the byte container's,
+#          float (phase 4 (b)'s) and det8 (smoke.GOLDEN_DET8_PORT, phase 7
+#          (a)'s); (c) the CLI's compress --model order0, markov1, order0d,
+#          markov1d and markov1c at its defaults (block 4096) on the 32 MiB
+#          corpus, then engine.compress_bytes(corpus) at its own (order0,
+#          block 65536): decompress, byte compare, crc32 and length against
+#          smoke.GOLDEN_SCAN (lac_tpu's on the CPU), MB/s a side, bits/byte,
+#          peak memory; (d) on the corpus's first MiB, each of the five
+#          models' containers on the card equal to the port's on the CPU
+#          (a child process with no card codes them while (a)-(c) run);
+#          (e) no launch of K1-K12.
 #
 # --flagship: the shipped flagship configuration (bench.py: byte-16l, block
 # 65536, 4 lanes, overlap 8, slide, slide_seg 512) on the whole held-out
@@ -384,6 +407,12 @@ DET8_FLAGSHIP = dict(block_tokens=16384, lanes=16, prob_bits=16, overlap=8, cach
 # lac_tpu's det8 flagship on a v5e, context only (measurements/
 # r4_slide_det8_b16k.log): bits/byte, encode and decode seconds
 V5E_DET8_FLAGSHIP = (0.8196, 113, 240)
+# phase 8: Llama-3-8B's ids (lanes x tokens, Zipf exponent); the scan models
+# through the CLI, and the prefix each one codes on the card and the CPU
+TOK_REF = "prng:llama3-8b:0"
+TOK_LANES, TOK_TOKENS, TOK_ZIPF_A = 64, 512, 1.2
+SCAN_MODELS = ("order0", "markov1", "order0d", "markov1d", "markov1c")
+SCAN_CPU_BYTES = 1 << 20
 
 
 class Phase:
@@ -1664,6 +1693,251 @@ def phase7(torch, T, cli, container, detmath, quantize, lm_engine, step_graph, t
         check(set(counts.values()) == {0}, "the det8 path launched a TPU-kernel port")
 
 
+# --------------------------------------------------------------------------
+# Phase 8: the token alphabet and the scan codecs (no TPU kernel on either
+# path, so K1-K12 must not launch)
+# --------------------------------------------------------------------------
+
+
+def zipf_ids(vocab: int, n: int, seed: int) -> np.ndarray:
+    """Seeded Zipf ranks through a seeded permutation of the vocab, rank 1
+    mapped to vocab - 1: int32 ids, many above 65,535 at vocab 128,256."""
+    rng = np.random.default_rng(seed)
+    ranks = (rng.zipf(TOK_ZIPF_A, n) - 1) % vocab
+    perm = rng.permutation(vocab)
+    top = int(np.flatnonzero(perm == vocab - 1)[0])
+    perm[[1, top]] = perm[[top, 1]]
+    return perm[ranks].astype(np.int32)
+
+
+def phase8_llama3(torch, T, lm_api, lm_engine, container_mod, smi, dev):
+    """(a): Llama-3-8B at full width, w8 (staged init) and kv8, through
+    lm_compress_tokens / lm_decompress_tokens: 64 lanes x 512 ids, the
+    header's alphabet, vocab, prob_bits 18 and length; then the det8 chunk's
+    peak memory at Llama-3's vocab on a small det8 model."""
+    import resource
+
+    cfg = dataclasses.replace(T.LLAMA3_8B, w8=True, kv8=True)
+    torch.cuda.reset_peak_memory_stats()
+    params, init_ms = sync_time(torch, lambda: T.init_params_w8(cfg, 0, device=dev))
+    init_peak = torch.cuda.max_memory_allocated()
+    host_peak = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
+    n = TOK_LANES * TOK_TOKENS
+    ids = zipf_ids(cfg.vocab, n, SEED)
+    check(bool((ids > 65535).any()) and bool((ids == cfg.vocab - 1).any()),
+          "tokens (a): the ids miss the top of the vocab")
+    kw = dict(block_tokens=TOK_TOKENS, lanes=TOK_LANES, prob_bits=16, cache_grow=128,
+              window_mode="auto", kv8=True, w8=True)
+    torch.cuda.reset_peak_memory_stats()
+    c, enc_ms = sync_time(torch, lambda: lm_api.lm_compress_tokens(
+        ids, TOK_REF, model=(cfg, params), **kw))
+    back, dec_ms = sync_time(torch, lambda: lm_api.lm_decompress_tokens(c, model=(cfg, params)))
+    peak = torch.cuda.max_memory_allocated()
+    check(back.dtype == np.int32 and np.array_equal(back, ids),
+          "tokens (a): the Llama-3-8B round trip differs")
+    header, blocks = container_mod.read_container(c)
+    got = {k: header.config[k] for k in ("alphabet", "vocab", "kv8", "w8", "det8", "lanes",
+                                         "block_tokens", "window_mode")}
+    want = {"alphabet": "tokens", "vocab": 128256, "kv8": True, "w8": True, "det8": False,
+            "lanes": TOK_LANES, "block_tokens": TOK_TOKENS, "window_mode": "slide"}
+    check(got == want and header.prob_bits == 18 and header.original_len == n,
+          f"tokens (a): header {got}, prob_bits {header.prob_bits}, "
+          f"original_len {header.original_len}")
+    coded = sum(b.token_count > 0 for b in blocks)
+    payload = sum(len(b.payload) for b in blocks)
+    print(f"tokens (a) [{smi}] Llama-3-8B w8+kv8 ({cfg.n_layers} layers, d {cfg.d_model}, "
+          f"heads {cfg.n_heads}/{cfg.n_kv_heads}, vocab {cfg.vocab}, rope theta "
+          f"{cfg.rope_theta:g}; random weights, seed 0): init_params_w8 {init_ms / 1e3:.1f} s, "
+          f"max_memory_allocated {init_peak} bytes, host max RSS {host_peak} bytes; "
+          f"{TOK_LANES} lanes x {TOK_TOKENS} ids (Zipf a {TOK_ZIPF_A}, "
+          f"{int((ids > 65535).sum())} above 65535), lm_compress_tokens at the CLI's LM "
+          f"defaults: round trip exact; header {got}, prob_bits {header.prob_bits}, "
+          f"original_len {header.original_len}; {n} -> {len(c)} bytes, "
+          f"{8 * payload / n:.3f} bits a token (payload), {coded} of {len(blocks)} blocks "
+          f"coded (raw >u4 is 32); encode {n / (enc_ms / 1e3):.1f} tokens/s "
+          f"({enc_ms / TOK_TOKENS:.3f} ms a step), decode {n / (dec_ms / 1e3):.1f} tokens/s "
+          f"({dec_ms / TOK_TOKENS:.3f} ms a step), fingerprint and waves included; "
+          f"max_memory_allocated {peak} bytes", flush=True)
+    del params
+    torch.cuda.empty_cache()
+    dcfg = T.tiny_config(vocab=cfg.vocab, det8=True)
+    dparams = T.init_params(dcfg, 0, device=dev)
+    chunk_ids = zipf_ids(cfg.vocab, TOK_LANES * 128, SEED + 1).reshape(TOK_LANES, 128)
+    toks = torch.from_numpy(chunk_ids.astype(np.int64))
+    lengths = torch.full((TOK_LANES,), 128, dtype=torch.int64, device=dev)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    _, ms = sync_time(torch, lambda: lm_engine.lm_encode(dcfg, dparams, toks.to(dev), lengths,
+                                                         18, 128))
+    print(f"tokens (a) [{smi}] det8's encode chunk at vocab {cfg.vocab}: one chunk of 128 "
+          f"positions x {TOK_LANES} lanes on a det8 model of {dcfg.n_layers} layers, d "
+          f"{dcfg.d_model}: peak {torch.cuda.max_memory_allocated() - base} bytes above the "
+          f"model ({ms:.1f} ms)", flush=True)
+
+
+def phase8_tokens_are_bytes(torch, ttrain, lm_api, container_mod, smoke, root, corpus,
+                            float_bpb):
+    """(b): byte-6l at smoke.LM_CODING on the corpus's first 32 KiB, the
+    bytes as ids: the token container's blocks equal the byte container's,
+    float (phase 4 (b)'s call) and det8 (phase 7 (a)'s, smoke.
+    GOLDEN_DET8_PORT); each token container round-trips."""
+    model = ttrain.load_checkpoint(os.path.join(root, smoke.LM_CHECKPOINT))
+    data = corpus[: smoke.LM_BPB_BYTES]
+    ids = np.frombuffer(data, dtype=np.uint8)
+    ref = "file:" + smoke.LM_CHECKPOINT
+    for det8 in (False, True):
+        what = "det8" if det8 else "float"
+        bc = lm_api.lm_compress_bytes(data, model_ref=ref, model=model, det8=det8,
+                                      **smoke.LM_CODING)
+        tc, enc_ms = sync_time(torch, lambda: lm_api.lm_compress_tokens(
+            ids, model_ref=ref, model=model, det8=det8, **smoke.LM_CODING))
+        back, dec_ms = sync_time(torch, lambda: lm_api.lm_decompress_tokens(tc, model=model))
+        check(np.array_equal(back, ids), f"tokens (b) {what}: the round trip differs")
+        (th, tblocks), (bh, bblocks) = (container_mod.read_container(x) for x in (tc, bc))
+        check([(b.raw_len, b.token_count, b.payload) for b in tblocks]
+              == [(b.raw_len, b.token_count, b.payload) for b in bblocks],
+              f"tokens (b) {what}: the token container's blocks are not the byte container's")
+        check(th.config == {**bh.config, "alphabet": "tokens", "vocab": 256},
+              f"tokens (b) {what}: headers {th.config} / {bh.config}")
+        bpb = 8 * len(bc) / len(data)
+        if det8:
+            against = (f"the byte container's crc32 and length {smoke.container_digest(bc)}, "
+                       f"smoke.GOLDEN_DET8_PORT {smoke.GOLDEN_DET8_PORT}")
+            check(smoke.container_digest(bc) == smoke.GOLDEN_DET8_PORT,
+                  "tokens (b): the det8 byte container is not smoke.GOLDEN_DET8_PORT")
+        else:
+            against = (f"the byte container's {bpb:.6f} bits/byte, phase 4 (b)'s "
+                       f"{'not run' if float_bpb is None else f'{float_bpb:.6f}'}")
+            check(float_bpb is None or bpb == float_bpb,
+                  f"tokens (b): the float byte container's {bpb} is not phase 4 (b)'s")
+        print(f"tokens (b) byte-6l {what}, the bytes as ids (vocab 256, raw >u1): "
+              f"{len(tblocks)} blocks ({sum(b.token_count > 0 for b in tblocks)} coded) "
+              f"equal the byte container's, block for block; {against}; round trip equal; "
+              f"encode {enc_ms / 1e3:.2f} s, decode {dec_ms / 1e3:.2f} s", flush=True)
+
+
+def phase8_scan_report(torch, container_mod, smoke, smi, what, model, block, data, c, enc_ms,
+                       dec_ms):
+    """(c)'s check and line of one run: header, crc32 and length against
+    smoke.GOLDEN_SCAN, MB/s a side, bits/byte, peak memory since the last
+    reset."""
+    header, _ = container_mod.read_container(c)
+    check(header.model_id == model and header.config == {"block_size": block},
+          f"scan (c) {what}: header {header.model_id} {header.config}")
+    digest, mb = smoke.container_digest(c), len(data) / 1e6
+    print(f"scan (c) [{smi}] {what}: {model}, block {block}, {len(data)} -> {len(c)} bytes, "
+          f"{8 * len(c) / len(data):.6f} bits/byte; crc32 and length {digest}, "
+          f"smoke.GOLDEN_SCAN {smoke.GOLDEN_SCAN[(model, block)]}; round trip equal; encode "
+          f"{mb / (enc_ms / 1e3):.3f} MB/s ({enc_ms / 1e3:.1f} s), decode "
+          f"{mb / (dec_ms / 1e3):.3f} MB/s ({dec_ms / 1e3:.1f} s), file I/O included; "
+          f"max_memory_allocated {torch.cuda.max_memory_allocated()} bytes", flush=True)
+    check(digest == smoke.GOLDEN_SCAN[(model, block)],
+          f"scan (c) {what}: {digest} is not smoke.GOLDEN_SCAN's")
+
+
+def phase8_scan(torch, cli, engine, container_mod, smoke, corpus, work, smi):
+    """(c): the CLI's compress --model X at its defaults (block 4096) on the
+    32 MiB corpus for each scan model, then engine.compress_bytes(corpus)
+    at its own defaults (order0, block 65536); each decoded and compared."""
+    path = os.path.join(work, "scan.bin")
+    with open(path, "wb") as f:
+        f.write(corpus)
+    for model in SCAN_MODELS:
+        torch.cuda.reset_peak_memory_stats()
+        rc, enc_ms = sync_time(torch, lambda: cli.main(["compress", path, "--model", model,
+                                                        "-o", path + ".lac"]))
+        check(rc == 0, f"cli compress --model {model}")
+        rc, dec_ms = sync_time(torch, lambda: cli.main(["decompress", path + ".lac", "-o",
+                                                        path + ".out"]))
+        check(rc == 0, f"cli decompress of the {model} container")
+        with open(path + ".out", "rb") as f:
+            check(f.read() == corpus, f"scan (c) {model}: the cli round trip differs")
+        with open(path + ".lac", "rb") as f:
+            c = f.read()
+        phase8_scan_report(torch, container_mod, smoke, smi, f"cli --model {model}", model,
+                           4096, corpus, c, enc_ms, dec_ms)
+    torch.cuda.reset_peak_memory_stats()
+    c, enc_ms = sync_time(torch, lambda: engine.compress_bytes(corpus))
+    out, dec_ms = sync_time(torch, lambda: engine.decompress_bytes(c))
+    check(out == corpus, "scan (c): engine.compress_bytes's default round trip differs")
+    phase8_scan_report(torch, container_mod, smoke, smi, "engine.compress_bytes(data)",
+                       "order0", 1 << 16, corpus, c, enc_ms, dec_ms)
+
+
+# (d)'s CPU half, a child process with no card that runs while (a)-(c) hold
+# the card: argv data path, output directory, threads, the model ids; it
+# writes <dir>/<id>.cpu.lac and prints each encode's seconds
+SCAN_CPU_CHILD = """
+import json, os, sys, time
+import torch
+torch.set_num_threads(int(sys.argv[3]))
+from lac_tpu_torch.runtime import engine
+data = open(sys.argv[1], "rb").read()
+for model in sys.argv[4:]:
+    t0 = time.perf_counter()
+    c = engine.compress_bytes(data, model_id=model, block_size=4096, device="cpu")
+    seconds = time.perf_counter() - t0
+    with open(os.path.join(sys.argv[2], model + ".cpu.lac"), "wb") as f:
+        f.write(c)
+    print(json.dumps({model: seconds}), flush=True)
+"""
+
+
+def phase8_cpu_start(root, work, corpus):
+    """Start (d)'s CPU encodes of the corpus's first MiB in a child process
+    that cannot see the card, on 4 of the host's threads."""
+    path = os.path.join(work, "scan_head.bin")
+    with open(path, "wb") as f:
+        f.write(corpus[:SCAN_CPU_BYTES])
+    return subprocess.Popen([sys.executable, "-c", SCAN_CPU_CHILD, path, work, "4", *SCAN_MODELS],
+                            cwd=root, env={**os.environ, "CUDA_VISIBLE_DEVICES": ""},
+                            stdout=subprocess.PIPE, text=True)
+
+
+def phase8_card_vs_cpu(torch, engine, corpus, work, child):
+    """(d): on the corpus's first MiB, each scan model's container on the
+    card equals the port's on the CPU (``child``'s), byte for byte."""
+    data = corpus[:SCAN_CPU_BYTES]
+    out, _ = child.communicate(timeout=600)
+    check(child.returncode == 0, f"scan (d): the CPU child exited {child.returncode}")
+    cpu_s = {k: v for line in out.splitlines() for k, v in json.loads(line).items()}
+    for model in SCAN_MODELS:
+        card, card_ms = sync_time(torch, lambda: engine.compress_bytes(
+            data, model_id=model, block_size=4096))
+        with open(os.path.join(work, model + ".cpu.lac"), "rb") as f:
+            cpu = f.read()
+        check(card == cpu, f"scan (d) {model}: the card's container is not the CPU's")
+        print(f"scan (d) {model}, block 4096, the first {len(data)} bytes: the card's container "
+              f"({len(card)} bytes, crc32 {zlib.crc32(card)}) equals the CPU's; encode "
+              f"{card_ms / 1e3:.2f} s on the card, {cpu_s[model]:.2f} s on the CPU (4 threads, "
+              f"beside (a)-(c))", flush=True)
+
+
+def phase8(torch, T, cli, container, engine, lm_api, lm_engine, ttrain, rk, A, smoke, root,
+           work, corpus, dev, smi, float_bpb6):
+    """Phase 8, the token alphabet and the scan codecs, (a)-(e);
+    ``float_bpb6``: phase 4 (b)'s bits/byte, or None."""
+    with Phase("phase 8: the token alphabet and the scan codecs"):
+        rk.reset_launches()
+        A.reset_launches()
+        child = phase8_cpu_start(root, work, corpus)
+        try:
+            phase8_llama3(torch, T, lm_api, lm_engine, container, smi, dev)
+            phase8_tokens_are_bytes(torch, ttrain, lm_api, container, smoke, root, corpus,
+                                    float_bpb6)
+            phase8_scan(torch, cli, engine, container, smoke, corpus, work, smi)
+            phase8_card_vs_cpu(torch, engine, corpus, work, child)
+        finally:
+            if child.poll() is None:
+                child.kill()
+                child.wait()
+        counts = {**rk.launches, **A.launches}
+        print(f"tokens and scan (e) launches of K1-K12: {counts}", flush=True)
+        check(set(counts.values()) == {0},
+              "the token or scan path launched a TPU-kernel port")
+
+
 def path_kernels(codec: str) -> tuple:
     return (f"{codec}_intervals", "rans32_encode", f"{codec}_decode")
 
@@ -1707,17 +1981,25 @@ def main() -> int:
         print(smi)
         print(device_line(torch))
         return 0
-    if sys.argv[1:] == ["--det8"]:
+    # one phase alone: --det8 (phase 7, its float comparisons against smoke's
+    # goldens) and --phase8
+    alone = {
+        "--det8": lambda work, smi: phase7(
+            torch, T, cli, container, detmath, quantize, lm_engine, step_graph, ttrain, rk, A,
+            smoke, root, work, smoke.smoke_corpus(smoke.LM_BPB_BYTES), torch.device("cuda", 0),
+            smi, smoke.GOLDEN_LM_BPB, smoke.GOLDEN_SLIDE16_BPB, None),
+        "--phase8": lambda work, smi: phase8(
+            torch, T, cli, container, engine, lm_api, lm_engine, ttrain, rk, A, smoke, root, work,
+            smoke.smoke_corpus(), torch.device("cuda", 0), smi, None),
+    }
+    if len(sys.argv) == 2 and sys.argv[1] in alone:
         smi = nvidia_smi_line()
         print(f"nvidia-smi: {smi}")
         work = os.path.join(root, "smoke_work")
         shutil.rmtree(work, ignore_errors=True)
         os.makedirs(work)
         try:
-            phase7(torch, T, cli, container, detmath, quantize, lm_engine, step_graph, ttrain,
-                   rk, A, smoke, root, work, smoke.smoke_corpus(smoke.LM_BPB_BYTES),
-                   torch.device("cuda", 0), smi, smoke.GOLDEN_LM_BPB, smoke.GOLDEN_SLIDE16_BPB,
-                   None)
+            alone[sys.argv[1]](work, smi)
         finally:
             shutil.rmtree(work, ignore_errors=True)
         print(smi)
@@ -1901,6 +2183,8 @@ def main() -> int:
 
         phase7(torch, T, cli, container, detmath, quantize, lm_engine, step_graph, ttrain, rk,
                A, smoke, root, work, corpus, dev, smi, bpb_b, bpb16, float_ring)
+        phase8(torch, T, cli, container, engine, lm_api, lm_engine, ttrain, rk, A, smoke, root,
+               work, corpus, dev, smi, bpb_b)
 
         library_ms = {k: atimes[k]["library_ms"] for k in ATTN}
         kernels = [

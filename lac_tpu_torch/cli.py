@@ -1,12 +1,16 @@
 """Command-line interface: ``python -m lac_tpu_torch compress|decompress|info|verify|recover|train``.
 
-Ports ``lac_tpu/cli.py``: ``compress`` (:24-70; ``--model lm`` with every
+Ports ``lac_tpu/cli.py``: ``compress`` (:24-70; every ``--model`` id of
+:245-246: the turbo models order0n, order1n, order2n and order0c, the
+scan models order0, markov1, order0d, markov1d and markov1c, whose
+containers decode through ``runtime/engine.py``, and ``lm`` with every
 flag of :252-291 and the same defaults: ``prng:byte-12l:0``, block 512,
 64 lanes, prob_bits 16, cache_grow 128, window mode auto), ``decompress``
 (:73-90, an ``lm`` container to ``lm_decompress_bytes``), ``verify``
 (:93-108), ``recover`` (:109-149), ``info`` (:225-237) and ``train``
 (:183-222, arguments :310-322), with the same defaults (order0n, block
-4096, rate 4; train: byte-6l, 2000 steps, batch 32, seq 256, lr 3e-4).
+4096, rate 4, which reaches the turbo models only; train: byte-6l, 2000
+steps, batch 32, seq 256, lr 3e-4).
 The ``--device`` option picks the device; its default is ``cuda``, and the
 CPU runs only with ``--device cpu``. As in the reference, ``train`` leaves
 the fused attention off. ``--kv8`` and ``--w8`` (the int8 KV cache and
@@ -215,7 +219,8 @@ def main(argv=None) -> int:
     c.add_argument("file")
     c.add_argument("-o", "--output")
     c.add_argument("--model", default="order0n",
-                   help="model id: order0n, order1n, order2n, order0c or lm")
+                   help="model id: order0n (fast) / order1n / order2n (ratio; block>=4096) / "
+                        "order0c (turbo), order0/markov1[cd] (scan), lm")
     c.add_argument("--block-size", type=int, default=1 << 12)
     c.add_argument("--prob-bits", type=int, default=16)
     c.add_argument("--rate", type=int, default=4,

@@ -8,7 +8,9 @@ it inside its model loop) and ``rans_decode_scan``. Bit for bit the spec of
 independent streams held as tensor lanes on any device:
 
 - encode: one step per position in reverse time, at most one 32-bit word
-  emitted per lane per step, then each lane's words put in decode order;
+  emitted per lane per step (``utils/scan.py``'s loop: on the card a chunk
+  of 64 steps is one CUDA graph replay), then each lane's words put in
+  decode order;
 - decode: one step (the CDF slot search, the state update and the refill)
   that the LM engine runs inside its model loop.
 
@@ -27,6 +29,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..utils.scan import scan
 from .rans import RANS_L
 
 __all__ = [
@@ -51,29 +54,30 @@ def _encode_scan(cdf_lo: torch.Tensor, freq: torch.Tensor, lengths: torch.Tensor
     them: no per-step indexed write."""
     b, t_len = freq.shape
     dev = freq.device
-    active = torch.arange(t_len, device=dev)[None, :] < lengths.to(i64)[:, None]
-    # a position past a lane's length is never coded: give it f 1 so its
-    # (discarded) division is defined on every device
-    f_all = torch.where(active, freq.to(i64), 1)
-    lo_all = cdf_lo.to(i64)
-    x_max_all = ((RANS_L >> prob_bits) << 32) * f_all
     x = torch.full((b,), RANS_L, dtype=i64, device=dev)
-    emits = [torch.zeros((b,), dtype=torch.bool, device=dev)] * t_len
-    lows = [x] * t_len
-    for t in range(t_len - 1, -1, -1):
-        act, f = active[:, t], f_all[:, t]
-        emit = act & (x >= x_max_all[:, t])
-        emits[t], lows[t] = emit, x & _MASK32
-        x_ren = torch.where(emit, x >> 32, x)
-        x_new = ((x_ren // f) << prob_bits) + (x_ren % f) + lo_all[:, t]
-        x = torch.where(act, x_new, x)
     n_emit = torch.zeros((b,), dtype=i64, device=dev)
     body = torch.zeros((b, 0), dtype=i64, device=dev)
     if t_len:
-        emit_bt = torch.stack(emits, dim=1)
+        # [T, B], a step's lanes contiguous
+        active = torch.arange(t_len, device=dev)[:, None] < lengths.to(i64)[None, :]
+        # a position past a lane's length is never coded: give it f 1 so
+        # its (discarded) division is defined on every device
+        f_all = torch.where(active, freq.t().to(i64), 1)
+        x_max_all = ((RANS_L >> prob_bits) << 32) * f_all
+
+        def step(carry, xt):
+            (x,), (act, f, x_max, lo) = carry, xt
+            emit = act & (x >= x_max)
+            x_ren = torch.where(emit, x >> 32, x)
+            x_new = ((x_ren // f) << prob_bits) + (x_ren % f) + lo
+            return (torch.where(act, x_new, x),), (emit, x & _MASK32)
+
+        (x,), (emits, lows) = scan(step, (x,), (active, f_all, x_max_all,
+                                                cdf_lo.t().to(i64)), reverse=True)
+        emit_bt = emits.t()
         n_emit = emit_bt.sum(1)
         order = torch.sort((~emit_bt).to(torch.uint8), dim=1, stable=True).indices
-        body = torch.gather(torch.stack(lows, dim=1), 1, order)
+        body = torch.gather(lows.t(), 1, order)
         body = torch.where(torch.arange(t_len, device=dev)[None, :] < n_emit[:, None], body, 0)
     words = torch.cat([(x >> 32)[:, None], (x & _MASK32)[:, None], body], dim=1)
     if cap > words.shape[1]:

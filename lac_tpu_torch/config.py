@@ -15,9 +15,10 @@ __all__ = ["ByteCodingConfig", "LMCodingConfig"]
 
 @dataclass(frozen=True)
 class ByteCodingConfig:
-    """Byte-alphabet coding (turbo codecs)."""
+    """Byte-alphabet coding (turbo or scan codecs); ``rate`` reaches the
+    turbo models only, as in ``lac_tpu``."""
 
-    model_id: str = "order0n"     # order0n | order1n | order2n | order0c
+    model_id: str = "order0n"     # order0n/order1n/order2n/order0c (turbo) | order0 | markov1 ...
     block_size: int = 1 << 12     # bytes per independent block
     prob_bits: int = 16           # CDF quantization precision (2**prob_bits)
     rate: int = 4                 # adaptation rate base (turbo model)

@@ -69,12 +69,12 @@ import contextlib
 import dataclasses
 import zlib
 
-import numpy as np
 import torch
 
 from ..coder.vector import _encode_scan
 from ..models.transformer import LMConfig, Transformer, ensure_quantized, forward, init_cache
 from ..ops.quantize import cdf_from_freq, quantize_logits
+from ..utils.device import as_lanes
 from .step_graph import SegChunks, SegDecode, SegIntervals, _Runner, _step_cdf
 
 __all__ = [
@@ -273,19 +273,13 @@ def _schedule(run: _Runner, t_len: int, bucket: int, overlap: int) -> None:
         cache = _run_grown(cfg, cache, steps, grow if t0 == 0 else 0, run)
 
 
-def _as_tensor(a, dtype, device) -> torch.Tensor:
-    if isinstance(a, torch.Tensor):
-        return a.to(device=device, dtype=dtype)
-    return torch.from_numpy(np.ascontiguousarray(a)).to(device=device, dtype=dtype)
-
-
 def _encode(cfg: LMConfig, params: Transformer, tokens, lengths, prob_bits: int,
             cache_grow: int, mode: str, overlap: int):
     _check_grow(cache_grow)
     params = ensure_quantized(cfg, params)
     dev = _device(params)
-    tokens = _as_tensor(tokens, torch.int64, dev)
-    lengths = _as_tensor(lengths, torch.int64, dev)
+    tokens = as_lanes(tokens, dev)
+    lengths = as_lanes(lengths, dev)
     t_len = tokens.shape[1]
     with _coding(dev):
         runner = SegChunks if cfg.det8 else SegIntervals
@@ -299,8 +293,8 @@ def _decode(cfg: LMConfig, params: Transformer, words, lengths, prob_bits: int, 
     _check_grow(cache_grow)
     params = ensure_quantized(cfg, params)
     dev = _device(params)
-    words = _as_tensor(words, torch.int64, dev)
-    lengths = _as_tensor(lengths, torch.int64, dev)
+    words = as_lanes(words, dev)
+    lengths = as_lanes(lengths, dev)
     with _coding(dev):
         run = SegDecode(_step_cfg(cfg, t_len, mode), params, prob_bits, words, lengths, t_len)
         _schedule(run, t_len, cache_grow, overlap)

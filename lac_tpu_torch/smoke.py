@@ -78,12 +78,32 @@ of byte-16l (head dim 64, theta 10000) at the rope positions of phase 7's
 blocks, 4096 and the flagship's 16384: numpy's float64 ``cos`` and ``sin``
 on another machine could move an f32 value, and with it the card's
 containers. ``tests/test_torch_det8_golden.py`` recomputes all three.
+
+The scan codecs' goldens. ``GOLDEN_SCAN`` holds the crc32 and length of
+``lac_tpu``'s container of the 32 MiB corpus for each scan model at the
+CLI's block 4096, and for the API's default (order0, block 65536):
+``lac_tpu.runtime.engine.compress_bytes(smoke_corpus(), model_id=model,
+block_size=block)`` on the CPU (``JAX_PLATFORMS=cpu``). order0 and order0d
+ran as that one call; the three Markov models, whose state is ``[B, 256,
+256]`` or ``[B, 256, 257]`` int32 (2 GiB at 8,192 lanes), ran it on each
+4 MiB of the corpus in turn, their blocks joined under the whole corpus's
+header with ``lac_tpu.stream.container.write_container``: blocks are
+independent streams, so the container is the one call's. All six take
+about 20 minutes of CPU, most of it markov1's.
+``GOLDEN_SCAN_HEAD`` holds ``blocks_digest`` of each golden container's
+blocks that cover the corpus's first ``SCAN_HEAD_BYTES`` (256 KiB: 64
+blocks of 4096, 4 of 65536). ``tests/test_torch_golden.py`` recomputes
+``GOLDEN_SCAN`` in a test marked ``slow``, and in tier-1 holds
+``lac_tpu``'s and the port's containers of the first 256 KiB to
+``GOLDEN_SCAN_HEAD``; ``chip_smoke.py``'s phase 8 holds the card's
+containers to ``GOLDEN_SCAN``.
 """
 
 from __future__ import annotations
 
 import glob
 import os
+import struct
 import zlib
 
 import numpy as np
@@ -92,8 +112,8 @@ __all__ = ["SMOKE_BYTES", "GOLDEN", "GOLDEN_LM", "LM_CHECKPOINT", "GOLDEN_LM_BPB
            "LM_BPB_BYTES", "LM_CODING", "HELDOUT_BYTES", "HELDOUT_CRC", "GOLDEN_WINDOW_BPB",
            "WINDOW_BPB_BYTES", "WINDOW_CODING", "SLIDE16_CHECKPOINT", "GOLDEN_SLIDE16_BPB",
            "SLIDE16_BYTES", "SLIDE16_CODING", "GOLDEN_Q8_BPB", "GOLDEN_DET8_BPB",
-           "GOLDEN_DET8_PORT", "GOLDEN_DET8_ROPE", "smoke_corpus",
-           "container_digest",
+           "GOLDEN_DET8_PORT", "GOLDEN_DET8_ROPE", "GOLDEN_SCAN", "GOLDEN_SCAN_HEAD",
+           "SCAN_HEAD_BYTES", "smoke_corpus", "container_digest", "blocks_digest",
            "lm_windows", "heldout_slice"]
 
 SMOKE_BYTES = 32 << 20  # bench.py's corpus size
@@ -152,6 +172,27 @@ GOLDEN_DET8_PORT = (2799385139, 8750)
 # rope positions -> crc32 of byte-16l's det8 RoPE tables (cos, then sin)
 GOLDEN_DET8_ROPE = {4096: 3990392779, 16384: 573036838}
 
+# (model, block_size) -> (crc32, length) of lac_tpu's scan container of the
+# 32 MiB corpus, and blocks_digest of its blocks over the first
+# SCAN_HEAD_BYTES
+GOLDEN_SCAN = {
+    ("order0", 4096): (1709289346, 21414539),
+    ("markov1", 4096): (2323840015, 23478296),
+    ("order0d", 4096): (4003335388, 25622716),
+    ("markov1d", 4096): (2557422625, 19034685),
+    ("markov1c", 4096): (305506078, 18175849),
+    ("order0", 65536): (1633755414, 20532112),
+}
+SCAN_HEAD_BYTES = 256 << 10
+GOLDEN_SCAN_HEAD = {
+    ("order0", 4096): 2720804872,
+    ("markov1", 4096): 3356970471,
+    ("order0d", 4096): 4171034829,
+    ("markov1d", 4096): 819108436,
+    ("markov1c", 4096): 2669889618,
+    ("order0", 65536): 1258696629,
+}
+
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _HELDOUT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data",
                         "heldout_slice.bin")
@@ -175,6 +216,17 @@ def smoke_corpus(n: int = SMOKE_BYTES, root: str = _REPO) -> bytes:
 
 def container_digest(container: bytes) -> tuple[int, int]:
     return zlib.crc32(container), len(container)
+
+
+def blocks_digest(blocks) -> int:
+    """crc32 over each block's raw length and token count (little-endian
+    u32) and its payload, in order: the blocks of a container, whatever its
+    header."""
+    crc = 0
+    for b in blocks:
+        crc = zlib.crc32(struct.pack("<II", b.raw_len, b.token_count), crc)
+        crc = zlib.crc32(b.payload, crc)
+    return crc
 
 
 def lm_windows(root: str = _REPO) -> np.ndarray:

@@ -7,9 +7,10 @@ device. Here every public entry point takes ``device=None``, which means
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-__all__ = ["resolve_device"]
+__all__ = ["resolve_device", "as_lanes"]
 
 
 def resolve_device(device=None) -> torch.device:
@@ -24,3 +25,11 @@ def resolve_device(device=None) -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+def as_lanes(a, device: torch.device) -> torch.Tensor:
+    """A lane array (numpy or tensor: symbols, words, lengths) as an int64
+    tensor on ``device``."""
+    if isinstance(a, torch.Tensor):
+        return a.to(device=device, dtype=torch.int64)
+    return torch.from_numpy(np.ascontiguousarray(a, dtype=np.int64)).to(device)

@@ -774,3 +774,59 @@ def test_det8_cpu_container_decodes_on_the_card(cuda, tmp_path):
     model = load_checkpoint(os.path.join(root, smoke.LM_CHECKPOINT))
     assert lm_api.lm_decompress_bytes(cpu, model=model) == data
     assert lm_api.lm_compress_bytes(data, model=model, **kw) == cpu
+
+
+@pytest.mark.parametrize("model", ["order0", "markov1", "order0d", "markov1d", "markov1c"])
+def test_scan_container_on_the_card_equals_the_cpus(cuda, model):
+    """The scan codecs are integer-exact: the card writes the CPU's
+    container, and each decodes the other's."""
+    from lac_tpu_torch.smoke import smoke_corpus
+
+    data = smoke_corpus(20000)
+    card = engine.compress_bytes(data, model_id=model, block_size=4096)
+    assert card == engine.compress_bytes(data, model_id=model, block_size=4096, device="cpu")
+    assert engine.decompress_bytes(card) == data
+    assert engine.decompress_blocks(card, [4, 0]) == [data[16384:], data[:4096]]
+
+
+def test_token_round_trip_on_the_card_at_prob_bits_18(cuda):
+    """Ids above 65,535 (vocab 70,000: prob_bits 18, raw >u4) round-trip
+    through lm_compress_tokens on the card."""
+    from lac_tpu_torch.models import transformer as T
+    from lac_tpu_torch.runtime import lm_api
+    from lac_tpu_torch.stream.container import read_container
+
+    cfg = T.tiny_config(vocab=70000, max_seq=64)
+    model = (cfg, T.init_params(cfg, 1, device=cuda))
+    ids = np.random.default_rng(0).integers(0, 70000, 130).astype(np.int32)
+    ids[0] = 69999
+    c = lm_api.lm_compress_tokens(ids, "prng:x:0", block_tokens=64, lanes=4, model=model)
+    assert np.array_equal(lm_api.lm_decompress_tokens(c, model=model), ids)
+    header, blocks = read_container(c)
+    assert header.prob_bits == 18 and header.config["vocab"] == 70000
+    # a block of 2 ids: its two state words are no shorter than 2 raw ids
+    assert blocks[-1].token_count == 0 and blocks[-1].payload == ids[-2:].astype(">u4").tobytes()
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+def test_chunked_scan_replays_equal_the_cpus(cuda, reverse):
+    """utils.scan's chunks as CUDA graph replays give the CPU's carry and
+    outputs: a table written in place, a new tensor each step, a tail."""
+    from lac_tpu_torch.utils.scan import CHUNK, scan
+
+    n = 5 * CHUNK + 7
+    xs = torch.from_numpy(np.random.default_rng(3).integers(0, 5, (n, 3)))
+
+    def step(carry, x):
+        table, acc = carry
+        table[torch.arange(3, device=table.device), x[0]] += 1
+        acc = acc * 3 + table.sum(1) + x[0]
+        return (table, acc), (acc % 7, table[:, 0] * 2)
+
+    got = []
+    for dev in ("cpu", cuda):
+        carry = (torch.zeros((3, 5), dtype=torch.int64, device=dev),
+                 torch.zeros(3, dtype=torch.int64, device=dev))
+        carry, ys = scan(step, carry, (xs.to(dev),), reverse=reverse)
+        got.append([t.cpu() for t in (*carry, *ys)])
+    assert all(torch.equal(a, b) for a, b in zip(*got, strict=True))

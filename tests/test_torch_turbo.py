@@ -169,7 +169,8 @@ def test_engine_decode_parses_the_container_once(monkeypatch):
 
 
 def test_unported_models_and_codecs_raise():
-    """The scan model order0 and a block size off the 256 grid raise; order0c
+    """A block size off the 256 grid raises; the API's default, the scan
+    model order0 at block 65536, round-trips with lac_tpu's container; order0c
     containers, and the order0c fallback of order0n and order1n, are
     byte-identical to lac_tpu's both ways."""
     data = smoke_corpus(3000)
@@ -184,8 +185,10 @@ def test_unported_models_and_codecs_raise():
         assert ours == ref
         assert engine.decompress_bytes(ref, device=CPU) == data
         assert native_decompress(ours) == data
-    with pytest.raises(NotImplementedError):
-        engine.compress_bytes(data, model_id="order0", device=CPU)
+    ours = engine.compress_bytes(data, device=CPU)
+    assert ours == ref_engine.compress_bytes(data)
+    assert read_container(ours)[0].model_id == "order0"
+    assert engine.decompress_bytes(ours, device=CPU) == data
     with pytest.raises(ValueError):
         turbo.turbo_compress(data, block_size=1000, device=CPU)
 
