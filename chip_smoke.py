@@ -2,11 +2,12 @@ import faulthandler; faulthandler.dump_traceback_later(1150, exit=True)  # noqa:
 
 # Drive lac_tpu_torch's main path on one CUDA card and check it.
 #
-#   python3 chip_smoke.py              phases 0-8
+#   python3 chip_smoke.py              phases 0-9
 #   python3 chip_smoke.py --flagship   the flagship schedules alone (below)
 #   python3 chip_smoke.py --det8       phase 7 alone (its float comparisons
 #                                      against smoke's goldens)
 #   python3 chip_smoke.py --phase8     phase 8 alone
+#   python3 chip_smoke.py --phase9     phase 9 alone
 #
 # Phase 0  the card's name and power limit; build the CUDA kernels; the
 #          launch shapes of the order0n (K1, K3), order1n (K4, K5) and
@@ -163,6 +164,30 @@ import faulthandler; faulthandler.dump_traceback_later(1150, exit=True)  # noqa:
 #          models' containers on the card equal to the port's on the CPU
 #          (a child process with no card codes them while (a)-(c) run);
 #          (e) no launch of K1-K12.
+# Phase 9  multi-device (slice 16; torch.distributed, one rank per device):
+#          (a) two ranks share the one card over gloo (two processes on one
+#          card, not a multi-chip figure): compress_distributed then
+#          decompress_distributed of the 32 MiB corpus at block 1024 with
+#          order0n, order1n, order2n and order0c, each rank coding its span
+#          of blocks through K1-K9: each rank's container's crc32 and length
+#          against smoke.GOLDEN, the round trip exact, each rank's launches
+#          of its codec's three kernels (every one above 0), seconds a side;
+#          (b) lm_compress_distributed / lm_decompress_distributed at world 2:
+#          byte-16l at full width at smoke.SLIDE16_CODING with 4 lanes (the
+#          flagship's; at 64 every rank's wave costs 4,096 steps of 10.5 ms
+#          whatever the slice) on the held-out slice's first 16 KiB (4
+#          blocks, 2 a rank), the container equal byte for byte to the
+#          single-process one on the card (lm_api.lm_compress_bytes); det8 on
+#          byte-6l at smoke.LM_CODING on the corpus's first 32 KiB, equal to
+#          smoke.GOLDEN_DET8_PORT; both round trips; (c) world size 1 over
+#          NCCL in this process: the CLI's compress --model lm --mesh-data 1
+#          --mesh-model 1 with (b)'s byte-16l settings (a one-rank group):
+#          the header's geometry, the round trip, the block payloads equal to
+#          (b)'s single-process container's; a 1 x 1 mesh's all-reduces (sum
+#          and max, parallel.shard.TP) on the card, eager and captured in a
+#          CUDA graph; byte-16l trained 4 steps (batch 8 x seq 256) with the
+#          1 x 1 mesh and without, losses equal bit for bit; (d) no launch of
+#          K1-K12 in (b) and (c).
 #
 # --flagship: the shipped flagship configuration (bench.py: byte-16l, block
 # 65536, 4 lanes, overlap 8, slide, slide_seg 512) on the whole held-out
@@ -185,6 +210,7 @@ import shutil
 import subprocess
 import sys
 import time
+import warnings
 import zlib
 
 import numpy as np
@@ -1938,6 +1964,261 @@ def phase8(torch, T, cli, container, engine, lm_api, lm_engine, ttrain, rk, A, s
               "the token or scan path launched a TPU-kernel port")
 
 
+# phase 9 (b)'s byte-16l coding: smoke.SLIDE16_CODING at the flagship's 4 lanes
+DIST_LM_LANES = 4
+DIST_LM_BYTES = 16 << 10
+DIST_TRAIN = dict(steps=4, batch=8, seq=256, lr=3e-4, seed=0, log_every=1)
+DIST_RANKS = 2
+DIST_RANK_S = 600  # a rank's own hang guard (its collectives' timeout)
+
+# one rank of phase 9 (a) and (b): argv rank, the checkout, the work dir,
+# (b)'s byte-16l coding (JSON), its hang guard in seconds, (b)'s bytes;
+# joins a two-rank group (file:// rendezvous in the work dir; gloo for the
+# gathers' CPU tensors, NCCL for CUDA tensors, which these paths never
+# reduce), runs (a) then (b) and writes <work>/phase9.r<rank>.json; rank 0
+# also writes (b)'s float container to <work>/dist-float.lac
+PHASE9_RANK = """
+import faulthandler, json, os, sys, time, zlib
+faulthandler.dump_traceback_later(float(sys.argv[5]), exit=True)
+rank, root, work = int(sys.argv[1]), sys.argv[2], sys.argv[3]
+sys.path.insert(0, root)
+import torch
+from lac_tpu_torch import smoke
+from lac_tpu_torch.ops import attention as A
+from lac_tpu_torch.ops import rans_kernels as rk
+from lac_tpu_torch.parallel.distributed import distributed_init
+from lac_tpu_torch.runtime import dist as D
+coding = json.loads(sys.argv[4])
+distributed_init("file://" + os.path.join(work, "rdv9"), 2, rank, timeout=float(sys.argv[5]))
+res = {"rank": rank, "device": torch.cuda.get_device_name(), "a": {}, "b": {}}
+corpus = smoke.smoke_corpus()
+for model in ("order0n", "order1n", "order2n", "order0c"):
+    rk.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    c = D.compress_distributed(corpus, block_size=1024, model=model)
+    t1 = time.perf_counter()
+    out = D.decompress_distributed(c)
+    t2 = time.perf_counter()
+    res["a"][model] = {"crc": zlib.crc32(c), "len": len(c), "exact": out == corpus,
+                       "enc_s": t1 - t0, "dec_s": t2 - t1, "launches": dict(rk.launches)}
+rk.reset_launches()
+A.reset_launches()
+runs = {"float": (smoke.heldout_slice()[: int(sys.argv[6])], smoke.SLIDE16_CHECKPOINT, coding,
+                  {}),
+        "det8": (corpus[: smoke.LM_BPB_BYTES], smoke.LM_CHECKPOINT, smoke.LM_CODING,
+                 {"det8": True})}
+for mode, (data, ckpt, kw, extra) in runs.items():
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    c = D.lm_compress_distributed(data, model_ref="file:" + ckpt, **kw, **extra)
+    t1 = time.perf_counter()
+    out = D.lm_decompress_distributed(c)
+    t2 = time.perf_counter()
+    res["b"][mode] = {"crc": zlib.crc32(c), "len": len(c), "exact": out == data,
+                      "bytes": len(data), "enc_s": t1 - t0, "dec_s": t2 - t1}
+    if rank == 0 and mode == "float":
+        with open(os.path.join(work, "dist-float.lac"), "wb") as f:
+            f.write(c)
+res["b_launches"] = {**rk.launches, **A.launches}
+with open(os.path.join(work, "phase9.r%d.json" % rank), "w") as f:
+    json.dump(res, f)
+torch.distributed.destroy_process_group()
+"""
+
+
+def dist_lm_coding(smoke) -> dict:
+    return {**smoke.SLIDE16_CODING, "lanes": DIST_LM_LANES}
+
+
+def phase9_ranks(root, work, smoke):
+    """Start (a) and (b)'s two ranks on the card, their output in the work dir."""
+    coding = json.dumps(dist_lm_coding(smoke))
+    procs = []
+    for rank in range(DIST_RANKS):
+        log = open(os.path.join(work, f"phase9.r{rank}.log"), "w")
+        procs.append((subprocess.Popen(
+            [sys.executable, "-c", PHASE9_RANK, str(rank), root, work, coding, str(DIST_RANK_S),
+             str(DIST_LM_BYTES)], cwd=root, stdout=log, stderr=subprocess.STDOUT), log))
+    return procs
+
+
+def phase9_wait(procs, work) -> list:
+    """Wait for the ranks; a rank that fails fails the phase, with its log's end."""
+    results = []
+    for rank, (proc, log) in enumerate(procs):
+        try:
+            rc = proc.wait(timeout=DIST_RANK_S)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            log.close()
+        if rc != 0:
+            with open(os.path.join(work, f"phase9.r{rank}.log")) as f:
+                print(f.read()[-4000:], flush=True)
+        check(rc == 0, f"dist rank {rank} exited {rc}")
+        with open(os.path.join(work, f"phase9.r{rank}.json")) as f:
+            results.append(json.load(f))
+    return results
+
+
+def phase9_report(smoke, smi, results) -> None:
+    """(a) and (b)'s checks and numbers, from each rank's results."""
+    for model, c in CODECS.items():
+        for r in results:
+            got = r["a"][model]
+            digest = (got["crc"], got["len"])
+            path = {k: got["launches"][k] for k in path_kernels(c)}
+            print(f"dist (a) [{smi}] two processes on one card, rank {r['rank']}, {model} block "
+                  f"1024, 32 MiB: crc32 and length {digest} (golden "
+                  f"{smoke.GOLDEN[(model, 1024)]}), round trip "
+                  f"{'exact' if got['exact'] else 'WRONG'}, compress {got['enc_s']:.2f} s, "
+                  f"decompress {got['dec_s']:.2f} s, launches {path}", flush=True)
+            check(digest == smoke.GOLDEN[(model, 1024)],
+                  f"dist (a) {model}: rank {r['rank']}'s container {digest}")
+            check(got["exact"], f"dist (a) {model}: rank {r['rank']}'s round trip differs")
+            for name, n in path.items():
+                check(n > 0, f"dist (a) {model}: rank {r['rank']} launched {name} {n} times")
+    for r in results:
+        for mode, got in r["b"].items():
+            print(f"dist (b) [{smi}] two processes on one card, rank {r['rank']}, {mode}: "
+                  f"{got['bytes']} -> {got['len']} bytes (crc32 {got['crc']}), round trip "
+                  f"{'exact' if got['exact'] else 'WRONG'}, compress {got['enc_s']:.2f} s, "
+                  f"decompress {got['dec_s']:.2f} s", flush=True)
+            check(got["exact"], f"dist (b) {mode}: rank {r['rank']}'s round trip differs")
+        det8 = (r["b"]["det8"]["crc"], r["b"]["det8"]["len"])
+        check(det8 == smoke.GOLDEN_DET8_PORT,
+              f"dist (b) det8: rank {r['rank']}'s container {det8}, not {smoke.GOLDEN_DET8_PORT}")
+        check(set(r["b_launches"].values()) == {0},
+              f"dist (b): rank {r['rank']} launched {r['b_launches']}")
+    check(len({(r["b"]["float"]["crc"], r["b"]["float"]["len"]) for r in results}) == 1,
+          "dist (b) float: the ranks' containers differ")
+
+
+def phase9_nccl(torch, tp_cls, make_mesh, dist, dev, smi):
+    """(c)'s world-1 NCCL group: the 1 x 1 mesh's all-reduces on the card,
+    eagerly and captured in a CUDA graph, replayed on new values."""
+    mesh = make_mesh(1, 1)
+    tp = tp_cls(mesh.get_group("model"), 1)
+    x = torch.arange(-3.0, 5.0, device=dev)
+    want = x.clone()
+    check(torch.equal(tp.sum(x.clone()), want) and torch.equal(tp.max(x.clone()), want),
+          "nccl (c): a 1-rank all-reduce changed its input")
+    acc = torch.arange(12, dtype=torch.int32, device=dev)
+    stream = torch.cuda.Stream(dev)
+    stream.wait_stream(torch.cuda.current_stream(dev))
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.stream(stream), warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        tp.sum(acc)  # warm-up
+        with torch.cuda.graph(graph, stream=stream):
+            tp.sum(acc)
+            tp.max(x)
+    torch.cuda.current_stream(dev).wait_stream(stream)
+    empty = any("Graph is empty" in str(w.message) for w in caught)
+    acc.copy_(torch.arange(12, dtype=torch.int32, device=dev) * 7)
+    x.copy_(want * 2)
+    graph.replay()
+    torch.cuda.synchronize()
+    check(torch.equal(acc, torch.arange(12, dtype=torch.int32, device=dev) * 7)
+          and torch.equal(x, want * 2), "nccl (c): the graph's all-reduces changed values")
+    what = ("is empty (torch warns so): a one-rank all-reduce does no device work" if empty
+            else "holds work")
+    print(f"dist (c) [{smi}] world 1 over {dist.get_backend()}: a 1 x 1 mesh's int32 sum and f32 "
+          f"max all-reduces on the card, eager and captured in a CUDA graph, replayed: equal; "
+          f"the graph {what}", flush=True)
+    return mesh
+
+
+def phase9_cli(torch, cli, container_mod, smoke, work, smi, single) -> None:
+    """(c): the CLI with a 1 x 1 mesh on (b)'s byte-16l settings."""
+    kw = dist_lm_coding(smoke)
+    data = smoke.heldout_slice()[:DIST_LM_BYTES]
+    path = os.path.join(work, "mesh11.bin")
+    with open(path, "wb") as f:
+        f.write(data)
+    args = ["--model", "lm", "--model-ref", "file:" + smoke.SLIDE16_CHECKPOINT,
+            "--block-tokens", str(kw["block_tokens"]), "--lanes", str(kw["lanes"]),
+            "--overlap", str(kw["overlap"]), "--cache-grow", str(kw["cache_grow"]),
+            "--window-mode", kw["window_mode"], "--mesh-data", "1", "--mesh-model", "1"]
+    rc, enc_ms = sync_time(torch, lambda: cli.main(["compress", path, *args, "-o",
+                                                    path + ".lac"]))
+    check(rc == 0, "cli compress --mesh-data 1 --mesh-model 1")
+    rc, dec_ms = sync_time(torch, lambda: cli.main(["decompress", path + ".lac", "-o",
+                                                    path + ".out"]))
+    check(rc == 0, "cli decompress of the 1 x 1 mesh container")
+    with open(path + ".out", "rb") as f:
+        check(f.read() == data, "dist (c): the 1 x 1 mesh round trip differs")
+    with open(path + ".lac", "rb") as f:
+        header, blocks = container_mod.read_container(f.read())
+    check(header.config["mesh"] == {"data": 1, "model": 1},
+          f"dist (c): header mesh {header.config['mesh']}")
+    _, want = container_mod.read_container(single)
+    check([(b.raw_len, b.token_count, b.payload) for b in blocks]
+          == [(b.raw_len, b.token_count, b.payload) for b in want],
+          "dist (c): the 1 x 1 mesh's payloads differ from the meshless container's")
+    print(f"dist (c) [{smi}] cli --mesh-data 1 --mesh-model 1, byte-16l: header mesh "
+          f"{header.config['mesh']}, round trip equal, the {len(blocks)} payloads equal to the "
+          f"meshless container's; encode {enc_ms / 1e3:.2f} s, decode {dec_ms / 1e3:.2f} s",
+          flush=True)
+
+
+def phase9_train(ttrain, registry, mesh, corpus, smi) -> None:
+    """(c): byte-16l's 4 training steps with the 1 x 1 mesh and without."""
+    cfg = registry.PRESETS["byte-16l"]()
+    runs = {}
+    for name, m in (("mesh", mesh), ("none", None)):
+        t0 = time.perf_counter()
+        _, losses = ttrain.train_byte_lm(cfg, corpus, mesh=m, **DIST_TRAIN)
+        runs[name] = (losses, time.perf_counter() - t0)
+    print(f"dist (c) [{smi}] byte-16l training, {DIST_TRAIN['steps']} steps of batch "
+          f"{DIST_TRAIN['batch']} x seq {DIST_TRAIN['seq']}: losses with the 1 x 1 mesh "
+          f"{runs['mesh'][0]} ({runs['mesh'][1]:.2f} s), without {runs['none'][0]} "
+          f"({runs['none'][1]:.2f} s)", flush=True)
+    check(runs["mesh"][0] == runs["none"][0], "dist (c): the 1 x 1 mesh moved a training loss")
+
+
+def phase9(torch, cli, container, lm_api, ttrain, registry, rk, A, _build, smoke, root, work,
+           corpus, dev, smi):
+    """Phase 9, multi-device, (a)-(d)."""
+    import torch.distributed as dist
+
+    from lac_tpu_torch.parallel.mesh import make_mesh
+    from lac_tpu_torch.parallel.shard import TP
+
+    with Phase("phase 9: multi-device"):
+        _build.load_library()  # built before any rank starts
+        procs = phase9_ranks(root, work, smoke)
+        try:
+            results = phase9_wait(procs, work)
+        finally:
+            for proc, log in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        phase9_report(smoke, smi, results)
+        rk.reset_launches()
+        A.reset_launches()
+        kw = dist_lm_coding(smoke)
+        data = smoke.heldout_slice()[:DIST_LM_BYTES]
+        single, ms = sync_time(torch, lambda: lm_api.lm_compress_bytes(
+            data, model_ref="file:" + smoke.SLIDE16_CHECKPOINT, **kw))
+        with open(os.path.join(work, "dist-float.lac"), "rb") as f:
+            check(f.read() == single, "dist (b) float: the two ranks' container is not the "
+                                      "single-process one")
+        print(f"dist (b) [{smi}] byte-16l float at world 2 equals the single-process container "
+              f"on the card byte for byte ({len(single)} bytes; single-process encode "
+              f"{ms / 1e3:.2f} s)", flush=True)
+        phase9_cli(torch, cli, container, smoke, work, smi, single)
+        mesh = phase9_nccl(torch, TP, make_mesh, dist, dev, smi)
+        phase9_train(ttrain, registry, mesh, corpus, smi)
+        dist.destroy_process_group()
+        counts = {**rk.launches, **A.launches}
+        print(f"dist (d) launches of K1-K12 in (c): {counts}", flush=True)
+        check(set(counts.values()) == {0}, "the mesh path launched a TPU-kernel port")
+
+
 def path_kernels(codec: str) -> tuple:
     return (f"{codec}_intervals", "rans32_encode", f"{codec}_decode")
 
@@ -1982,7 +2263,7 @@ def main() -> int:
         print(device_line(torch))
         return 0
     # one phase alone: --det8 (phase 7, its float comparisons against smoke's
-    # goldens) and --phase8
+    # goldens), --phase8 and --phase9
     alone = {
         "--det8": lambda work, smi: phase7(
             torch, T, cli, container, detmath, quantize, lm_engine, step_graph, ttrain, rk, A,
@@ -1991,6 +2272,9 @@ def main() -> int:
         "--phase8": lambda work, smi: phase8(
             torch, T, cli, container, engine, lm_api, lm_engine, ttrain, rk, A, smoke, root, work,
             smoke.smoke_corpus(), torch.device("cuda", 0), smi, None),
+        "--phase9": lambda work, smi: phase9(
+            torch, cli, container, lm_api, ttrain, lm_registry, rk, A, _build, smoke, root, work,
+            smoke.smoke_corpus(), torch.device("cuda", 0), smi),
     }
     if len(sys.argv) == 2 and sys.argv[1] in alone:
         smi = nvidia_smi_line()
@@ -2185,6 +2469,8 @@ def main() -> int:
                A, smoke, root, work, corpus, dev, smi, bpb_b, bpb16, float_ring)
         phase8(torch, T, cli, container, engine, lm_api, lm_engine, ttrain, rk, A, smoke, root,
                work, corpus, dev, smi, bpb_b)
+        phase9(torch, cli, container, lm_api, ttrain, lm_registry, rk, A, _build, smoke, root,
+               work, corpus, dev, smi)
 
         library_ms = {k: atimes[k]["library_ms"] for k in ATTN}
         kernels = [

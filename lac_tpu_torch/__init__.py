@@ -16,7 +16,10 @@ stays as it is). It imports ``torch`` and NumPy, never JAX and nothing of
                 each beside its plain PyTorch version; the exact int8
                 products of the int8 LM modes (``int8.py``);
 - ``runtime`` - the turbo byte path, the scan engine, the LM coding engine
-                (its step as a CUDA graph) and the file-level APIs;
+                (its step as a CUDA graph), the file-level APIs and the
+                multi-process entry points;
+- ``parallel`` - multi-device in ``torch.distributed``: block spans and
+                gathers, the (data, model) mesh, tensor parallelism;
 - ``train``   - byte-LM training and the ``.npz`` checkpoint format;
 - ``cli``     - ``python -m lac_tpu_torch compress|decompress|info|verify|recover|train``.
 
@@ -27,8 +30,8 @@ default, markov1, order0d, markov1d and markov1c); training with its fused
 causal attention; and LM coding (``--model lm``) of bytes or token ids
 with the float forward, the int8 modes (``--kv8``, ``--w8``) and det8, for
 blocks within the model context and past it (the slide and reprime
-schedules), its step replayed as a CUDA graph on the card; see ROADMAP.md
-for the rest.
+schedules), its step replayed as a CUDA graph on the card; multi-device
+(SPMD, one rank per device); see ROADMAP.md for the rest.
 
 Importing the package sets ``CUBLAS_WORKSPACE_CONFIG`` (unless the caller
 has): cuBLAS reads it when its first call of the process sets up, and the

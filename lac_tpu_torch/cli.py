@@ -16,24 +16,52 @@ CPU runs only with ``--device cpu``. As in the reference, ``train`` leaves
 the fused attention off. ``--kv8`` and ``--w8`` (the int8 KV cache and
 int8 weights) code with ``--model lm``, alone or together, and ``--det8``
 (the integer-reduction forward, whose containers are the same on the CPU
-and on the card) alone. A mesh exits naming ROADMAP A13; ``bench`` is
-ROADMAP A3.
+and on the card) alone. ``--mesh-data`` / ``--mesh-model`` (:13-21, 45)
+code an LM on a (data, model) mesh: under ``torchrun`` they take the
+launched ranks (every rank runs the same command, rank 0 writes the
+output); without a launch, a 1 x 1 mesh starts a one-rank group, and any
+other refuses, naming ``torchrun --nproc-per-node``. ``decompress``
+rebuilds a float container's mesh the same way. ``bench`` is ROADMAP A3.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 import time
+
+
+def _make_mesh_arg(args):
+    """--mesh-data / --mesh-model -> a mesh, or None for the defaults (0 and
+    1: no mesh); ``MeshConfig`` resolves the geometry."""
+    if args.mesh_model == 1 and args.mesh_data == 0:
+        return None
+    from .config import MeshConfig
+
+    try:
+        return MeshConfig(data=args.mesh_data or -1, model=args.mesh_model).make(args.device)
+    except ValueError as e:
+        raise SystemExit(f"--mesh-data / --mesh-model: {e}") from e
+
+
+def _is_rank0() -> bool:
+    from .parallel.distributed import rank_and_size
+
+    return rank_and_size()[0] == 0
+
+
+def _write(dst: str, out: bytes) -> None:
+    """Rank 0 writes the output (every rank holds the same bytes)."""
+    if _is_rank0():
+        with open(dst, "wb") as f:
+            f.write(out)
 
 
 def _lm_compress(args, data: bytes) -> bytes:
     from .config import LMCodingConfig
     from .runtime.lm_api import lm_compress_bytes
 
-    if args.mesh_data != 0 or args.mesh_model != 1:
-        raise SystemExit("--mesh-data / --mesh-model are not ported to lac_tpu_torch yet "
-                         "(ROADMAP A13)")
     cfg = LMCodingConfig(
         model_ref=args.model_ref,
         block_tokens=args.block_tokens,
@@ -48,7 +76,8 @@ def _lm_compress(args, data: bytes) -> bytes:
         window_mode=args.window_mode,
         slide_seg=args.slide_seg,
     )
-    return lm_compress_bytes(data, device=args.device, **cfg.engine_kwargs())
+    return lm_compress_bytes(data, mesh=_make_mesh_arg(args), device=args.device,
+                             **cfg.engine_kwargs())
 
 
 def _cmd_compress(args) -> int:
@@ -70,13 +99,13 @@ def _cmd_compress(args) -> int:
         out = compress_bytes(data, device=args.device, **cfg.engine_kwargs())
     dt = time.perf_counter() - t0
     dst = args.output or args.file + ".lac"
-    with open(dst, "wb") as f:
-        f.write(out)
+    _write(dst, out)
     bpb = 8 * len(out) / max(1, len(data))
-    print(
-        f"{args.file}: {len(data)} -> {len(out)} bytes "
-        f"({bpb:.4f} bpb, {len(data) / dt / 1e6:.2f} MB/s) -> {dst}"
-    )
+    if _is_rank0():
+        print(
+            f"{args.file}: {len(data)} -> {len(out)} bytes "
+            f"({bpb:.4f} bpb, {len(data) / dt / 1e6:.2f} MB/s) -> {dst}"
+        )
     return 0
 
 
@@ -99,9 +128,10 @@ def _cmd_decompress(args) -> int:
     dst = args.output or (
         args.file[:-4] if args.file.endswith(".lac") else args.file + ".out"
     )
-    with open(dst, "wb") as f:
-        f.write(out)
-    print(f"{args.file}: {len(data)} -> {len(out)} bytes ({len(out) / dt / 1e6:.2f} MB/s) -> {dst}")
+    _write(dst, out)
+    if _is_rank0():
+        print(f"{args.file}: {len(data)} -> {len(out)} bytes "
+              f"({len(out) / dt / 1e6:.2f} MB/s) -> {dst}")
     return 0
 
 
@@ -250,9 +280,10 @@ def main(argv=None) -> int:
                    help="integer-reduction LM forward: the same container on the CPU and "
                         "the card (recorded in the container; not with --kv8 or --w8)")
     c.add_argument("--mesh-data", type=int, default=0,
-                   help="device mesh data-parallel span (ROADMAP A13)")
+                   help="device mesh data-parallel span (0 = no mesh / every rank left; "
+                        "lm only; ranks from torchrun --nproc-per-node)")
     c.add_argument("--mesh-model", type=int, default=1,
-                   help="device mesh tensor-parallel span (ROADMAP A13)")
+                   help="device mesh tensor-parallel span (lm only)")
     c.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     c.set_defaults(fn=_cmd_compress)
 
@@ -293,7 +324,18 @@ def main(argv=None) -> int:
     t.set_defaults(fn=_cmd_train)
 
     args = p.parse_args(argv)
-    return args.fn(args)
+    import torch.distributed as dist
+
+    from .parallel.distributed import distributed_init
+
+    had_group = dist.is_initialized()
+    if not had_group and int(os.environ.get("WORLD_SIZE", "1")) > 1 and hasattr(args, "device"):
+        distributed_init(device=args.device)  # a torchrun launch: join its ranks
+    try:
+        return args.fn(args)
+    finally:
+        if not had_group and dist.is_initialized():
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

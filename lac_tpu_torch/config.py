@@ -1,16 +1,15 @@
 """Configuration of the byte and LM coding paths.
 
-Ports ``ByteCodingConfig`` and ``LMCodingConfig`` of
-``lac_tpu/config.py:18-75``. Every field serialises to the container's
-config, so the two packages must agree on them. The mesh config comes with
-the multi-device slice (ROADMAP A13).
+Ports ``ByteCodingConfig``, ``LMCodingConfig`` and ``MeshConfig`` of
+``lac_tpu/config.py:18-87``. Every coding field serialises to the
+container's config, so the two packages must agree on them.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
 
-__all__ = ["ByteCodingConfig", "LMCodingConfig"]
+__all__ = ["ByteCodingConfig", "LMCodingConfig", "MeshConfig"]
 
 
 @dataclass(frozen=True)
@@ -66,3 +65,17 @@ class LMCodingConfig:
             "window_mode": self.window_mode,
             "slide_seg": self.slide_seg,
         }
+
+
+@dataclass(frozen=True)
+class MeshConfig:
+    """Device mesh geometry for the distributed entry points: ``data`` x ``model``
+    ranks of the process group (``parallel/mesh.py``)."""
+
+    data: int = -1    # -1: every rank the model dim leaves
+    model: int = 1    # tensor-parallel span
+
+    def make(self, device=None):
+        from .parallel.mesh import make_mesh
+
+        return make_mesh(data=self.data, model=self.model, device=device)

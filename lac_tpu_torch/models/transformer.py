@@ -118,6 +118,15 @@ S-token chunk and S serial steps.
   whose XLA rewrite is up to 1 ulp off the documented ``1 / sqrt``
   (ROADMAP C).
 
+Tensor parallelism (``parallel/shard.py``, the reference's GSPMD
+placements of ``lac_tpu/parallel/shard.py``): a sharded model's layers hold
+their rank's heads and ``d_ff`` columns and carry the ``model`` group
+(``Block.tp``). The forward reads the head counts from the projections'
+shapes; the row-parallel products ``wo`` and ``w_down`` all-reduce
+(``_row_dot``; under w8 and det8 the row maximum and the int32 product,
+exact); the cache holds the rank's KV heads (``kv_heads``). Unsharded, no
+collective runs and no op changes.
+
 Training-only fused attention: ``forward(..., fused=True)`` routes the
 attention of an MHA model (``n_heads == n_kv_heads``) through
 ``_FUSED["impl"]``: ``"bf16s"`` (the default, torch ops), ``"flash"``
@@ -153,6 +162,7 @@ __all__ = [
     "init_params_w8",
     "ensure_w8",
     "init_cache",
+    "kv_heads",
     "forward",
     "tiny_config",
     "GPT2_SMALL",
@@ -346,7 +356,11 @@ W8_KEYS = ("wq", "wk", "wv", "wo", "w_up", "w_gate", "w_down")
 
 class Block(nn.Module):
     """One layer: ``ln1``, ``ln2`` and the projections of ``_layer_shapes``
-    and ``_bias_shapes``; with ``w8``, each projection a ``W8``."""
+    and ``_bias_shapes``; with ``w8``, each projection a ``W8``. ``tp``: the
+    ``model`` group of a tensor-parallel slice (``parallel.shard.TP``), whose
+    row-parallel products (``wo``, ``w_down``) all-reduce; None unsharded."""
+
+    tp = None
 
     def __init__(self, cfg: LMConfig, dtype=None, device=None, w8: bool = False):
         super().__init__()
@@ -426,12 +440,16 @@ def init_params(cfg: LMConfig, seed: int = 0, device=None) -> Transformer:
     return model.to(device) if device is not None else model
 
 
-def _q8(x: torch.Tensor, dim: int):
+def _q8(x: torch.Tensor, dim: int, tp=None):
     """int8 quantization of f32 ``x`` with one max per slice along ``dim``
     (the reference's ``_q8``, :484-492): ``s = max(max |x|, 1e-30)``,
     ``q = round((x / s) * 127)``, one f32 division then one f32 multiply,
-    rounding half to even, as ``jnp.round``. Returns (q int8, s f32)."""
+    rounding half to even, as ``jnp.round``. Returns (q int8, s f32).
+    ``tp``: the slices are split over its ranks, and ``s`` is the whole
+    slice's maximum (an all-reduce MAX)."""
     s = x.abs().amax(dim, keepdim=True).clamp_min(1e-30)
+    if tp is not None:
+        s = tp.max(s)
     return torch.round(x / s * 127.0).to(torch.int8), s
 
 
@@ -518,16 +536,19 @@ def ensure_quantized(cfg: LMConfig, params: Transformer) -> Transformer:
     return ensure_det8(cfg, ensure_w8(cfg, params))
 
 
-def init_cache(cfg: LMConfig, batch: int, window: int | None = None, device=None) -> dict:
+def init_cache(cfg: LMConfig, batch: int, window: int | None = None, device=None,
+               kv_heads: int | None = None) -> dict:
     """KV cache over the context window: ``k`` and ``v`` ``[L, B, W, KVH,
     Dh]`` in ``cfg.dtype`` (zeros), or under kv8 in int8 with their per-row
     scales ``ks`` and ``vs`` ``[L, B, W, KVH, 1]`` f32, and ``pos``, the
     shared cursor (all lanes run lock-step), a 0-d int64 tensor on
     ``device``. ``window`` (default ``cfg.max_seq``, capped there) sizes
     the cache: every step reads all of it, so the coding engine sizes it to
-    the block or grows it; under slide it is the ring."""
+    the block or grows it; under slide it is the ring. ``kv_heads``: KVH
+    (default ``cfg.n_kv_heads``; a tensor-parallel slice's, ``kv_heads``)."""
     w = cfg.max_seq if window is None else min(window, cfg.max_seq)
-    shape = (cfg.n_layers, batch, w, cfg.n_kv_heads, cfg.head_dim)
+    kvh = cfg.n_kv_heads if kv_heads is None else kv_heads
+    shape = (cfg.n_layers, batch, w, kvh, cfg.head_dim)
     pos = torch.zeros((), dtype=torch.int64, device=device)
     if cfg.kv8:
         rows = shape[:-1] + (1,)
@@ -537,6 +558,13 @@ def init_cache(cfg: LMConfig, batch: int, window: int | None = None, device=None
                 "vs": torch.zeros(rows, dtype=f32, device=device), "pos": pos}
     return {"k": torch.zeros(shape, dtype=cfg.dtype, device=device),
             "v": torch.zeros(shape, dtype=cfg.dtype, device=device), "pos": pos}
+
+
+def kv_heads(cfg: LMConfig, params: Transformer) -> int:
+    """The KV heads that ``params`` holds: ``cfg.n_kv_heads``, or a
+    tensor-parallel slice's share of them."""
+    tp = params.layers[0].tp if len(params.layers) else None
+    return cfg.n_kv_heads // (tp.size if tp is not None else 1)
 
 
 def _cache_rows(cfg: LMConfig, k: torch.Tensor, v: torch.Tensor) -> dict:
@@ -684,13 +712,16 @@ def _dot_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return torch.matmul(x.float(), w.float())
 
 
-def _w8_dot(x: torch.Tensor, w: W8) -> torch.Tensor:
+def _w8_dot(x: torch.Tensor, w: W8, tp=None) -> torch.Tensor:
     """x [..., K] times an int8 weight -> f32 [..., N] (the reference's
     ``_w8_dot``, :530-550): x quantized per row, the exact int32 product
     (``ops.int8.int8_mm``), then ``(acc * sx) * s``, two f32 multiplies in
-    that grouping."""
-    xq, sx = _q8(x.float(), -1)
+    that grouping. ``tp``: K is split over its ranks (a row-parallel
+    weight): the row maximum and the int32 product are all-reduced, exact."""
+    xq, sx = _q8(x.float(), -1, tp)
     acc = int8_mm(xq.reshape(-1, xq.shape[-1]), w.q)
+    if tp is not None:
+        acc = tp.sum(acc)
     return (acc.to(f32).reshape(*x.shape[:-1], -1) * sx) * w.s
 
 
@@ -704,11 +735,14 @@ def _row_max(x: torch.Tensor) -> torch.Tensor:
     return x.abs().amax(-1, keepdim=True).clamp_min(1e-30)
 
 
-def _dual16(x: torch.Tensor):
+def _dual16(x: torch.Tensor, tp=None):
     """int16-precision dual-int8 row quantization over the last axis
     (:553-560): x ~= (256 hi + lo) s / 32512, hi in [-127, 127], lo in
-    [-128, 127]. Returns (hi, lo int8, s f32)."""
+    [-128, 127]. Returns (hi, lo int8, s f32). ``tp``: the rows are split
+    over its ranks, and ``s`` is the whole row's maximum (all-reduce MAX)."""
     s = _row_max(x)
+    if tp is not None:
+        s = tp.max(s)
     q = torch.round(x / s * 32512.0).to(torch.int32)
     hi = (q + 128) >> 8  # round-to-nearest high byte
     lo = q - (hi << 8)
@@ -722,15 +756,19 @@ def _dual_acc(acc: torch.Tensor, m: int) -> torch.Tensor:
     return acc[..., :m, :].float() * 256.0 + acc[..., m:, :].float()
 
 
-def _det_dot8_parts(x: torch.Tensor, w: D8):
+def _det_dot8_parts(x: torch.Tensor, w: D8, tp=None):
     """x [..., K] times a det8 weight (:582-586) as its two f32 factors
     ``(dual, sx * (sw * _DUAL_K))`` [..., N]: x in dual-int8 rows, hi and lo
     against the int8 weight in one exact product (``ops.int8.int8_mm``, the
-    two stacked along M)."""
-    hi, lo, sx = _dual16(x.float())
+    two stacked along M). ``tp``: K is split over its ranks (a row-parallel
+    weight): the row maximum and the int32 product are all-reduced before
+    any rounding, so the result is the unsplit one bit for bit."""
+    hi, lo, sx = _dual16(x.float(), tp)
     k = x.shape[-1]
     m = hi.numel() // k
     acc = int8_mm(torch.cat([hi.reshape(m, k), lo.reshape(m, k)]), w.q)
+    if tp is not None:
+        acc = tp.sum(acc)
     return _dual_acc(acc, m).reshape(*x.shape[:-1], -1), sx * w.s
 
 
@@ -741,23 +779,25 @@ def _det_dot8(x: torch.Tensor, w: D8) -> torch.Tensor:
     return dual * scale
 
 
-def _det_proj(cfg: LMConfig, x: torch.Tensor, w: D8, b) -> torch.Tensor:
+def _det_proj(cfg: LMConfig, x: torch.Tensor, w: D8, b, tp=None) -> torch.Tensor:
     """``_det_dot8`` plus the bias in f32, where the model has biases
     (:791-794, :825-828, :953-956, :964-966): ``fma32(dual, scale, b)``,
-    since XLA fuses the product into the add."""
+    since XLA fuses the product into the add. ``tp``: as ``_det_dot8_parts``."""
+    dual, scale = _det_dot8_parts(x, w, tp)
     if not cfg.use_bias:
-        return _det_dot8(x, w)
-    return fma32(*_det_dot8_parts(x, w), b.float())
+        return dual * scale
+    return fma32(dual, scale, b.float())
 
 
-def _det_out(cfg: LMConfig, x: torch.Tensor, w: D8, b):
-    """A layer's last product (``wo``, ``w_down``), which the residual add
-    takes: ``_act`` of ``_det_proj``, or, where ``_act`` rounds nothing (an
-    f32 model) and no bias comes between, its two factors, for the add to
-    fuse the product as XLA does (``_residual``)."""
+def _det_out(cfg: LMConfig, x: torch.Tensor, w: D8, b, tp=None):
+    """A layer's last product (``wo``, ``w_down``, row-parallel under
+    ``tp``), which the residual add takes: ``_act`` of ``_det_proj``, or,
+    where ``_act`` rounds nothing (an f32 model) and no bias comes between,
+    its two factors, for the add to fuse the product as XLA does
+    (``_residual``)."""
     if cfg.dtype == f32 and b is None:
-        return _det_dot8_parts(x, w)
-    return _act(cfg, _det_proj(cfg, x, w, b))
+        return _det_dot8_parts(x, w, tp)
+    return _act(cfg, _det_proj(cfg, x, w, b, tp))
 
 
 def _residual(cfg: LMConfig, x: torch.Tensor, h) -> torch.Tensor:
@@ -902,10 +942,11 @@ def _fused_prefill(cfg: LMConfig, q, k, v, scale):
 
 def _qkv(cfg: LMConfig, p: Block, x: torch.Tensor):
     """The layer's projections of x [B, S, D]: q [B, S, H, Dh], k and v
-    [B, S, KVH, Dh], in cfg.dtype."""
+    [B, S, KVH, Dh], in cfg.dtype (H and KVH: a tensor-parallel slice's
+    share of the heads)."""
     b, s, _ = x.shape
 
-    def proj(w, bias_name, heads):
+    def proj(w, bias_name):
         if cfg.det8:
             y = _act(cfg, _det_proj(cfg, x, getattr(p, w), getattr(p, bias_name, None)))
         elif cfg.w8:
@@ -915,19 +956,28 @@ def _qkv(cfg: LMConfig, p: Block, x: torch.Tensor):
             y = _dot(x, _c(cfg, getattr(p, w)))
             if cfg.use_bias:
                 y = y + _c(cfg, getattr(p, bias_name))
-        return y.reshape(b, s, heads, cfg.head_dim)
+        return y.reshape(b, s, -1, cfg.head_dim)  # the heads this rank holds
 
-    return proj("wq", "bq", cfg.n_heads), proj("wk", "bk", cfg.n_kv_heads), \
-        proj("wv", "bv", cfg.n_kv_heads)
+    return proj("wq", "bq"), proj("wk", "bk"), proj("wv", "bv")
+
+
+def _row_dot(cfg: LMConfig, x: torch.Tensor, w: torch.Tensor, tp) -> torch.Tensor:
+    """``_dot`` of a row-parallel weight: unsharded itself; under ``tp`` the
+    rank's partial product in f32, summed over the ranks in f32, rounded
+    once to ``cfg.dtype`` (``parallel/shard.py``)."""
+    if tp is None:
+        return _dot(x, w)
+    return tp.sum(_dot_f32(x, w)).to(cfg.dtype)
 
 
 def _out_proj(cfg: LMConfig, p: Block, out: torch.Tensor) -> torch.Tensor:
-    """The attention output [B, S, H*Dh] through ``wo``."""
+    """The attention output [B, S, H*Dh] through ``wo`` (row-parallel
+    under ``p.tp``)."""
     if cfg.det8:
-        return _det_out(cfg, out, p.wo, getattr(p, "bo", None))
+        return _det_out(cfg, out, p.wo, getattr(p, "bo", None), p.tp)
     if cfg.w8:
-        return _bias_f32(cfg, _w8_dot(out, p.wo), getattr(p, "bo", None)).to(cfg.dtype)
-    y = _dot(out, _c(cfg, p.wo))
+        return _bias_f32(cfg, _w8_dot(out, p.wo, p.tp), getattr(p, "bo", None)).to(cfg.dtype)
+    y = _row_dot(cfg, out, _c(cfg, p.wo), p.tp)
     if cfg.use_bias:
         y = y + _c(cfg, p.bo)
     return y
@@ -938,8 +988,8 @@ def _attention(cfg: LMConfig, p: Block, x: torch.Tensor, fused: bool = False,
     """One layer's causal self-attention over the block (prefill); with a
     ``cache``, the block's K/V also go into the layer's slice at 0..S-1."""
     b, s, _ = x.shape
-    h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     q, k, v = _qkv(cfg, p, x)
+    h, kvh, hd = q.shape[2], k.shape[2], cfg.head_dim
     if cfg.pos_embedding == "rope":
         positions = torch.arange(s, dtype=torch.int32, device=x.device)
         q = _rope(cfg, q, positions)
@@ -1049,9 +1099,9 @@ def _attention_cached(cfg: LMConfig, p: Block, x: torch.Tensor, cache: dict, lay
     the causal mask of the fresh scores [R*S, S], or None at S 1, where it
     keeps everything. ``slots``: [S] cache slots of the call's tokens."""
     b, s, _ = x.shape
-    h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     slice_ = {key: t[layer] for key, t in cache.items() if key != "pos"}
     q, k, v = _qkv(cfg, p, x)
+    h, kvh, hd = q.shape[2], k.shape[2], cfg.head_dim
     if rope is not None:  # q and k rotated as one tensor: the same values
         q, k = _rope_apply(cfg, torch.cat([q, k], dim=2), *rope).split([h, kvh], dim=2)
     scale = _scale_f32(hd)
@@ -1084,14 +1134,14 @@ def _mlp(cfg: LMConfig, p: Block, x: torch.Tensor) -> torch.Tensor:
             up = _act(cfg, det_silu(_det_dot8(x, p.w_gate)) * up)
         else:
             up = _act(cfg, det_gelu_tanh(up))
-        return _det_out(cfg, up, p.w_down, getattr(p, "b_down", None))
+        return _det_out(cfg, up, p.w_down, getattr(p, "b_down", None), p.tp)
     if cfg.w8:  # (:967-978) f32 between the products, one cast before w_down
         up = _bias_f32(cfg, _w8_dot(x, p.w_up), getattr(p, "b_up", None))
         if cfg.act == "silu_glu":
             up = F.silu(_w8_dot(x, p.w_gate)) * up
         else:
             up = F.gelu(up, approximate="tanh")
-        y = _w8_dot(up.to(cfg.dtype), p.w_down)
+        y = _w8_dot(up.to(cfg.dtype), p.w_down, p.tp)
         return _bias_f32(cfg, y, getattr(p, "b_down", None)).to(cfg.dtype)
     up = _dot(x, _c(cfg, p.w_up))
     if cfg.use_bias:
@@ -1101,7 +1151,7 @@ def _mlp(cfg: LMConfig, p: Block, x: torch.Tensor) -> torch.Tensor:
         up = (F.silu(gate) * up).to(cfg.dtype)  # up widened to f32 in the product
     else:
         up = F.gelu(up.float(), approximate="tanh").to(cfg.dtype)
-    y = _dot(up, _c(cfg, p.w_down))
+    y = _row_dot(cfg, up, _c(cfg, p.w_down), p.tp)
     if cfg.use_bias:
         y = y + _c(cfg, p.b_down)
     return y

@@ -26,9 +26,25 @@ decoder refuses the other alphabet's containers, ``recover`` (through
 
 The kv8, w8 and det8 forwards code through every call (``kv8``, ``w8``,
 ``det8``; the header records them, and a decoder resolves the container's
-modes, as the reference's :272-274). A ``mesh`` raises, naming ROADMAP
-A13. Entry points run on the card unless the caller passes
-``device="cpu"``.
+modes, as the reference's :272-274). Entry points run on the card unless
+the caller passes ``device="cpu"``.
+
+Meshes (the reference's ``_mesh_geometry``, ``_prepare_mesh`` and
+``_reconstruct_mesh``, :58-113): every rank of the mesh's process group
+makes the same call (SPMD, ``parallel/``). The model is sharded
+tensor-parallel over ``model`` (``parallel.shard.shard_params``, after
+quantization), and each ``data`` rank codes its share of each wave's
+lanes (``parallel.shard.lane_share``); before the container is written,
+the coded blocks (in decode, the decoded symbols) are gathered over the
+``data`` dim (``_gather_lanes``: ``parallel.distributed.allgather_lists``
+over gloo), so every rank returns the whole container. The header records
+the geometry ``{"data": d, "model": m}``. Float CDFs depend on it, so a
+float container decodes only on its geometry: on a mesh of it, or,
+without one, on a process group of ``d * m`` ranks (a 1 x 1 mesh starts a
+one-rank group); a float container coded without a mesh refuses a mesh.
+det8's bits do not depend on the geometry, so a det8 container decodes on
+any mesh or none. The fingerprint's probe runs on the sharded model, so
+it certifies the tensor-parallel numerics too.
 """
 
 from __future__ import annotations
@@ -41,6 +57,9 @@ import torch
 from ..coder.rans import encode_capacity
 from ..models.lm_registry import resolve_lm
 from ..models.transformer import LMConfig, Transformer, ensure_quantized
+from ..parallel.distributed import allgather_lists, pack_block, rank_and_size, unpack_block
+from ..parallel.mesh import make_mesh, mesh_geometry
+from ..parallel.shard import Lanes, lane_share, shard_params
 from ..stream.container import (CODEC_RANS64, BlockEntry, ContainerHeader, read_container,
                                 scan_container, write_container)
 from ..utils.device import resolve_device
@@ -60,10 +79,45 @@ __all__ = [
     "auto_prob_bits",
 ]
 
-def _no_mesh(mesh) -> None:
+def _mesh_geometry(mesh) -> dict | None:
+    return None if mesh is None else mesh_geometry(mesh)
+
+
+def _prepare_mesh(mesh, cfg: LMConfig, params: Transformer, lanes: int):
+    """(this rank's slice of ``params``, its ``Lanes``), or (``params``,
+    None) without a mesh."""
+    if mesh is None:
+        return params, None
+    dev = params.embed.device
+    if mesh.device_type != dev.type:
+        raise ValueError(f"the mesh is on {mesh.device_type}, the model on {dev}")
+    share = lane_share(mesh, lanes)  # refuses lanes the data dim does not divide
+    return shard_params(mesh, cfg, params), share
+
+
+def _reconstruct_mesh(geom: dict | None, mesh, dev: torch.device):
+    """The decode mesh for a float container's recorded encode geometry:
+    ``mesh`` checked against it, or one built on the process group (the
+    launched ranks, or a one-rank group for 1 x 1)."""
+    if geom is None:
+        if mesh is not None:
+            raise ValueError(
+                "container was encoded without a mesh; decoding on a mesh is not "
+                "bit-compatible (LM CDFs are mesh-dependent)")
+        return None
     if mesh is not None:
-        raise NotImplementedError(
-            "LM coding on a device mesh is not ported to lac_tpu_torch yet (ROADMAP A13)")
+        have = mesh_geometry(mesh)
+        if have != geom:
+            raise ValueError(f"decode mesh {have} != encode mesh {geom}")
+        return mesh
+    need = geom["data"] * geom["model"]
+    _, ranks = rank_and_size()
+    if ranks != need:
+        raise ValueError(
+            f"container was encoded on a {geom['data']}x{geom['model']} mesh; this process "
+            f"group has {ranks} rank(s): decode on {need} (torchrun --nproc-per-node {need}; "
+            "LM CDFs are mesh-dependent)")
+    return make_mesh(geom["data"], geom["model"], device=dev)
 
 
 def _cfg_for_det8(cfg: LMConfig, det8: bool, decoding: bool = False, kv8: bool = False,
@@ -149,11 +203,11 @@ def _compress(symbols, tokens: bool, model_ref: str, block_tokens: int, lanes: i
               w8: bool, cache_grow: int, window_mode: str, slide_seg, device) -> bytes:
     """One owner of both alphabets' encode (``lm_compress_bytes`` and
     ``lm_compress_tokens``)."""
-    _no_mesh(mesh)
     dev = resolve_device(device)
     cfg, params = _model_on(model, model_ref, max_seq, dev)
     cfg = _cfg_for_det8(cfg, det8, kv8=kv8, w8=w8)
     params = ensure_quantized(cfg, params)  # once for the call, not once a wave
+    params, share = _prepare_mesh(mesh, cfg, params, lanes)
     window_mode = _resolve_window_mode(window_mode, cfg)
     slide_seg = _resolve_slide_seg(slide_seg, window_mode, cfg, block_tokens)
     if tokens:
@@ -168,7 +222,7 @@ def _compress(symbols, tokens: bool, model_ref: str, block_tokens: int, lanes: i
         BlockEntry(*t)
         for t in encode_lm_span(cfg, params, symbols, 0, nblocks, block_tokens, lanes,
                                 prob_bits, overlap, cache_grow=cache_grow,
-                                window_mode=window_mode)
+                                window_mode=window_mode, share=share)
     ]
     config = {
         "model_ref": model_ref,
@@ -177,7 +231,7 @@ def _compress(symbols, tokens: bool, model_ref: str, block_tokens: int, lanes: i
         "lanes": lanes,
         "overlap": overlap,
         "fingerprint": fingerprint,
-        "mesh": None,
+        "mesh": _mesh_geometry(mesh),
         "det8": bool(cfg.det8),
         "kv8": bool(cfg.kv8),
         "w8": bool(cfg.w8),
@@ -260,9 +314,9 @@ def lm_compress_tokens(
 def _lm_decode_setup(header: ContainerHeader, model, mesh, dev: torch.device,
                      alphabet: str = "bytes"):
     """Decode-side setup: refuse another alphabet's container, resolve the
-    model, check the forward mode, the vocab (tokens) and the fingerprint
-    against the container's config."""
-    _no_mesh(mesh)
+    model and the mesh, check the forward mode, the vocab (tokens) and the
+    fingerprint against the container's config. Returns (cfg, params, this
+    rank's ``Lanes`` or None)."""
     c = header.config
     if header.model_id != "lm" or header.codec != CODEC_RANS64:
         raise ValueError("not an LM container")
@@ -271,38 +325,41 @@ def _lm_decode_setup(header: ContainerHeader, model, mesh, dev: torch.device,
             raise ValueError("container holds a token-alphabet stream; use "
                              "lm_decompress_tokens")
         raise ValueError("container holds a byte-alphabet stream; use lm_decompress_bytes")
-    if c.get("mesh") is not None and not c.get("det8"):
-        raise NotImplementedError(
-            f"the container was coded on a {c['mesh']} mesh; meshes are not ported to "
-            "lac_tpu_torch yet (ROADMAP A13)")
+    if not c.get("det8"):  # float CDFs are mesh-dependent: replay the encode mesh
+        mesh = _reconstruct_mesh(c.get("mesh"), mesh, dev)
     cfg, params = _model_on(model, c["model_ref"], c["max_seq"], dev)
     cfg = _cfg_for_det8(cfg, bool(c.get("det8")), decoding=True, kv8=bool(c.get("kv8")),
                         w8=bool(c.get("w8")))
     if alphabet == "tokens" and cfg.vocab != c["vocab"]:
         raise ValueError(f"model vocab {cfg.vocab} != container vocab {c['vocab']}")
     params = ensure_quantized(cfg, params)
+    params, share = _prepare_mesh(mesh, cfg, params, c["lanes"])
     fp = lm_fingerprint(cfg, params, header.prob_bits, int(c.get("cache_grow", 0)),
                         int(c.get("slide_seg", 0)))
     if fp != c["fingerprint"]:
         raise ValueError(
             "model fingerprint mismatch: decoder weights/stack differ from the "
             f"encoder's (got {fp}, container has {c['fingerprint']})")
-    return cfg, params
+    return cfg, params, share
 
 
-def _decode_blocks(cfg, params, header, blocks, ngood: int, sym_dtype=np.uint8) -> bytes:
+def _decode_blocks(cfg, params, share, header, blocks, ngood: int,
+                   sym_dtype=np.uint8) -> bytes:
     c = header.config
     parts = decode_lm_span(
         cfg, params, blocks, 0, ngood, c["block_tokens"], c["lanes"], header.prob_bits,
         c["overlap"], sym_dtype=sym_dtype, cache_grow=int(c.get("cache_grow", 0)),
-        window_mode=c.get("window_mode", "reprime"))
+        window_mode=c.get("window_mode", "reprime"), share=share)
     return b"".join(parts)
 
 
 def lm_decompress_bytes(container: bytes, model=None, mesh=None, device=None) -> bytes:
+    """Inverse of ``lm_compress_bytes``. ``mesh``: the encode geometry's
+    mesh (a float container without one builds it on the process group; a
+    det8 container decodes on any)."""
     header, blocks = read_container(container)
-    cfg, params = _lm_decode_setup(header, model, mesh, resolve_device(device))
-    out = _decode_blocks(cfg, params, header, blocks, len(blocks))
+    cfg, params, share = _lm_decode_setup(header, model, mesh, resolve_device(device))
+    out = _decode_blocks(cfg, params, share, header, blocks, len(blocks))
     if len(out) != header.original_len:
         raise ValueError("decoded length mismatch")
     return out
@@ -311,9 +368,10 @@ def lm_decompress_bytes(container: bytes, model=None, mesh=None, device=None) ->
 def lm_decompress_tokens(container: bytes, model=None, mesh=None, device=None) -> np.ndarray:
     """Inverse of ``lm_compress_tokens``: the int32 token id array."""
     header, blocks = read_container(container)
-    cfg, params = _lm_decode_setup(header, model, mesh, resolve_device(device), "tokens")
+    cfg, params, share = _lm_decode_setup(header, model, mesh, resolve_device(device),
+                                          "tokens")
     rdt = _raw_dtype(cfg.vocab)
-    out = np.frombuffer(_decode_blocks(cfg, params, header, blocks, len(blocks), rdt),
+    out = np.frombuffer(_decode_blocks(cfg, params, share, header, blocks, len(blocks), rdt),
                         dtype=rdt).astype(np.int32)
     if out.size != header.original_len:
         raise ValueError("decoded length mismatch")
@@ -344,9 +402,9 @@ def lm_decompress_prefix(container: bytes, model=None, mesh=None, device=None):
     original_len}. Raises only when nothing is decodable (unparseable
     header, wrong model or fingerprint)."""
     header, blocks, bad = scan_container(container)
-    cfg, params = _lm_decode_setup(header, model, mesh, resolve_device(device))
+    cfg, params, share = _lm_decode_setup(header, model, mesh, resolve_device(device))
     ngood = bad[0] if bad else len(blocks)
-    out = _decode_blocks(cfg, params, header, blocks, ngood) if ngood else b""
+    out = _decode_blocks(cfg, params, share, header, blocks, ngood) if ngood else b""
     report = {
         "ok": not bad and len(out) == header.original_len,
         "recovered_blocks": ngood,
@@ -358,9 +416,35 @@ def lm_decompress_prefix(container: bytes, model=None, mesh=None, device=None):
     return out, report
 
 
+def _own(share: Lanes | None, lanes: int, nb: int) -> range:
+    """The lanes of a wave of ``nb`` blocks that this rank codes."""
+    lo, n = (0, lanes) if share is None else (share.lo, share.n)
+    return range(lo, min(lo + n, nb))
+
+
+def _gather_lanes(mine: dict, start: int, end: int, lanes: int, share: Lanes | None) -> list:
+    """Blocks [start, end) of every ``data`` rank, in block order: ``mine``
+    maps this rank's block indices to their bytes, and the gather runs over
+    ``share.group`` (slot i of a rank's list: wave ``i // n``, its lane
+    ``lo + i % n``)."""
+    if share is None or share.group is None:
+        return [mine[b] for b in range(start, end)]
+    waves = range(start, end, lanes)
+    slots = [mine.get(w0 + share.lo + i, b"") for w0 in waves for i in range(share.n)]
+    got = allgather_lists(slots, len(slots), share.group)
+    out = {}
+    for r, items in enumerate(got):
+        for i, item in enumerate(items):
+            b = waves[i // share.n] + r * share.n + i % share.n
+            if b < end:
+                out[b] = item
+    return [out[b] for b in range(start, end)]
+
+
 def encode_lm_span(cfg: LMConfig, params: Transformer, data, start: int, end: int,
                    block_tokens: int, lanes: int, prob_bits: int, overlap: int,
-                   cache_grow: int = 0, window_mode: str = "reprime"):
+                   cache_grow: int = 0, window_mode: str = "reprime",
+                   share: Lanes | None = None):
     """Encode blocks [start, end) of ``data`` (bytes, or a 1-D int array of
     token ids) in fixed-shape waves of ``lanes`` on the parameters' device;
     returns ``[(raw_len, token_count, payload)]`` in block order
@@ -368,80 +452,90 @@ def encode_lm_span(cfg: LMConfig, params: Transformer, data, start: int, end: in
     shorter than the block's raw symbols: bytes, or ids as
     ``_raw_dtype(cfg.vocab)``). One-wave pipeline: wave i+1 is dispatched
     before wave i's words are fetched (CUDA launches are asynchronous, so
-    the card runs ahead while the host packs)."""
+    the card runs ahead while the host packs). ``share``: on a mesh, this
+    rank codes its ``Lanes`` of each wave and the blocks are gathered over
+    ``data`` (every rank returns all of them)."""
     if isinstance(data, (bytes, bytearray, memoryview)):
         arr, rdt = np.frombuffer(data, dtype=np.uint8), np.dtype(np.uint8)
     else:
         arr, rdt = np.ascontiguousarray(data, dtype=np.int32), _raw_dtype(cfg.vocab)
     n = len(arr)
     dev = params.embed.device
-    out: list[tuple[int, int, bytes]] = []
+    width = lanes if share is None else share.n
+    mine: dict[int, bytes] = {}
 
-    def finish(w0: int, nb: int, words_d, nwords_d) -> None:
+    def finish(w0: int, own: range, words_d, nwords_d) -> None:
         words, nwords = words_d.cpu().numpy(), nwords_d.cpu().numpy()
-        for j in range(nb):
+        for j in own:
+            i = j - own.start
             s0 = (w0 + j) * block_tokens
             length = min(block_tokens, n - s0)
-            payload = words[j, : nwords[j]].astype(">u4").tobytes()
+            payload = words[i, : nwords[i]].astype(">u4").tobytes()
             if len(payload) >= length * rdt.itemsize and length > 0:
-                out.append((length, 0, arr[s0 : s0 + length].astype(rdt).tobytes()))
+                payload, count = arr[s0 : s0 + length].astype(rdt).tobytes(), 0
             else:
-                out.append((length, length, payload))
+                count = length
+            mine[w0 + j] = pack_block(length, count, payload)
 
     pending = None
     for w0 in range(start, end, lanes):
-        nb = min(lanes, end - w0)
-        tokens = np.zeros((lanes, block_tokens), dtype=np.int64)
-        lengths = np.zeros((lanes,), dtype=np.int64)
-        for j in range(nb):
+        own = _own(share, lanes, min(lanes, end - w0))
+        if not own:
+            continue
+        tokens = np.zeros((width, block_tokens), dtype=np.int64)
+        lengths = np.zeros((width,), dtype=np.int64)
+        for j in own:
             chunk = arr[(w0 + j) * block_tokens : (w0 + j + 1) * block_tokens]
-            tokens[j, : len(chunk)] = chunk
-            lengths[j] = len(chunk)
+            tokens[j - own.start, : len(chunk)] = chunk
+            lengths[j - own.start] = len(chunk)
         words_d, nwords_d = lm_encode_windowed(
             cfg, params, torch.from_numpy(tokens).to(dev), torch.from_numpy(lengths).to(dev),
             prob_bits, overlap, cache_grow, mode=window_mode)
         if pending is not None:
             finish(*pending)
-        pending = (w0, nb, words_d, nwords_d)
+        pending = (w0, own, words_d, nwords_d)
     if pending is not None:
         finish(*pending)
-    return out
+    return [unpack_block(b) for b in _gather_lanes(mine, start, end, lanes, share)]
 
 
 def decode_lm_span(cfg: LMConfig, params: Transformer, blocks, start: int, end: int,
                    block_tokens: int, lanes: int, prob_bits: int, overlap: int,
                    sym_dtype=np.uint8, cache_grow: int = 0,
-                   window_mode: str = "reprime") -> list[bytes]:
+                   window_mode: str = "reprime", share: Lanes | None = None) -> list[bytes]:
     """Decode container blocks [start, end); returns their symbols packed as
     ``sym_dtype`` (uint8 for the byte alphabet, ``_raw_dtype(vocab)`` for
     the token alphabet: the encoder's raw packing) in block order, with the
-    encoder's wave pipeline."""
+    encoder's wave pipeline and lane ``share``."""
     cap = encode_capacity(block_tokens)
     dev = params.embed.device
-    parts: list[bytes] = [b""] * (end - start)
+    width = lanes if share is None else share.n
+    mine: dict[int, bytes] = {}
 
-    def finish(w0: int, nb: int, syms_d) -> None:
+    def finish(w0: int, own: range, syms_d) -> None:
         syms = None if syms_d is None else syms_d.cpu().numpy()
-        for j in range(nb):
+        for j in own:
             blk = blocks[w0 + j]
             if blk.token_count == 0 and blk.raw_len > 0:
-                parts[w0 + j - start] = blk.payload
+                mine[w0 + j] = blk.payload
             else:
-                parts[w0 + j - start] = syms[j, : blk.token_count].astype(sym_dtype).tobytes()
+                mine[w0 + j] = syms[j - own.start, : blk.token_count].astype(sym_dtype).tobytes()
 
     pending = None
     for w0 in range(start, end, lanes):
-        nb = min(lanes, end - w0)
-        words = np.zeros((lanes, cap), dtype=np.int64)
-        lengths = np.zeros((lanes,), dtype=np.int64)
+        own = _own(share, lanes, min(lanes, end - w0))
+        if not own:
+            continue
+        words = np.zeros((width, cap), dtype=np.int64)
+        lengths = np.zeros((width,), dtype=np.int64)
         any_coded = False
-        for j in range(nb):
+        for j in own:
             blk = blocks[w0 + j]
             if blk.token_count == 0 and blk.raw_len > 0:
                 continue
             w = np.frombuffer(blk.payload, dtype=">u4")
-            words[j, : len(w)] = w
-            lengths[j] = blk.token_count
+            words[j - own.start, : len(w)] = w
+            lengths[j - own.start] = blk.token_count
             any_coded = True
         syms_d = None
         if any_coded:
@@ -450,7 +544,7 @@ def decode_lm_span(cfg: LMConfig, params: Transformer, blocks, start: int, end: 
                 prob_bits, block_tokens, overlap, cache_grow, mode=window_mode)
         if pending is not None:
             finish(*pending)
-        pending = (w0, nb, syms_d)
+        pending = (w0, own, syms_d)
     if pending is not None:
         finish(*pending)
-    return parts
+    return _gather_lanes(mine, start, end, lanes, share)

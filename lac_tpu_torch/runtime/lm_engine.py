@@ -72,7 +72,8 @@ import zlib
 import torch
 
 from ..coder.vector import _encode_scan
-from ..models.transformer import LMConfig, Transformer, ensure_quantized, forward, init_cache
+from ..models.transformer import (LMConfig, Transformer, ensure_quantized, forward, init_cache,
+                                  kv_heads)
 from ..ops.quantize import cdf_from_freq, quantize_logits
 from ..utils.device import as_lanes
 from .step_graph import SegChunks, SegDecode, SegIntervals, _Runner, _step_cdf
@@ -146,7 +147,7 @@ def _grow_cache(cfg: LMConfig, cache: dict, new_w: int) -> dict:
     ``v``, and kv8's ``ks`` and ``vs``) at the front, and its ``pos``
     tensor."""
     k = cache["k"]
-    grown = init_cache(cfg, k.shape[1], new_w, device=k.device)
+    grown = init_cache(cfg, k.shape[1], new_w, device=k.device, kv_heads=k.shape[3])
     for key, val in cache.items():
         if key != "pos":
             grown[key][:, :, : k.shape[2]] = val
@@ -252,18 +253,19 @@ def _schedule(run: _Runner, t_len: int, bucket: int, overlap: int) -> None:
     ``bucket`` (0: one fixed width); past it the ring (slide) or the
     re-prime schedule of ``overlap``."""
     cfg, b, dev = run.cfg, run.lanes, run.device
+    kvh = kv_heads(cfg, run.params)
     if t_len <= cfg.max_seq:
-        cache = init_cache(cfg, b, _first_width(t_len, bucket), device=dev)
+        cache = init_cache(cfg, b, _first_width(t_len, bucket), device=dev, kv_heads=kvh)
         _run_grown(cfg, cache, t_len, bucket, run)
         return
     if cfg.slide:  # the ring is max_seq wide from the first step: no growth
-        run.steps(init_cache(cfg, b, device=dev), t_len)
+        run.steps(init_cache(cfg, b, device=dev, kv_heads=kvh), t_len)
         return
     segs, keep = window_schedule(t_len, cfg.max_seq, overlap)
     # growth in the first window only (a re-prime fills keep slots, so later
     # windows need the full width), and only where it ends on the window
     grow = bucket if (bucket and cfg.max_seq % bucket == 0) else 0
-    cache = init_cache(cfg, b, grow or None, device=dev)
+    cache = init_cache(cfg, b, grow or None, device=dev, kv_heads=kvh)
     for t0, steps, reprime in segs:
         if reprime:
             cdf, cache = _reprime_cdf(cfg, run.params, run.symbols[:, t0 - keep : t0],
@@ -370,7 +372,7 @@ def lm_fingerprint(cfg: LMConfig, params: Transformer, prob_bits: int, cache_gro
     containers."""
     params = ensure_quantized(cfg, params)
     dev = _device(params)
-    cache = init_cache(cfg, 1, device=dev)
+    cache = init_cache(cfg, 1, device=dev, kv_heads=kv_heads(cfg, params))
     with _coding(dev):
         bos = torch.full((1,), cfg.bos_id, dtype=torch.int64, device=dev)
         cdf, _ = _step_cdf(cfg, params, cache, bos, prob_bits)

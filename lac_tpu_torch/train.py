@@ -2,8 +2,7 @@
 
 Ports ``lac_tpu/train.py``: ``lm_loss`` (:33-50), ``train_byte_lm``
 (:53-186) and the checkpoint format, ``save_checkpoint`` and
-``load_checkpoint`` (:196-269). The ``mesh`` argument waits for the
-multi-device slice (ROADMAP A13).
+``load_checkpoint`` (:196-269).
 
 What is the reference's and must stay so:
 
@@ -18,7 +17,14 @@ What is the reference's and must stay so:
 - the batches: ``np.random.default_rng(seed).integers(0, len - seq - 1,
   size=batch)`` each step, so both packages see the same windows;
 - the loss list holds only the logged steps; eval windows, save-best and
-  its ``max_seq`` cap as the reference has them.
+  its ``max_seq`` cap as the reference has them;
+- with a ``mesh`` (:100-130), data parallelism: every rank of the mesh
+  holds the whole f32 master copy, draws the same batch and trains on its
+  ``data`` share of the rows (eval windows too); the gradients are
+  all-reduced to their mean over ``data`` before AdamW, so the replicas
+  stay equal, and the logged and eval losses are the ``data`` ranks'
+  mean. Rank 0 writes the save-best checkpoint. At one ``data`` rank no
+  collective runs and every step is the meshless one bit for bit.
 
 Checkpoints are one ``.npz``: the params pytree flattened to
 ``a/b/c`` keys, bf16 stored as uint16 bit patterns listed in the
@@ -36,6 +42,8 @@ import math
 
 import numpy as np
 import torch
+
+import torch.distributed as dist
 
 from .convert import lm_params_from_jax, lm_params_to_jax
 from .models.transformer import LMConfig, Transformer, forward, init_params
@@ -88,13 +96,44 @@ def _cast(cfg: LMConfig, model: Transformer, dtype: torch.dtype) -> Transformer:
     return out
 
 
-def _step(cfg, master, opt, toks, lr_now: float, fused: bool) -> torch.Tensor:
-    """One update of ``master`` at learning rate ``lr_now``; the batch's loss."""
+class _DataParallel:
+    """A mesh's ``data`` dim for training: this rank's rows of a batch and
+    the mean over the ranks."""
+
+    def __init__(self, mesh):
+        from .parallel.mesh import mesh_geometry
+
+        self.size = mesh_geometry(mesh)["data"]
+        self.rank = mesh.get_local_rank("data")
+        self.group = mesh.get_group("data")
+
+    def rows(self, a: np.ndarray) -> np.ndarray:
+        """This rank's share of a batch's rows (axis 0)."""
+        if len(a) % self.size:
+            raise ValueError(f"batch {len(a)} must divide by mesh data axis ({self.size})")
+        per = len(a) // self.size
+        return a[self.rank * per : (self.rank + 1) * per]
+
+    def mean_(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` replaced, in place, by its mean over the ranks."""
+        if self.size > 1:
+            dist.all_reduce(t, group=self.group)
+            t.div_(self.size)
+        return t
+
+
+def _step(cfg, master, opt, toks, lr_now: float, fused: bool, dp=None) -> torch.Tensor:
+    """One update of ``master`` at learning rate ``lr_now``; the batch's loss
+    (with ``dp``, this rank's rows; the gradients averaged over the ranks
+    before the update)."""
     for group in opt.param_groups:
         group["lr"] = lr_now
     opt.zero_grad(set_to_none=True)
     loss = lm_loss(cfg, master, toks, fused=fused)
     loss.backward()
+    if dp is not None:
+        for p in master.parameters():
+            dp.mean_(p.grad)
     opt.step()
     return loss.detach()
 
@@ -109,6 +148,7 @@ def train_byte_lm(
     seed: int = 0,
     warmup: int = 100,
     log_every: int = 0,
+    mesh=None,
     eval_corpus: bytes | None = None,
     eval_every: int = 0,
     eval_batches: int = 8,
@@ -131,8 +171,14 @@ def train_byte_lm(
     and at the last, and (with ``save_best_path``) the best-so-far params
     are saved there, their config's ``max_seq`` capped at ``save_max_seq``
     (default: the training sequence length): RoPE positions past the
-    training length degrade (``lac_tpu/train.py:80-91``)."""
+    training length degrade (``lac_tpu/train.py:80-91``).
+
+    ``mesh``: a (data, model) mesh (``parallel.make_mesh``) to train
+    data-parallel over its ``data`` dim (module docstring); ``batch``
+    must divide by it."""
     dev = resolve_device(device)
+    dp = None if mesh is None else _DataParallel(mesh)
+    lead = dp is None or dist.get_rank() == 0  # the rank that prints and saves
     if cfg.vocab < 256:
         raise ValueError("byte LM needs vocab >= 256")
     if seq + 1 > cfg.max_seq:
@@ -164,8 +210,9 @@ def train_byte_lm(
         tot = 0.0
         with torch.no_grad():
             for eb in eval_windows:
-                toks = torch.from_numpy(eb).to(dev)
-                tot += float(lm_loss(cfg, master, toks, fused=fused_attn))
+                toks = torch.from_numpy(eb if dp is None else dp.rows(eb)).to(dev)
+                loss = lm_loss(cfg, master, toks, fused=fused_attn)
+                tot += float(loss if dp is None else dp.mean_(loss))
         return tot / len(eval_windows)
 
     arr = np.frombuffer(corpus, dtype=np.uint8)
@@ -177,18 +224,21 @@ def train_byte_lm(
     for i in range(steps):
         starts = rng.integers(0, len(arr) - seq - 1, size=batch)
         toks = np.stack([arr[s : s + seq + 1] for s in starts]).astype(np.int32)
-        loss = _step(cfg, master, opt, torch.from_numpy(toks).to(dev), sched(i), fused_attn)
+        if dp is not None:
+            toks = dp.rows(toks)
+        loss = _step(cfg, master, opt, torch.from_numpy(toks).to(dev), sched(i), fused_attn, dp)
         if log_every and (i % log_every == 0 or i == steps - 1):
-            l = float(loss)
+            l = float(loss if dp is None else dp.mean_(loss))
             losses.append(l)
-            print(f"step {i:6d}  loss {l:.4f}  ({l / np.log(2):.3f} bits/byte)",
-                  flush=True)
+            if lead:
+                print(f"step {i:6d}  loss {l:.4f}  ({l / np.log(2):.3f} bits/byte)",
+                      flush=True)
         if eval_windows is not None and ((i + 1) % eval_every == 0 or i == steps - 1):
             ev = run_eval()
             marker = ""
             if ev < best_eval:
                 best_eval = ev
-                if save_best_path:
+                if save_best_path and lead:
                     cap = save_max_seq or min(cfg.max_seq, seq)
                     save_checkpoint(
                         save_best_path,
@@ -196,8 +246,9 @@ def train_byte_lm(
                         _cast(cfg, master, cfg.dtype),
                     )
                     marker = f" -> saved {save_best_path}"
-            print(f"step {i:6d}  EVAL {ev:.4f}  ({ev / np.log(2):.3f} bits/byte)"
-                  f"{marker}", flush=True)
+            if lead:
+                print(f"step {i:6d}  EVAL {ev:.4f}  ({ev / np.log(2):.3f} bits/byte)"
+                      f"{marker}", flush=True)
     return _cast(cfg, master, cfg.dtype), losses
 
 

@@ -830,3 +830,53 @@ def test_chunked_scan_replays_equal_the_cpus(cuda, reverse):
         carry, ys = scan(step, carry, (xs.to(dev),), reverse=reverse)
         got.append([t.cpu() for t in (*carry, *ys)])
     assert all(torch.equal(a, b) for a, b in zip(*got, strict=True))
+
+
+def test_world_one_nccl_mesh_on_the_card(cuda):
+    """A 1 x 1 mesh on the card starts a one-rank group whose CUDA tensors
+    go over NCCL: the tensor-parallel all-reduces (parallel.shard.TP) leave
+    their input as it is, eagerly and replayed from a CUDA graph; an LM
+    container on the mesh has the meshless one's blocks and decodes."""
+    import torch.distributed as dist
+
+    from lac_tpu_torch.models import transformer as T
+    from lac_tpu_torch.parallel import make_mesh
+    from lac_tpu_torch.parallel.shard import TP
+    from lac_tpu_torch.runtime import lm_api
+    from lac_tpu_torch.stream.container import read_container
+
+    assert not dist.is_initialized()
+    try:
+        mesh = make_mesh(1, 1)
+        assert "nccl" in dist.get_backend()
+        tp = TP(mesh.get_group("model"), 1)
+        x = torch.arange(-3.0, 5.0, device=cuda)
+        acc = torch.arange(12, dtype=torch.int32, device=cuda)
+        assert torch.equal(tp.max(x.clone()), x) and torch.equal(tp.sum(acc.clone()), acc)
+        stream = torch.cuda.Stream()
+        stream.wait_stream(torch.cuda.current_stream())
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.stream(stream):
+            tp.sum(acc)
+            with torch.cuda.graph(graph, stream=stream):
+                tp.sum(acc)
+                tp.max(x)
+        torch.cuda.current_stream().wait_stream(stream)
+        acc.mul_(7)
+        x.mul_(2)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(acc, torch.arange(12, dtype=torch.int32, device=cuda) * 7)
+        assert torch.equal(x, torch.arange(-3.0, 5.0, device=cuda) * 2)
+        cfg = T.tiny_config(max_seq=64)
+        model = (cfg, T.init_params(cfg, 0, device=cuda))
+        data = bytes(np.resize(np.frombuffer(b"mesh of one rank " * 8, np.uint8), 300))
+        kw = dict(block_tokens=60, lanes=4, cache_grow=16, model=model)
+        c = lm_api.lm_compress_bytes(data, "prng:tiny:0", mesh=mesh, **kw)
+        plain = lm_api.lm_compress_bytes(data, "prng:tiny:0", **kw)
+        assert read_container(c)[0].config["mesh"] == {"data": 1, "model": 1}
+        assert read_container(c)[1] == read_container(plain)[1]
+        assert lm_api.lm_decompress_bytes(c, model=model) == data
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()

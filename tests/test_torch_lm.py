@@ -50,6 +50,7 @@ from lac_tpu.runtime import lm_engine as jeng
 from lac_tpu.stream.container import read_container as j_read_container
 from lac_tpu_torch.coder import rans as trans
 from lac_tpu_torch.coder import vector as tvec
+from lac_tpu_torch.config import MeshConfig
 from lac_tpu_torch.convert import lm_params_to_jax
 from lac_tpu_torch.models import lm_registry as treg
 from lac_tpu_torch.models import transformer as T
@@ -331,7 +332,9 @@ def test_engine_fixed_and_grown_schedules_round_trip(trained):
 
 
 def test_unported_modes_and_refs_raise(trained):
-    """A mesh and hf: refs raise, naming their ROADMAP items; kv8, w8 (A7,
+    """hf: refs raise, naming their ROADMAP item, and a mesh wider than the
+    process group refuses, naming torchrun (tests/test_torch_dist.py and
+    test_torch_mesh.py hold the meshes that run); kv8, w8 (A7,
     held to lac_tpu's in tests/test_torch_q8.py) and det8 (A8,
     tests/test_torch_det8.py) code and round-trip, det8 past the context in
     slide mode too."""
@@ -341,8 +344,9 @@ def test_unported_modes_and_refs_raise(trained):
                                      block_tokens=64, lanes=4, **{flag: True})
         assert read_container(c)[0].config[flag]
         assert lm_api.lm_decompress_bytes(c, model=(cfg, model), device="cpu") == DATA[:200]
-    with pytest.raises(NotImplementedError, match="A13"):
-        lm_api.lm_compress_bytes(DATA, model=(cfg, model), device="cpu", mesh=object())
+    with pytest.raises(ValueError, match="torchrun --nproc-per-node"):
+        lm_api.lm_compress_bytes(DATA, model=(cfg, model), device="cpu",
+                                 mesh=MeshConfig(data=2).make("cpu"))
     # a block past the context codes (tests/test_torch_window.py), det8's too
     det8 = dataclasses.replace(cfg, det8=True)
     toks = np.frombuffer(DATA[:300], dtype=np.uint8).astype(np.int64)[None]
