@@ -2,12 +2,13 @@ import faulthandler; faulthandler.dump_traceback_later(1150, exit=True)  # noqa:
 
 # Drive lac_tpu_torch's main path on one CUDA card and check it.
 #
-#   python3 chip_smoke.py              phases 0-9
+#   python3 chip_smoke.py              phases 0-10
 #   python3 chip_smoke.py --flagship   the flagship schedules alone (below)
 #   python3 chip_smoke.py --det8       phase 7 alone (its float comparisons
 #                                      against smoke's goldens)
 #   python3 chip_smoke.py --phase8     phase 8 alone
 #   python3 chip_smoke.py --phase9     phase 9 alone
+#   python3 chip_smoke.py --phase10    phase 10 alone
 #
 # Phase 0  the card's name and power limit; build the CUDA kernels; the
 #          launch shapes of the order0n (K1, K3), order1n (K4, K5) and
@@ -144,8 +145,8 @@ import faulthandler; faulthandler.dump_traceback_later(1150, exit=True)  # noqa:
 #          (f) no launch of K1-K12.
 # Phase 8  the token alphabet and the scan codecs (slice 15; no TPU kernel,
 #          so K1-K12 must not launch): (a) Llama-3-8B at full width
-#          (prng:llama3-8b:0's preset: 32 layers, d 4096, GQA 32/8, vocab
-#          128,256, rope theta 5e5) with w8 (init_params_w8) and kv8 through
+#          (prng:llama3-8b:0's preset: d 4096, GQA 32/8, vocab 128,256, rope
+#          theta 5e5; 4 of its 32 layers) with w8 (init_params_w8) and kv8 through
 #          lm_compress_tokens / lm_decompress_tokens, 64 lanes x 512 seeded
 #          Zipf ids through a permutation of the vocab (ids above 65,535 and
 #          vocab - 1 among them) at the CLI's LM defaults: the round trip
@@ -188,6 +189,37 @@ import faulthandler; faulthandler.dump_traceback_later(1150, exit=True)  # noqa:
 #          CUDA graph; byte-16l trained 4 steps (batch 8 x seq 256) with the
 #          1 x 1 mesh and without, losses equal bit for bit; (d) no launch of
 #          K1-K12 in (b) and (c).
+# Phase 10 the local HF checkpoint loader, the host layers, the native coder,
+#          the trace and the CLI's bench (slice 17; no TPU kernel in (a)-(c),
+#          so K1-K12 must not launch there): (a) TinyLlama-1.1B at full width
+#          (the preset's widths, those of TinyLlama/TinyLlama-1.1B-
+#          intermediate-step-1431k-3T's config.json: d 2048, d_ff 5632, 22
+#          layers, 32 heads, 4 KV heads, vocab 32000, context 2048):
+#          init_params(preset, 0)'s weights, the BOS row the checkpoint's,
+#          written by this script as config.json and two bf16 safetensors
+#          shards under an index in HF's names and layouts, loaded through
+#          hf:<dir> onto the card (no transformers): the config equal to the
+#          preset field for field, every parameter to the source's bit for
+#          bit; lm_compress_tokens / lm_decompress_tokens at 64 lanes x 512
+#          ids (phase 8's recipe) equal to the source model's container, the
+#          round trip exact; the CLI's compress --model lm --model-ref
+#          hf:<dir> / decompress on the corpus's first 32 KiB; load seconds,
+#          peak memory, ms a step; (b) GPT-2 small the same way (the preset's
+#          widths, openai-community/gpt2's: d 768, 12 layers, 12 heads,
+#          vocab 50257, 1024 positions), one model.safetensors, unprefixed
+#          keys, the attn.bias / attn.masked_bias buffers present; (c) in a
+#          child process with no card, meanwhile: the oracle coder's
+#          ac_encode / ac_decode under Uniform, AdaptiveOrder0, HistoryRL,
+#          MarkovMix, FSMPredictor and PPM, and StreamingEncoder /
+#          StreamingDecoder, on the corpus's first 16 KiB: each payload's
+#          crc32, length and bits against smoke.GOLDEN_HOST (lac_tpu's on the
+#          CPU), the round trips, symbols/s; (d) the port's native coder,
+#          built here with g++, on the 32 MiB corpus at block 1024 with each
+#          model: the containers against smoke.GOLDEN, the round trips; (e)
+#          metrics.profile_trace around one launch of K1, in a child process
+#          (a fresh CUDA context): the Chrome trace names K1's kernel; (f)
+#          the CLI's bench on the 32 MiB corpus with order0n: roundtrip_ok;
+#          (g) no launch of K1-K12 in (a)-(c).
 #
 # --flagship: the shipped flagship configuration (bench.py: byte-16l, block
 # 65536, 4 lanes, overlap 8, slide, slide_seg 512) on the whole held-out
@@ -437,8 +469,19 @@ V5E_DET8_FLAGSHIP = (0.8196, 113, 240)
 # through the CLI, and the prefix each one codes on the card and the CPU
 TOK_REF = "prng:llama3-8b:0"
 TOK_LANES, TOK_TOKENS, TOK_ZIPF_A = 64, 512, 1.2
+# Llama-3-8B's depth there: 4 of its 32 layers (the host draws of 32 took
+# 65.8 s of the run, which phase 10 needed; 8 layers stepped in 30.5 ms, 32
+# in 33.7: the head and the cache hold the step, not the layers)
+TOK_LAYERS = 4
 SCAN_MODELS = ("order0", "markov1", "order0d", "markov1d", "markov1c")
 SCAN_CPU_BYTES = 1 << 20
+# phase 10: the HF checkpoints written and loaded (what, preset, BOS id,
+# safetensors files, whether its ids are the source's greedy continuation),
+# the host and trace children's time limits, K1's kernel in a trace
+HF_CHECKPOINTS = (("(a) TinyLlama-1.1B", "tinyllama", "TINYLLAMA_1B", 1, 2, False),
+                  ("(b) GPT-2 small", "gpt2", "GPT2_SMALL", 50256, 1, True))
+HOST_CHILD_S, TRACE_CHILD_S, TRACE_LANES = 600, 300, 1024
+K1_KERNEL = "nib_intervals_kernel<1, 16>"
 
 
 class Phase:
@@ -1412,7 +1455,8 @@ def phase6_steps(torch, T, ttrain, lm_engine, step_graph, smoke, root, smi, floa
                  corpus, dev):
     """(d): graph against eager, kv8+w8, at byte-16l's two ring shapes
     (beside phase 5 (c)'s float steps) and TinyLlama at 64 lanes, width 512
-    (beside its float model's step)."""
+    (beside its float model's step). Returns that float model
+    (init_params(TINYLLAMA_1B, 0)), which phase 10 writes as a checkpoint."""
     cfg, params = ttrain.load_checkpoint(os.path.join(root, smoke.SLIDE16_CHECKPOINT))
     qcfg = dataclasses.replace(cfg, kv8=True, w8=True)
     ring = ring_steps(torch, T, lm_engine, step_graph, smoke, qcfg, T.ensure_w8(qcfg, params),
@@ -1424,14 +1468,15 @@ def phase6_steps(torch, T, ttrain, lm_engine, step_graph, smoke, root, smi, floa
     tokens = torch.from_numpy(toks.reshape(TL_LANES, TL_TOKENS).astype(np.int64)).to(dev)
     start = TL_TOKENS - STEP_BUDGET
     got = {}
-    for name, (c, p) in (("kv8+w8", tl), ("float", (
-            T.TINYLLAMA_1B, T.init_params(T.TINYLLAMA_1B, 0, device=dev)))):
+    tl_float = T.init_params(T.TINYLLAMA_1B, SEED, device=dev)
+    for name, (c, p) in (("kv8+w8", tl), ("float", (T.TINYLLAMA_1B, tl_float))):
         nums = graph_vs_eager(torch, T, lm_engine, step_graph, c, p, tokens, TL_TOKENS, start)
         got[name] = (nums, lm_step_bound(torch, c, p, TL_LANES, TL_TOKENS))
         print_step(smi, f"q8 (d) TinyLlama {name} step, {TL_LANES} lanes, width {TL_TOKENS}, "
                    f"pos {start}-{start + STEP_BUDGET - 1}", *got[name])
     print_beside(f"q8 (d) [{smi}] TinyLlama, {TL_LANES} lanes, width {TL_TOKENS}, kv8+w8 "
                  f"against float", got["kv8+w8"], got["float"])
+    return tl_float
 
 
 def phase6_exact(torch, int8, lm_engine, dev):
@@ -1737,13 +1782,14 @@ def zipf_ids(vocab: int, n: int, seed: int) -> np.ndarray:
 
 
 def phase8_llama3(torch, T, lm_api, lm_engine, container_mod, smi, dev):
-    """(a): Llama-3-8B at full width, w8 (staged init) and kv8, through
+    """(a): Llama-3-8B at full width and TOK_LAYERS of its 32 layers, w8
+    (staged init) and kv8, through
     lm_compress_tokens / lm_decompress_tokens: 64 lanes x 512 ids, the
     header's alphabet, vocab, prob_bits 18 and length; then the det8 chunk's
     peak memory at Llama-3's vocab on a small det8 model."""
     import resource
 
-    cfg = dataclasses.replace(T.LLAMA3_8B, w8=True, kv8=True)
+    cfg = dataclasses.replace(T.LLAMA3_8B, w8=True, kv8=True, n_layers=TOK_LAYERS)
     torch.cuda.reset_peak_memory_stats()
     params, init_ms = sync_time(torch, lambda: T.init_params_w8(cfg, 0, device=dev))
     init_peak = torch.cuda.max_memory_allocated()
@@ -2219,6 +2265,302 @@ def phase9(torch, cli, container, lm_api, ttrain, registry, rk, A, _build, smoke
         check(set(counts.values()) == {0}, "the mesh path launched a TPU-kernel port")
 
 
+# --------------------------------------------------------------------------
+# Phase 10: HF checkpoints, the host layers, the native coder, the trace, bench
+# --------------------------------------------------------------------------
+
+
+def same_bits(torch, a, b) -> bool:
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.dtype == torch.bfloat16:
+        a, b = a.view(torch.int16), b.view(torch.int16)
+    return torch.equal(a, b)
+
+
+def greedy_ids(torch, T, cfg, model, first: np.ndarray, n: int) -> np.ndarray:
+    """Each of ``first``'s ids continued by ``model``'s argmax for n - 1
+    steps (eager cached steps): [len(first) * n] int32, a lane a block."""
+    cache = T.init_cache(cfg, len(first), device=model.embed.device)
+    tok = torch.from_numpy(first.astype(np.int64)).to(model.embed.device)
+    out = [tok]
+    with torch.no_grad():
+        for _ in range(n - 1):
+            logits, cache = T.forward(cfg, model, tok[:, None], cache)
+            tok = logits[:, -1].argmax(-1)
+            out.append(tok)
+    return torch.stack(out, 1).reshape(-1).cpu().numpy().astype(np.int32)
+
+
+def phase10_hf(torch, T, lm_registry, lm_api, cli, container_mod, smoke, corpus, work, smi,
+               dev, what, slug, preset, bos, shards, greedy, src=None):
+    """(a) / (b): ``preset``'s weights from init_params, BOS row the
+    checkpoint's, written in HF's layout (``shards`` safetensors files),
+    loaded through hf:<dir> onto the card: the config and every parameter
+    against the source, token containers of 64 lanes x 512 ids against the
+    source model's and their round trip, then the CLI's --model lm on the
+    corpus's first 32 KiB. The ids are phase 8's Zipf recipe, or with
+    ``greedy`` its first id a lane continued by the source model: random
+    GPT-2 weights cost more than the raw 16 bits a Zipf id, so every block
+    would be stored raw and the decode would run no model. ``src``: the
+    preset's init_params(preset, SEED), already drawn, or None."""
+    src_cfg = preset
+    t0 = time.perf_counter()
+    drawn = src is None
+    if drawn:
+        src = T.init_params(src_cfg, SEED)
+    init_s = time.perf_counter() - t0
+    folder = os.path.join(work, f"hf-{slug}")
+    with torch.no_grad():
+        src.embed[src_cfg.vocab] = src.embed[bos]
+        tensors = smoke.hf_tensors(src_cfg, src)
+    t0 = time.perf_counter()
+    nbytes = smoke.write_hf_checkpoint(folder, smoke.hf_config_json(src_cfg, bos), tensors,
+                                        shards)
+    write_s = time.perf_counter() - t0
+    del tensors
+    src = src.to(dev)
+    ref = "hf:" + folder
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    (cfg, model), load_ms = sync_time(torch, lambda: lm_registry.resolve_lm(ref, device=dev))
+    load_peak = torch.cuda.max_memory_allocated() - base
+    check(cfg == src_cfg, f"hf {what}: the loaded config {cfg} is not the preset's {src_cfg}")
+    got, want = dict(model.named_parameters()), dict(src.named_parameters())
+    check(list(got) == list(want), f"hf {what}: parameter names {list(got)[:4]}...")
+    differ = [k for k in got if not same_bits(torch, got[k], want[k])]
+    check(not differ, f"hf {what}: parameters differ from the source's: {differ[:4]}")
+    check(all(p.device.type == dev.type for p in got.values()),
+          f"hf {what}: a parameter is not on the card")
+    n_params = sum(p.numel() for p in got.values())
+    print(f"hf {what} [{smi}] {n_params} parameters ({cfg.n_layers} layers, d {cfg.d_model}, "
+          f"heads {cfg.n_heads}/{cfg.n_kv_heads}, vocab {cfg.vocab}; init_params seed {SEED}, "
+          f"{f'{init_s:.1f} s' if drawn else 'phase 6 drew it'}), written as {shards} safetensors file(s) of {nbytes} bytes in "
+          f"{write_s:.1f} s; hf: load onto the card {load_ms / 1e3:.2f} s "
+          f"({nbytes / (load_ms / 1e3) / 1e9:.2f} GB/s, file cache warm), peak device memory "
+          f"of the load {load_peak} bytes above what was allocated before it; the config equals "
+          f"the preset field for field, every parameter the source's bit for bit", flush=True)
+
+    n = TOK_LANES * TOK_TOKENS
+    ids = zipf_ids(cfg.vocab, n, SEED)
+    if greedy:
+        ids = greedy_ids(torch, T, src_cfg, src, ids[:TOK_LANES], TOK_TOKENS)
+    kw = dict(block_tokens=TOK_TOKENS, lanes=TOK_LANES, prob_bits=16, cache_grow=128,
+              window_mode="auto")
+    c_src, _ = sync_time(torch, lambda: lm_api.lm_compress_tokens(ids, ref, model=(src_cfg, src),
+                                                                  **kw))
+    c_hf, enc_ms = sync_time(torch, lambda: lm_api.lm_compress_tokens(ids, ref, model=(cfg, model),
+                                                                      **kw))
+    check(c_hf == c_src, f"hf {what}: the token container differs from the source model's")
+    back, dec_ms = sync_time(torch, lambda: lm_api.lm_decompress_tokens(c_hf, model=(cfg, model)))
+    check(np.array_equal(back, ids), f"hf {what}: the token round trip differs")
+    header, blocks = container_mod.read_container(c_hf)
+    coded = sum(b.token_count > 0 for b in blocks)
+    check(coded > 0, f"hf {what}: every token block is stored raw")
+    print(f"hf {what} [{smi}] lm_compress_tokens, {TOK_LANES} lanes x {TOK_TOKENS} ids ("
+          f"{'the source model greedy from phase 8 Zipf ids' if greedy else 'phase 8 Zipf ids'}"
+          f"): {n} -> {len(c_hf)} bytes, prob_bits {header.prob_bits}, {coded} of {len(blocks)} "
+          f"blocks coded, equal byte for byte to the source model's; round trip exact; encode "
+          f"{enc_ms / TOK_TOKENS:.3f} ms a step, decode {dec_ms / TOK_TOKENS:.3f} ms a step "
+          f"(fingerprint and wave included)", flush=True)
+    del src
+    torch.cuda.empty_cache()
+
+    data = corpus[: smoke.LM_BPB_BYTES]
+    path, out = os.path.join(work, f"hf-{slug}.bin"), os.path.join(work, f"hf-{slug}.lac")
+    with open(path, "wb") as f:
+        f.write(data)
+    (_, enc_ms) = sync_time(torch, lambda: check(cli.main(
+        ["compress", path, "--model", "lm", "--model-ref", ref, "-o", out]) == 0,
+        f"hf {what}: cli compress"))
+    (_, dec_ms) = sync_time(torch, lambda: check(cli.main(
+        ["decompress", out, "-o", path + ".out"]) == 0, f"hf {what}: cli decompress"))
+    with open(path + ".out", "rb") as f:
+        check(f.read() == data, f"hf {what}: the CLI's round trip differs")
+    with open(out, "rb") as f:
+        c = f.read()
+    header, blocks = container_mod.read_container(c)
+    check(header.config["model_ref"] == ref, f"hf {what}: header {header.config}")
+    print(f"hf {what} [{smi}] cli compress --model lm --model-ref hf:<dir> at its LM defaults on "
+          f"the corpus's first {len(data)} bytes: {len(c)} bytes "
+          f"({8 * len(c) / len(data):.4f} bits/byte, random weights), "
+          f"{sum(b.token_count > 0 for b in blocks)} of {len(blocks)} blocks coded; round trip "
+          f"equal; compress {enc_ms / 1e3:.2f} s, decompress {dec_ms / 1e3:.2f} s, each with "
+          f"its load", flush=True)
+    del model
+    torch.cuda.empty_cache()
+
+
+# (c), in a child process that cannot see the card: each host predictor's
+# payload of the corpus's first smoke.HOST_BYTES (smoke.host_payloads), its
+# decode, seconds a side; one JSON line a predictor
+HOST_CHILD = """
+import json, sys, time, zlib
+from lac_tpu_torch import coder, models, smoke
+data = smoke.smoke_corpus(smoke.HOST_BYTES)
+makers = smoke.host_predictors(models)
+for name in list(makers) + ["streaming"]:
+    t0 = time.perf_counter()
+    payload, bits = smoke.host_payloads(models, coder, data, [name])[name]
+    enc = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    if name == "streaming":
+        dec = coder.StreamingDecoder(models.AdaptiveOrder0(256))
+        out = [s for i in range(0, len(payload), 64) for s in dec.push(payload[i:i + 64])]
+        out += dec.finish(len(data))
+    else:
+        out = coder.ac_decode(payload, len(data), makers[name](), nbits=bits)
+    print(json.dumps({"name": name, "digest": [zlib.crc32(payload), len(payload), bits],
+                      "equal": bytes(out) == data, "encode_s": enc,
+                      "decode_s": time.perf_counter() - t0}), flush=True)
+"""
+
+
+def phase10_host_start(root):
+    return subprocess.Popen([sys.executable, "-c", HOST_CHILD], cwd=root,
+                            env={**os.environ, "CUDA_VISIBLE_DEVICES": ""},
+                            stdout=subprocess.PIPE, text=True)
+
+
+def phase10_host(smoke, smi, child):
+    """(c): the child's payloads against smoke.GOLDEN_HOST, and their round trips."""
+    out, _ = child.communicate(timeout=HOST_CHILD_S)
+    check(child.returncode == 0, f"host (c): the child exited {child.returncode}")
+    got = [json.loads(line) for line in out.splitlines()]
+    check([r["name"] for r in got] == list(smoke.GOLDEN_HOST),
+          f"host (c): predictors {[r['name'] for r in got]}")
+    n = smoke.HOST_BYTES
+    for r in got:
+        check(tuple(r["digest"]) == smoke.GOLDEN_HOST[r["name"]] and r["equal"],
+              f"host (c) {r['name']}: payload {r['digest']}, golden "
+              f"{smoke.GOLDEN_HOST[r['name']]}, round trip {r['equal']}")
+        print(f"host (c) [{smi}] {r['name']}: {n} bytes -> {r['digest'][1]} "
+              f"(crc32 {r['digest'][0]}, {r['digest'][2]} bits) = smoke.GOLDEN_HOST, round trip "
+              f"equal; encode {n / r['encode_s']:.0f} symbols/s, decode "
+              f"{n / r['decode_s']:.0f} symbols/s (one host thread, beside (a)-(b))", flush=True)
+
+
+def phase10_native(native, smoke, corpus, smi):
+    """(d): the port's native coder, built here, on the 32 MiB corpus at
+    block 1024 with each model: the container against smoke.GOLDEN, the round trip."""
+    t0 = time.perf_counter()
+    check(native.native_available(), "native (d): the coder did not build")
+    print(f"native (d) [{smi}] g++ build and load {time.perf_counter() - t0:.2f} s "
+          f"({os.path.basename(native.so_path())})", flush=True)
+    mb = len(corpus) / 1e6
+    for model in native.MODELS:
+        t0 = time.perf_counter()
+        c = native.native_compress(corpus, block_size=1024, model=model)
+        enc = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        back = native.native_decompress(c)
+        dec = time.perf_counter() - t0
+        digest = smoke.container_digest(c)
+        check(digest == smoke.GOLDEN[model, 1024] and back == corpus,
+              f"native (d) {model}: {digest}, golden {smoke.GOLDEN[model, 1024]}, "
+              f"round trip {back == corpus}")
+        print(f"native (d) [{smi}] {model} block 1024: crc32 and length {digest} = smoke.GOLDEN, "
+              f"round trip equal; encode {mb / enc:.1f} MB/s, decode {mb / dec:.1f} MB/s "
+              f"(OpenMP over the host's cores)", flush=True)
+
+
+# (e), in a child process with a fresh CUDA context (in the whole run, a
+# torch.profiler session after phases 4-9 recorded no kernel): argv the
+# trace directory, T, B, the rate; one launch of K1 under profile_trace
+TRACE_CHILD = """
+import sys
+import numpy as np, torch
+from lac_tpu_torch import metrics, smoke
+from lac_tpu_torch.ops import rans_kernels as rk
+t_len, b, rate = (int(a) for a in sys.argv[2:5])
+syms = torch.from_numpy(np.frombuffer(smoke.smoke_corpus(t_len * b), dtype=np.uint8)
+                        .reshape(b, t_len).T.copy()).cuda()
+rk.o0n_encode_intervals(syms, rate)  # loaded and warm
+torch.cuda.synchronize()
+with metrics.profile_trace(sys.argv[1]) as path:
+    rk.o0n_encode_intervals(syms, rate)
+print(path, rk.launches["o0n_intervals"])
+"""
+
+
+def phase10_trace_start(root, work):
+    """Start (e)'s child: it runs beside (a)-(d), its one K1 launch too."""
+    return subprocess.Popen([sys.executable, "-c", TRACE_CHILD, os.path.join(work, "trace"),
+                             str(BLOCK_SIZES[0]), str(TRACE_LANES), str(RATE)], cwd=root,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def phase10_trace(tracer, smi):
+    """(e): profile_trace around one launch of K1: the Chrome trace names
+    K1's kernel."""
+    out, err = tracer.communicate(timeout=TRACE_CHILD_S)
+    check(tracer.returncode == 0, f"trace (e): the child exited {tracer.returncode}: "
+                                  f"{err[-2000:]}")
+    path, launches = out.split()[-2:]
+    check(os.path.isfile(path) and launches == "2", f"trace (e): {path}, {launches} launches")
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    k1 = [e for e in events if K1_KERNEL in str(e.get("name", "")) and "dur" in e]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    check(len(k1) == 1, f"trace (e): {len(k1)} events of {K1_KERNEL} among {len(events)} "
+                        f"({len(kernels)} kernels) in {path}")
+    print(f"trace (e) [{smi}] profile_trace around one K1 launch (T {BLOCK_SIZES[0]}, B "
+          f"{TRACE_LANES}; a child process beside (a)-(d)): {os.path.getsize(path)} bytes, "
+          f"{len(events)} events, K1 as {k1[0]['name']!r} ({k1[0].get('cat')}, "
+          f"{k1[0]['dur']} us)", flush=True)
+
+
+def phase10_bench(cli, corpus, work, smi):
+    """(f): the CLI's bench on the 32 MiB corpus with order0n."""
+    import contextlib
+    import io
+
+    path = os.path.join(work, "corpus.bin")
+    with open(path, "wb") as f:
+        f.write(corpus)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["bench", path, "--model", "order0n"])
+    rep = json.loads(buf.getvalue().strip().splitlines()[-1])
+    check(rc == 0 and rep["roundtrip_ok"] is True and rep["bytes"] == len(corpus),
+          f"bench (f): exit {rc}, {rep}")
+    print(f"bench (f) [{smi}] {json.dumps(rep)}", flush=True)
+
+
+def phase10(torch, T, cli, container, lm_api, lm_registry, rk, A, smoke, root, work, corpus,
+            dev, smi, tinyllama=None):
+    """Phase 10, (a)-(g). ``tinyllama``: phase 6's float TinyLlama-1.1B
+    (init_params(TINYLLAMA_1B, SEED) on the card), or None to draw it."""
+    from lac_tpu_torch.native import host as native
+
+    with Phase("phase 10: HF checkpoints, the host layers, the native coder, bench"):
+        child = phase10_host_start(root)
+        tracer = phase10_trace_start(root, work)
+        try:
+            rk.reset_launches()
+            A.reset_launches()
+            for what, slug, preset, bos, shards, greedy in HF_CHECKPOINTS:
+                src = tinyllama if slug == "tinyllama" else None
+                tinyllama = None
+                phase10_hf(torch, T, lm_registry, lm_api, cli, container, smoke, corpus, work,
+                           smi, dev, what, slug, getattr(T, preset), bos, shards, greedy, src)
+            check("transformers" not in sys.modules and "safetensors" not in sys.modules,
+                  "hf: the loader imported transformers or safetensors")
+            phase10_host(smoke, smi, child)
+            counts = {**rk.launches, **A.launches}
+            print(f"hf and host (g) launches of K1-K12 in (a)-(c): {counts}", flush=True)
+            check(set(counts.values()) == {0}, "the hf or host path launched a TPU-kernel port")
+            phase10_native(native, smoke, corpus, smi)
+            phase10_trace(tracer, smi)
+        finally:
+            for proc in (child, tracer):
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        phase10_bench(cli, corpus, work, smi)
+
+
 def path_kernels(codec: str) -> tuple:
     return (f"{codec}_intervals", "rans32_encode", f"{codec}_decode")
 
@@ -2263,7 +2605,7 @@ def main() -> int:
         print(device_line(torch))
         return 0
     # one phase alone: --det8 (phase 7, its float comparisons against smoke's
-    # goldens), --phase8 and --phase9
+    # goldens), --phase8, --phase9 and --phase10
     alone = {
         "--det8": lambda work, smi: phase7(
             torch, T, cli, container, detmath, quantize, lm_engine, step_graph, ttrain, rk, A,
@@ -2274,6 +2616,9 @@ def main() -> int:
             smoke.smoke_corpus(), torch.device("cuda", 0), smi, None),
         "--phase9": lambda work, smi: phase9(
             torch, cli, container, lm_api, ttrain, lm_registry, rk, A, _build, smoke, root, work,
+            smoke.smoke_corpus(), torch.device("cuda", 0), smi),
+        "--phase10": lambda work, smi: phase10(
+            torch, T, cli, container, lm_api, lm_registry, rk, A, smoke, root, work,
             smoke.smoke_corpus(), torch.device("cuda", 0), smi),
     }
     if len(sys.argv) == 2 and sys.argv[1] in alone:
@@ -2458,8 +2803,8 @@ def main() -> int:
             phase6_cli(torch, cli, container, smoke, corpus, work)
             phase5_cli(torch, cli, container, smoke, root, work, ("--kv8", "--w8"), bpb16)
             tl = phase6_tinyllama(torch, T, lm_engine, corpus, smi, dev)
-            phase6_steps(torch, T, ttrain, lm_engine, step_graph, smoke, root, smi, float_ring,
-                         tl, corpus, dev)
+            tl_float = phase6_steps(torch, T, ttrain, lm_engine, step_graph, smoke, root, smi,
+                                    float_ring, tl, corpus, dev)
             phase6_exact(torch, int8, lm_engine, dev)
             q8_counts = {**rk.launches, **A.launches}
             print(f"q8 (f) int8 path launches of K1-K12: {q8_counts}", flush=True)
@@ -2471,6 +2816,8 @@ def main() -> int:
                work, corpus, dev, smi, bpb_b)
         phase9(torch, cli, container, lm_api, ttrain, lm_registry, rk, A, _build, smoke, root,
                work, corpus, dev, smi)
+        phase10(torch, T, cli, container, lm_api, lm_registry, rk, A, smoke, root, work, corpus,
+                dev, smi, tl_float)
 
         library_ms = {k: atimes[k]["library_ms"] for k in ATTN}
         kernels = [

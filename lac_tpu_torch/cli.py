@@ -1,4 +1,4 @@
-"""Command-line interface: ``python -m lac_tpu_torch compress|decompress|info|verify|recover|train``.
+"""Command-line interface: ``python -m lac_tpu_torch compress|decompress|info|verify|recover|train|bench``.
 
 Ports ``lac_tpu/cli.py``: ``compress`` (:24-70; every ``--model`` id of
 :245-246: the turbo models order0n, order1n, order2n and order0c, the
@@ -8,9 +8,11 @@ flag of :252-291 and the same defaults: ``prng:byte-12l:0``, block 512,
 64 lanes, prob_bits 16, cache_grow 128, window mode auto), ``decompress``
 (:73-90, an ``lm`` container to ``lm_decompress_bytes``), ``verify``
 (:93-108), ``recover`` (:109-149), ``info`` (:225-237) and ``train``
-(:183-222, arguments :310-322), with the same defaults (order0n, block
-4096, rate 4, which reaches the turbo models only; train: byte-6l, 2000
-steps, batch 32, seq 256, lr 3e-4).
+(:183-222, arguments :310-322) and ``bench`` (:150-182, arguments
+:324-328), with the same defaults (order0n, block 4096, rate 4, which
+reaches the turbo models only; train: byte-6l, 2000 steps, batch 32, seq
+256, lr 3e-4). ``--model-ref hf:<dir-or-id>`` codes with a local
+HuggingFace checkpoint (``models/hf_loader.py``).
 The ``--device`` option picks the device; its default is ``cuda``, and the
 CPU runs only with ``--device cpu``. As in the reference, ``train`` leaves
 the fused attention off. ``--kv8`` and ``--w8`` (the int8 KV cache and
@@ -21,7 +23,10 @@ code an LM on a (data, model) mesh: under ``torchrun`` they take the
 launched ranks (every rank runs the same command, rank 0 writes the
 output); without a launch, a 1 x 1 mesh starts a one-rank group, and any
 other refuses, naming ``torchrun --nproc-per-node``. ``decompress``
-rebuilds a float container's mesh the same way. ``bench`` is ROADMAP A3.
+rebuilds a float container's mesh the same way. ``bench`` round-trips a
+file through ``compress_bytes`` / ``decompress_bytes`` after one warm
+run and prints the reference's JSON keys; each timed region ends with the
+result in host bytes.
 """
 
 from __future__ import annotations
@@ -227,6 +232,39 @@ def _cmd_train(args) -> int:
     return 0
 
 
+def _cmd_bench(args) -> int:
+    """Round-trip benchmark on FILE: compress, decompress, verify, report."""
+    import json
+
+    from .config import ByteCodingConfig
+    from .runtime.engine import compress_bytes, decompress_bytes
+
+    with open(args.file, "rb") as f:
+        data = f.read()
+    cfg = ByteCodingConfig(model_id=args.model, block_size=args.block_size,
+                           prob_bits=args.prob_bits)
+    kw = dict(device=args.device, **cfg.engine_kwargs())
+    compress_bytes(data, **kw)  # warm: builds, caches and graphs
+    t0 = time.perf_counter()
+    out = compress_bytes(data, **kw)
+    t_enc = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    back = decompress_bytes(out, device=args.device)
+    t_dec = time.perf_counter() - t0
+    ok = back == data
+    print(json.dumps({
+        "file": args.file,
+        "model": args.model,
+        "bytes": len(data),
+        "compressed": len(out),
+        "bits_per_byte": round(8 * len(out) / max(1, len(data)), 4),
+        "encode_MBps": round(len(data) / t_enc / 1e6, 3),
+        "decode_MBps": round(len(data) / t_dec / 1e6, 3),
+        "roundtrip_ok": ok,
+    }))
+    return 0 if ok else 1
+
+
 def _cmd_info(args) -> int:
     from .stream.container import read_container
 
@@ -256,7 +294,7 @@ def main(argv=None) -> int:
     c.add_argument("--rate", type=int, default=4,
                    help="adaptation rate base (turbo byte models)")
     c.add_argument("--model-ref", default="prng:byte-12l:0",
-                   help="LM predictor ref (prng:<preset>:<seed> or file:<path>)")
+                   help="LM predictor ref (prng:<preset>:<seed>, hf:<path> or file:<path>)")
     c.add_argument("--block-tokens", type=int, default=512)
     c.add_argument("--lanes", type=int, default=64)
     c.add_argument("--window", type=int, default=None,
@@ -322,6 +360,14 @@ def main(argv=None) -> int:
                         "(continuation/fine-tune; preset must match)")
     t.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     t.set_defaults(fn=_cmd_train)
+
+    b = sub.add_parser("bench", help="round-trip benchmark on FILE")
+    b.add_argument("file")
+    b.add_argument("--model", default="order0n")
+    b.add_argument("--block-size", type=int, default=1 << 12)
+    b.add_argument("--prob-bits", type=int, default=16)
+    b.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    b.set_defaults(fn=_cmd_bench)
 
     args = p.parse_args(argv)
     import torch.distributed as dist

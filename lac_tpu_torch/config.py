@@ -34,7 +34,7 @@ class ByteCodingConfig:
 class LMCodingConfig:
     """LM-predictor coding (the transformer's forward feeds the coder)."""
 
-    model_ref: str = "prng:byte-12l:0"  # prng:<preset>:<seed> | file:<path> (hf: is A11)
+    model_ref: str = "prng:byte-12l:0"  # prng:<preset>:<seed> | hf:<path> | file:<path>
     block_tokens: int = 512             # tokens per independent block
     lanes: int = 64                     # batched streams per wave
     prob_bits: int = 16

@@ -14,7 +14,9 @@ metadata, so every LM predictor is named by a reference string:
 - ``file:<path>``: a ``.npz`` checkpoint through the port's
   ``train.load_checkpoint``; the same file holds the same weights in both
   packages.
-- ``hf:<path>``: the HuggingFace loader, ROADMAP A11, raises.
+- ``hf:<path-or-id>``: a local HuggingFace checkpoint (a directory or a
+  model id in the hub cache) through ``models/hf_loader.py``, which reads
+  the files without ``transformers``; nothing is downloaded.
 """
 
 from __future__ import annotations
@@ -73,8 +75,12 @@ def resolve_lm(model_ref: str, max_seq: int | None = None, device=None):
             cfg = dataclasses.replace(cfg, max_seq=max_seq)
         return cfg, init_params(cfg, int(seed or 0), device=dev)
     if kind == "hf":
-        raise NotImplementedError(
-            "hf: model refs are not ported to lac_tpu_torch yet (ROADMAP A11)")
+        from .hf_loader import load_hf_model
+
+        cfg, params = load_hf_model(rest, device=dev)
+        if max_seq is not None:
+            cfg = dataclasses.replace(cfg, max_seq=max_seq)
+        return cfg, params
     if kind == "file":
         from ..train import load_checkpoint
 

@@ -2,7 +2,8 @@
 
 Ports ``lac_tpu/ops/quantize.py:128-217``, the device functions of the
 LM path: ``quantize_logits`` (the float path, and ``det=True``, the det8
-forward's), ``cdf_from_freq`` and ``gather_intervals``.
+forward's), ``cdf_from_freq`` and ``gather_intervals``; and
+``rescale_cdf`` (:40-69), the host coder's integer rescale, a copy.
 
 ``quantize_logits`` has two stages, split here so that each can be held
 to the reference on its own:
@@ -29,10 +30,42 @@ import torch
 
 from .detmath import det_exp, int_sum_pow2
 
-__all__ = ["quantize_float", "quantize_det", "freq_from_floor", "quantize_logits",
+__all__ = ["rescale_cdf", "quantize_float", "quantize_det", "freq_from_floor", "quantize_logits",
            "cdf_from_freq", "gather_intervals"]
 
 f32 = torch.float32
+
+
+def rescale_cdf(cdf, denom: int):
+    """Rescale an integer CDF (cumulative counts, total ``cdf[-1]``) so its
+    total becomes exactly ``denom``, with every symbol width >= 1.
+
+    Proportional flooring with a remaining-symbols budget: symbol ``i``'s
+    cumulative value is clamped into ``[p+1, denom - (n-1-i))]`` so that no
+    later symbol can be starved. Requires ``denom >= len(cdf)``.
+
+    This is the capability of the reference's ``fudged_dist``
+    (arith_code.py:83-93) as a standalone pure function; the arithmetic
+    coder applies it with ``denom`` = live interval width, and the rANS path
+    never needs it because quantized totals are powers of two matching the
+    coder precision (the reference's own observation at arith_code.py:41-43
+    that power-of-two denominators avoid recalculation).
+    """
+    n = len(cdf)
+    total = cdf[-1]
+    if denom < n:
+        raise ValueError(f"denom {denom} < alphabet size {n}: not codable")
+    if total == denom:
+        return cdf
+    out = [0] * n
+    p = 0
+    for i in range(n):
+        c = (cdf[i] * denom) // total
+        hi = denom - (n - 1 - i)
+        c = p + 1 if c <= p else (hi if c > hi else c)
+        out[i] = c
+        p = c
+    return out
 
 
 def _check(v: int, prob_bits: int) -> None:

@@ -97,11 +97,30 @@ blocks of 4096, 4 of 65536). ``tests/test_torch_golden.py`` recomputes
 ``lac_tpu``'s and the port's containers of the first 256 KiB to
 ``GOLDEN_SCAN_HEAD``; ``chip_smoke.py``'s phase 8 holds the card's
 containers to ``GOLDEN_SCAN``.
+
+The host layers' golden. ``GOLDEN_HOST`` holds the crc32, length and exact
+bit count of the oracle arithmetic coder's payload (``coder.ac_encode`` at
+its default precision 48) of the corpus's first ``HOST_BYTES`` (16 KiB)
+under each of ``host_predictors``' models, and of ``StreamingEncoder``'s
+bytes under ``AdaptiveOrder0`` (the one coder, pushed a symbol at a time,
+so the same payload as ``order0``'s). ``lac_tpu``'s classes computed it on
+the CPU: ``host_payloads(lac_tpu.models, lac_tpu.coder)``.
+``tests/test_torch_host.py`` recomputes it with ``lac_tpu``, and
+``chip_smoke.py``'s phase 10 holds the port's payloads on the card's
+machine to it, and decodes them.
+
+The HF checkpoint writer (``hf_tensors``, ``hf_config_json``,
+``write_hf_checkpoint``) puts a port model's weights into HuggingFace's
+names and layouts, as ``save_pretrained`` would, with no ``transformers``
+or ``safetensors``: ``chip_smoke.py``'s phase 10 writes TinyLlama-1.1B
+and GPT-2 small so and loads them back through ``hf:``;
+``tests/test_torch_hf.py`` loads its files with ``transformers``.
 """
 
 from __future__ import annotations
 
 import glob
+import json
 import os
 import struct
 import zlib
@@ -113,7 +132,9 @@ __all__ = ["SMOKE_BYTES", "GOLDEN", "GOLDEN_LM", "LM_CHECKPOINT", "GOLDEN_LM_BPB
            "WINDOW_BPB_BYTES", "WINDOW_CODING", "SLIDE16_CHECKPOINT", "GOLDEN_SLIDE16_BPB",
            "SLIDE16_BYTES", "SLIDE16_CODING", "GOLDEN_Q8_BPB", "GOLDEN_DET8_BPB",
            "GOLDEN_DET8_PORT", "GOLDEN_DET8_ROPE", "GOLDEN_SCAN", "GOLDEN_SCAN_HEAD",
-           "SCAN_HEAD_BYTES", "smoke_corpus", "container_digest", "blocks_digest",
+           "SCAN_HEAD_BYTES", "GOLDEN_HOST", "HOST_BYTES", "host_predictors", "host_payloads",
+           "hf_tensors", "hf_config_json", "write_safetensors", "write_hf_checkpoint",
+           "smoke_corpus", "container_digest", "blocks_digest",
            "lm_windows", "heldout_slice"]
 
 SMOKE_BYTES = 32 << 20  # bench.py's corpus size
@@ -193,6 +214,19 @@ GOLDEN_SCAN_HEAD = {
     ("order0", 65536): 1258696629,
 }
 
+# name -> (crc32, length, bits) of lac_tpu's oracle-coder payload of the
+# corpus's first HOST_BYTES under host_predictors()[name]
+HOST_BYTES = 16 << 10
+GOLDEN_HOST = {
+    "uniform": (2933499536, 16385, 131074),
+    "order0": (3279731552, 10010, 80079),
+    "history": (2838261827, 11710, 93680),
+    "markov1": (1364225495, 8177, 65411),
+    "fsm": (1771562950, 15985, 127878),
+    "ppm2": (656178024, 6074, 48592),
+    "streaming": (3279731552, 10010, 80079),
+}
+
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _HELDOUT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data",
                         "heldout_slice.bin")
@@ -246,3 +280,153 @@ def heldout_slice() -> bytes:
         raise ValueError(f"{_HELDOUT}: {len(data)} bytes, crc32 {zlib.crc32(data):#010x}; "
                          f"want {HELDOUT_BYTES} bytes, crc32 {HELDOUT_CRC:#010x}")
     return data
+
+
+def host_predictors(models) -> dict:
+    """name -> a factory of the host predictor, from ``models`` (the port's
+    ``lac_tpu_torch.models`` or ``lac_tpu.models``): every class of the
+    oracle coder's zoo over the 256 byte values. The finite-state model's
+    state is the class of the last byte (space, letter or digit, other),
+    and its weights favour the bytes of that class."""
+    cls = [0 if chr(c).isspace() else 1 if chr(c).isalnum() else 2 for c in range(256)]
+    fsm = [([1 + 20 * (cls[s] == k) + 30 * (k == 1 and chr(s).islower()) for s in range(256)],
+            cls) for k in range(3)]
+    return {
+        "uniform": lambda: models.Uniform(256),
+        "order0": lambda: models.AdaptiveOrder0(256),
+        "history": lambda: models.HistoryRL(256, window=64),
+        "markov1": lambda: models.MarkovMix(256, order=1),
+        "fsm": lambda: models.FSMPredictor(256, fsm),
+        "ppm2": lambda: models.PPM(256, order=2),
+    }
+
+
+def host_payloads(models, coder, data: bytes | None = None, names=None) -> dict:
+    """name -> (payload, bits) of ``data`` (default: the corpus's first
+    HOST_BYTES) through ``coder.ac_encode`` under each of ``names`` (default:
+    all) of ``host_predictors(models)``, and "streaming":
+    ``coder.StreamingEncoder`` under ``AdaptiveOrder0``, a byte at a time."""
+    data = smoke_corpus(HOST_BYTES) if data is None else data
+    makers = host_predictors(models)
+    out = {}
+    for name in (list(makers) + ["streaming"]) if names is None else names:
+        if name == "streaming":
+            enc = coder.StreamingEncoder(models.AdaptiveOrder0(256))
+            payload = b"".join([enc.push(b) for b in data] + [enc.finish()])
+            out[name] = (payload, enc._enc.emitted_bits)
+        else:
+            out[name] = coder.ac_encode(data, makers[name]())
+    return out
+
+
+# --------------------------------------------------------------------------
+# An HF checkpoint of a port model
+# --------------------------------------------------------------------------
+
+
+def hf_tensors(cfg, model) -> dict:
+    """A port model's tensors under HF's names and in HF's layouts, on the
+    host, its embedding without the BOS row. Llama: ``nn.Linear`` [out, in]
+    under ``model.``, ``lm_head`` when untied. GPT-2: ``Conv1D`` [in, out],
+    ``c_attn`` fused, keys unprefixed, with the ``attn.bias`` (f32 causal
+    mask) and ``attn.masked_bias`` buffers that older checkpoints carry."""
+    import torch
+
+    with torch.no_grad():
+        m = model
+        if cfg.pos_embedding == "learned":
+            n = cfg.max_seq
+            t = {"wte.weight": m.embed[: cfg.vocab], "wpe.weight": m.pos_embed,
+                 "ln_f.weight": m.final_norm.scale, "ln_f.bias": m.final_norm.bias}
+            mask = torch.tril(torch.ones(n, n)).view(1, 1, n, n)
+            for i, b in enumerate(m.layers):
+                p = f"h.{i}."
+                t.update({
+                    p + "ln_1.weight": b.ln1.scale, p + "ln_1.bias": b.ln1.bias,
+                    p + "ln_2.weight": b.ln2.scale, p + "ln_2.bias": b.ln2.bias,
+                    p + "attn.bias": mask, p + "attn.masked_bias": torch.tensor(-1e4),
+                    p + "attn.c_attn.weight": torch.cat([b.wq, b.wk, b.wv], dim=1),
+                    p + "attn.c_attn.bias": torch.cat([b.bq, b.bk, b.bv]),
+                    p + "attn.c_proj.weight": b.wo, p + "attn.c_proj.bias": b.bo,
+                    p + "mlp.c_fc.weight": b.w_up, p + "mlp.c_fc.bias": b.b_up,
+                    p + "mlp.c_proj.weight": b.w_down, p + "mlp.c_proj.bias": b.b_down})
+        else:
+            t = {"model.embed_tokens.weight": m.embed[: cfg.vocab],
+                 "model.norm.weight": m.final_norm.scale}
+            if m.head is not None:
+                t["lm_head.weight"] = m.head.t()
+            for i, b in enumerate(m.layers):
+                p = f"model.layers.{i}."
+                t[p + "input_layernorm.weight"] = b.ln1.scale
+                t[p + "post_attention_layernorm.weight"] = b.ln2.scale
+                for ours, theirs in (("wq", "self_attn.q_proj"), ("wk", "self_attn.k_proj"),
+                                     ("wv", "self_attn.v_proj"), ("wo", "self_attn.o_proj"),
+                                     ("w_gate", "mlp.gate_proj"), ("w_up", "mlp.up_proj"),
+                                     ("w_down", "mlp.down_proj")):
+                    t[p + theirs + ".weight"] = getattr(b, ours).t()
+        return {k: v.detach().cpu().contiguous() for k, v in t.items()}
+
+
+def hf_config_json(cfg, bos: int) -> dict:
+    """config.json of a GPT-2 or Llama ``LMConfig``, BOS id ``bos``."""
+    if cfg.pos_embedding == "learned":
+        return {"model_type": "gpt2", "architectures": ["GPT2LMHeadModel"],
+                "vocab_size": cfg.vocab, "n_embd": cfg.d_model, "n_layer": cfg.n_layers,
+                "n_head": cfg.n_heads, "n_positions": cfg.max_seq,
+                "layer_norm_epsilon": cfg.norm_eps, "bos_token_id": bos, "eos_token_id": bos}
+    return {"model_type": "llama", "architectures": ["LlamaForCausalLM"],
+            "vocab_size": cfg.vocab, "hidden_size": cfg.d_model,
+            "intermediate_size": cfg.d_ff, "num_hidden_layers": cfg.n_layers,
+            "num_attention_heads": cfg.n_heads, "num_key_value_heads": cfg.n_kv_heads,
+            "max_position_embeddings": cfg.max_seq, "rms_norm_eps": cfg.norm_eps,
+            "rope_theta": cfg.rope_theta, "tie_word_embeddings": cfg.tie_embeddings,
+            "bos_token_id": bos, "eos_token_id": bos + 1}
+
+
+_ST_NAMES = {"float32": "F32", "float16": "F16", "bfloat16": "BF16"}
+
+
+def write_safetensors(path: str, tensors: dict) -> int:
+    """A ``.safetensors`` file: the u64 little-endian header length, the
+    JSON header padded to 8 bytes, then each tensor's bytes at its
+    ``data_offsets``. Returns the bytes written."""
+    import torch
+
+    header, off = {"__metadata__": {"format": "pt"}}, 0
+    for name, t in tensors.items():
+        n = t.numel() * t.element_size()
+        header[name] = {"dtype": _ST_NAMES[str(t.dtype).split(".")[-1]], "shape": list(t.shape),
+                        "data_offsets": [off, off + n]}
+        off += n
+    raw = json.dumps(header, separators=(",", ":")).encode()
+    raw += b" " * (-len(raw) % 8)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(raw)) + raw)
+        for t in tensors.values():
+            f.write(t.contiguous().reshape(-1).view(torch.uint8).numpy().data)
+    return 8 + len(raw) + off
+
+
+def write_hf_checkpoint(folder: str, config: dict, tensors: dict, shards: int = 1) -> int:
+    """``config.json``, and the tensors as one ``model.safetensors`` or as
+    ``shards`` files of about equal size under
+    ``model.safetensors.index.json``, into the new directory ``folder``.
+    Returns the bytes of weights written."""
+    os.makedirs(folder)
+    with open(os.path.join(folder, "config.json"), "w") as f:
+        json.dump(config, f, indent=2)
+    if shards == 1:
+        return write_safetensors(os.path.join(folder, "model.safetensors"), tensors)
+    total = sum(t.numel() * t.element_size() for t in tensors.values())
+    groups, acc = [{} for _ in range(shards)], 0
+    for name, t in tensors.items():
+        groups[min(shards - 1, acc * shards // total)][name] = t
+        acc += t.numel() * t.element_size()
+    weight_map, written = {}, 0
+    for i, group in enumerate(groups):
+        file = f"model-{i + 1:05d}-of-{shards:05d}.safetensors"
+        written += write_safetensors(os.path.join(folder, file), group)
+        weight_map.update(dict.fromkeys(group, file))
+    with open(os.path.join(folder, "model.safetensors.index.json"), "w") as f:
+        json.dump({"metadata": {"total_size": total}, "weight_map": weight_map}, f)
+    return written

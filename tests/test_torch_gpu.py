@@ -880,3 +880,31 @@ def test_world_one_nccl_mesh_on_the_card(cuda):
     finally:
         if dist.is_initialized():
             dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("preset", ["tiny", "tiny-gpt2"])
+def test_hf_checkpoint_loads_onto_the_card_as_on_the_cpu(cuda, tmp_path, preset):
+    """A tiny bf16 checkpoint in HF's layout (smoke.write_hf_checkpoint, two
+    safetensors shards) loaded through hf: onto the card holds the bits the
+    CPU load holds."""
+    import dataclasses
+
+    from lac_tpu_torch import smoke
+    from lac_tpu_torch.models import lm_registry
+    from lac_tpu_torch.models import transformer as T
+
+    cfg = lm_registry.PRESETS[preset]()
+    cfg = dataclasses.replace(cfg, dtype=torch.bfloat16,  # GPT-2's d_ff is 4 d
+                              d_ff=4 * cfg.d_model if preset == "tiny-gpt2" else cfg.d_ff)
+    model = T.init_params(cfg, 3)
+    smoke.write_hf_checkpoint(str(tmp_path / "ckpt"), smoke.hf_config_json(cfg, 7),
+                              smoke.hf_tensors(cfg, model), shards=2)
+    ref = "hf:" + str(tmp_path / "ckpt")
+    ccfg, cpu = lm_registry.resolve_lm(ref, device="cpu")
+    gcfg, gpu = lm_registry.resolve_lm(ref, device=cuda)
+    assert gcfg == ccfg == cfg
+    got, want = dict(gpu.named_parameters()), dict(cpu.named_parameters())
+    assert list(got) == list(want)
+    for name, p in got.items():
+        assert p.device.type == "cuda", name
+        assert torch.equal(p.cpu().view(torch.int16), want[name].view(torch.int16)), name

@@ -332,7 +332,9 @@ def test_engine_fixed_and_grown_schedules_round_trip(trained):
 
 
 def test_unported_modes_and_refs_raise(trained):
-    """hf: refs raise, naming their ROADMAP item, and a mesh wider than the
+    """An hf: ref to a checkpoint that is not there raises, naming it (the
+    loader downloads nothing; tests/test_torch_hf.py loads real ones), and
+    a mesh wider than the
     process group refuses, naming torchrun (tests/test_torch_dist.py and
     test_torch_mesh.py hold the meshes that run); kv8, w8 (A7,
     held to lac_tpu's in tests/test_torch_q8.py) and det8 (A8,
@@ -353,7 +355,7 @@ def test_unported_modes_and_refs_raise(trained):
     words, _ = E.lm_encode_windowed(det8, model, toks, np.full(1, 300), 16, mode="slide")
     out = E.lm_decode_windowed(det8, model, words, np.full(1, 300), 16, 300, mode="slide")
     assert np.array_equal(out.numpy(), toks)
-    with pytest.raises(NotImplementedError, match="A11"):
+    with pytest.raises(FileNotFoundError, match="some/model"):
         treg.resolve_lm("hf:some/model", device="cpu")
     with pytest.raises(ValueError, match="cache_grow"):
         E.lm_encode(cfg, model, np.zeros((1, 4), np.int64), np.ones(1), 16, -1)
