@@ -124,7 +124,17 @@ import faulthandler; faulthandler.dump_traceback_later(1150, exit=True)  # noqa:
 #          (M 1, 4, 16, 17, 64; N 61, 256, 32000; K 64, 2048, 5632; b row-
 #          and column-major) and int8_bmm at W 1024, 1040, 2048, seeded and
 #          at every value +-127, against the host's exact products, and
-#          int8_bmm refusing TF32; (f) no launch of K1-K12.
+#          int8_bmm refusing TF32; (f) byte-12l-mqa (prng:byte-12l-mqa:0,
+#          full width: d 384, 12 layers, 6 query heads on one KV head, the
+#          GQA broadcast at its extreme; random weights) through the CLI at
+#          its LM defaults on the corpus's first 32 KiB, float, --kv8, --w8
+#          and --det8: each round trip exact, the header's flags, det8's
+#          container equal to the CPU's (a child with no card makes it
+#          meanwhile); then 8 blocks of its own greedy continuation (256
+#          bytes each, which it codes rather than stores) through
+#          lm_compress_bytes in each mode: every block coded, the round trip
+#          exact, det8's container equal to the CPU's; (g) no launch of
+#          K1-K12.
 # Phase 7  det8, the integer-reduction forward (slice 14; no TPU kernel, so
 #          K1-K12 must not launch): (a) byte-6l through the CLI with --det8
 #          at smoke.LM_CODING on the corpus's first 32 KiB: round trip, the
@@ -164,7 +174,14 @@ import faulthandler; faulthandler.dump_traceback_later(1150, exit=True)  # noqa:
 #          peak memory; (d) on the corpus's first MiB, each of the five
 #          models' containers on the card equal to the port's on the CPU
 #          (a child process with no card codes them while (a)-(c) run);
-#          (e) no launch of K1-K12.
+#          (e) Llama-2-7B at full width (prng:llama2-7b:0's preset: d 4096,
+#          32 heads on 32 KV heads of 128, d_ff 11008, vocab 32000; 4 of its
+#          32 layers) at A3's row shape (tools/bench_7b_row.py: 4 lanes x 128
+#          uniform ids, max_seq 128, prob_bits 17), w8 (ensure_w8 of the
+#          float draw) and float, through lm_encode / lm_decode: the round
+#          trips exact; graph against eager over 32 steps' CDFs, equal bit
+#          for bit; ms a step, device busy (one profiled replay), peak
+#          memory, the host seconds of the draw; (f) no launch of K1-K12.
 # Phase 9  multi-device (slice 16; torch.distributed, one rank per device):
 #          (a) two ranks share the one card over gloo (two processes on one
 #          card, not a multi-chip figure): compress_distributed then
@@ -216,8 +233,11 @@ import faulthandler; faulthandler.dump_traceback_later(1150, exit=True)  # noqa:
 #          CPU), the round trips, symbols/s; (d) the port's native coder,
 #          built here with g++, on the 32 MiB corpus at block 1024 with each
 #          model: the containers against smoke.GOLDEN, the round trips; (e)
-#          metrics.profile_trace around one launch of K1, in a child process
-#          (a fresh CUDA context): the Chrome trace names K1's kernel; (f)
+#          metrics.profile_trace around one launch of K1, in this process
+#          after every other phase (ROADMAP C5: a late session once lost its
+#          first kernel): the Chrome trace names K1's kernel beside the
+#          warm-up's span, and profile_trace raises rather than write a trace
+#          without a launch's kernel; (f)
 #          the CLI's bench on the 32 MiB corpus with order0n: roundtrip_ok;
 #          (g) no launch of K1-K12 in (a)-(c).
 #
@@ -473,14 +493,26 @@ TOK_LANES, TOK_TOKENS, TOK_ZIPF_A = 64, 512, 1.2
 # 65.8 s of the run, which phase 10 needed; 8 layers stepped in 30.5 ms, 32
 # in 33.7: the head and the cache hold the step, not the layers)
 TOK_LAYERS = 4
+# Llama-2-7B (MHA, 32 KV heads of 128) at full width, 4 of its 32 layers as
+# Llama-3-8B, at A3's bench row (tools/bench_7b_row.py: lanes x tokens,
+# max_seq = tokens, prob_bits 17)
+L2_LAYERS, L2_LANES, L2_TOKENS, L2_PB = 4, 4, 128, 17
+# phase 6 (f): byte-12l-mqa (6 query heads on one KV head, random weights):
+# the CLI at its LM defaults on the corpus's first MQA_BYTES in each mode,
+# det8's container against the CPU's (a child with no card codes it meanwhile,
+# within MQA_CPU_S); then MQA_LANES blocks of its own greedy continuation,
+# MQA_TOKENS bytes each, through lm_compress_bytes in each mode
+MQA_REF = "prng:byte-12l-mqa:0"
+MQA_FLAGS = {"float": (), "kv8": ("--kv8",), "w8": ("--w8",), "det8": ("--det8",)}
+MQA_BYTES, MQA_LANES, MQA_TOKENS, MQA_CPU_S = 32 << 10, 8, 256, 600
 SCAN_MODELS = ("order0", "markov1", "order0d", "markov1d", "markov1c")
 SCAN_CPU_BYTES = 1 << 20
 # phase 10: the HF checkpoints written and loaded (what, preset, BOS id,
 # safetensors files, whether its ids are the source's greedy continuation),
-# the host and trace children's time limits, K1's kernel in a trace
+# the host child's time limit, the lanes of (e)'s K1 launch, K1's kernel
 HF_CHECKPOINTS = (("(a) TinyLlama-1.1B", "tinyllama", "TINYLLAMA_1B", 1, 2, False),
                   ("(b) GPT-2 small", "gpt2", "GPT2_SMALL", 50256, 1, True))
-HOST_CHILD_S, TRACE_CHILD_S, TRACE_LANES = 600, 300, 1024
+HOST_CHILD_S, TRACE_LANES = 600, 1024
 K1_KERNEL = "nib_intervals_kernel<1, 16>"
 
 
@@ -1135,30 +1167,40 @@ def lm_step_bound(torch, cfg, params, b: int, width: float) -> dict:
 
 
 def profiled(torch, fn):
-    """``fn`` once under torch.profiler: (CUDA kernels, memcpy/memset
-    activities, device busy ms, the four kernel names that took the most
-    device time, each with its ms and count)."""
-    from torch.autograd import DeviceType
+    """``fn`` once under torch.profiler, after metrics.warm_up, its session
+    checked by metrics.checked_trace (late in a run a session loses its
+    first launches' kernels, ROADMAP C5; a launch of ``fn`` without its
+    kernel raises): (CUDA kernels, memcpy/memset activities, device busy
+    ms, the four kernel names that took the most device time, each with its
+    ms and count) of ``fn``'s device work, after the warm-up's span."""
+    import tempfile
+
     from torch.profiler import ProfilerActivity, profile
+
+    from lac_tpu_torch import metrics
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        metrics.warm_up(torch)
         fn()
         torch.cuda.synchronize()
-    dev_events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    mem = [e for e in dev_events if e.name.lower().startswith(("memcpy", "memset"))]
-    busy_us = sum(getattr(e, "device_time", 0) or 0 for e in dev_events)
+    with tempfile.TemporaryDirectory() as tmp:
+        region = metrics.checked_trace(prof, os.path.join(tmp, "trace.json"))
+    dev_events = [e for e in region if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    # a graph's memset nodes come as kernels: tell them by name
+    mem = [e for e in dev_events if e["name"].lower().startswith(("memcpy", "memset"))]
+    busy_us = sum(e.get("dur", 0) for e in dev_events)
     by_name: dict = {}
     for e in dev_events:
-        us, n = by_name.get(e.name[:48], (0.0, 0))
-        by_name[e.name[:48]] = (us + (getattr(e, "device_time", 0) or 0), n + 1)
+        us, n = by_name.get(e["name"][:48], (0.0, 0))
+        by_name[e["name"][:48]] = (us + e.get("dur", 0), n + 1)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:4]
     return (len(dev_events) - len(mem), len(mem), busy_us / 1e3,
             [(name, round(us / 1e3, 3), n) for name, (us, n) in top])
 
 
 def graph_vs_eager(torch, T, lm_engine, step_graph, cfg, params, tokens, width: int,
-                   start: int) -> dict:
+                   start: int, prob_bits: int = 16) -> dict:
     """From one cache of ``width`` slots holding ``tokens[:, :start]`` (a
     prefill; pos = start), GRAPH_STEPS coding steps (the model, the integer
     CDF and the intervals: step_graph.SegIntervals) eagerly and through the
@@ -1176,7 +1218,7 @@ def graph_vs_eager(torch, T, lm_engine, step_graph, cfg, params, tokens, width: 
         T.forward(cfg, params, tokens[:, :start], base, prefill=True)
         runs, cdfs = [], []
         for graphed in (False, True):
-            run = step_graph.SegIntervals(cfg, params, 16, tokens[:, start:])
+            run = step_graph.SegIntervals(cfg, params, prob_bits, tokens[:, start:])
             run.prev.copy_(tokens[:, start - 1])
             cache = {k: v.clone() for k, v in base.items()}
             one = (lambda r=run, c=cache: r.steps(c, 1)) if graphed else \
@@ -1409,6 +1451,79 @@ def phase6_cli(torch, cli, container_mod, smoke, corpus, work):
               f"{sum(b.token_count > 0 for b in blocks)} of {len(blocks)} blocks coded; round "
               f"trip equal; encode {enc_ms / 1e3:.2f} s, decode {dec_ms / 1e3:.2f} s", flush=True)
         check(abs(rel) <= LM_BPB_TOL, f"q8 (a) {mode}: bits/byte {bpb} off by {rel:+.3e}")
+
+
+def phase6_mqa_cpu_start(root, work, corpus):
+    """Start (f)'s CPU encode: the CLI's compress --det8 of the corpus's
+    first MQA_BYTES with byte-12l-mqa, in a child that cannot see the card,
+    on 6 of the host's threads."""
+    path = os.path.join(work, "mqa.bin")
+    with open(path, "wb") as f:
+        f.write(corpus[:MQA_BYTES])
+    return subprocess.Popen(
+        [sys.executable, "-m", "lac_tpu_torch", "compress", path, "--model", "lm", "--model-ref",
+         MQA_REF, "--det8", "--device", "cpu", "-o", path + ".cpu.lac"], cwd=root,
+        env={**os.environ, "CUDA_VISIBLE_DEVICES": "", "OMP_NUM_THREADS": "6"},
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def phase6_mqa(torch, T, cli, container_mod, lm_api, lm_registry, corpus, work, smi, dev, child):
+    """(f): byte-12l-mqa in every mode through the CLI on the corpus's first
+    MQA_BYTES (random weights store the blocks raw) and through
+    lm_compress_bytes on its own greedy continuation (every block coded);
+    det8's containers against the CPU's."""
+    path = os.path.join(work, "mqa.bin")
+    data = corpus[:MQA_BYTES]
+    for mode, flags in MQA_FLAGS.items():
+        out = f"{path}.{mode}.lac"
+        rc, enc_ms = sync_time(torch, lambda: cli.main(
+            ["compress", path, "--model", "lm", "--model-ref", MQA_REF, *flags, "-o", out]))
+        check(rc == 0, f"mqa (f) cli compress {mode}")
+        rc, dec_ms = sync_time(torch, lambda: cli.main(["decompress", out, "-o", out + ".out"]))
+        check(rc == 0, f"mqa (f) cli decompress {mode}")
+        with open(out + ".out", "rb") as f:
+            check(f.read() == data, f"mqa (f) {mode}: the cli round trip differs")
+        with open(out, "rb") as f:
+            c = f.read()
+        header, blocks = container_mod.read_container(c)
+        got = {k: header.config[k] for k in ("model_ref", "kv8", "w8", "det8")}
+        want = {"model_ref": MQA_REF, **{k: k == mode for k in ("kv8", "w8", "det8")}}
+        check(got == want, f"mqa (f) {mode}: header {got}")
+        print(f"mqa (f) [{smi}] byte-12l-mqa {mode}, cli at its LM defaults: {len(data)} -> "
+              f"{len(c)} bytes, header {got}, {sum(b.token_count > 0 for b in blocks)} of "
+              f"{len(blocks)} blocks coded (random weights); round trip equal; compress "
+              f"{enc_ms / 1e3:.2f} s, decompress {dec_ms / 1e3:.2f} s", flush=True)
+    err = child.communicate(timeout=MQA_CPU_S)[1]
+    check(child.returncode == 0, f"mqa (f): the CPU child exited {child.returncode}: {err[-2000:]}")
+    with open(f"{path}.det8.lac", "rb") as f, open(path + ".cpu.lac", "rb") as g:
+        card, cpu = f.read(), g.read()
+    check(card == cpu, "mqa (f) det8: the card's cli container is not the CPU's")
+    cfg, model = lm_registry.resolve_lm(MQA_REF, device=dev)
+    check((cfg.n_heads, cfg.n_kv_heads) == (6, 1), f"mqa (f): heads {cfg.n_heads}/{cfg.n_kv_heads}")
+    first = np.frombuffer(data[:MQA_LANES], dtype=np.uint8)
+    text = greedy_ids(torch, T, cfg, model, first, MQA_TOKENS).astype(np.uint8).tobytes()
+    kw = dict(block_tokens=MQA_TOKENS, lanes=MQA_LANES)
+    for mode in MQA_FLAGS:
+        flag = {} if mode == "float" else {mode: True}
+        c, enc_ms = sync_time(torch, lambda: lm_api.lm_compress_bytes(
+            text, MQA_REF, model=(cfg, model), **kw, **flag))
+        back, dec_ms = sync_time(torch, lambda: lm_api.lm_decompress_bytes(c, model=(cfg, model)))
+        _, blocks = container_mod.read_container(c)
+        check(back == text and all(b.token_count == MQA_TOKENS for b in blocks),
+              f"mqa (f) {mode}: greedy round trip {back == text}, "
+              f"{[b.token_count for b in blocks]} coded")
+        same = ""
+        if mode == "det8":
+            cpu = lm_api.lm_compress_bytes(text, MQA_REF, model=lm_registry.resolve_lm(
+                MQA_REF, device="cpu"), device="cpu", **kw, **flag)
+            check(cpu == c, "mqa (f) det8: the card's greedy container is not the CPU's")
+            same = "; the container equals the CPU's byte for byte"
+        print(f"mqa (f) [{smi}] byte-12l-mqa {mode}, lm_compress_bytes of its greedy "
+              f"continuation ({MQA_LANES} blocks of {MQA_TOKENS} bytes, {MQA_LANES} lanes): "
+              f"{len(text)} -> {len(c)} bytes, every block coded, round trip equal{same}; "
+              f"encode {enc_ms / 1e3:.2f} s, decode {dec_ms / 1e3:.2f} s", flush=True)
+    print(f"mqa (f) det8, cli: the card's container ({len(card)} bytes, crc32 "
+          f"{zlib.crc32(card)}) equals the CPU's", flush=True)
 
 
 def phase6_tinyllama(torch, T, lm_engine, corpus, smi, dev):
@@ -1848,6 +1963,50 @@ def phase8_llama3(torch, T, lm_api, lm_engine, container_mod, smi, dev):
           f"model ({ms:.1f} ms)", flush=True)
 
 
+def phase8_llama2(torch, T, lm_engine, step_graph, smi, dev):
+    """(e): Llama-2-7B at full width and L2_LAYERS of its 32 layers at A3's
+    row shape, w8 (ensure_w8 of the float draw) and float: lm_encode /
+    lm_decode round trips, graph against eager over GRAPH_STEPS steps' CDFs,
+    ms a step, device busy, peak memory, the host seconds of the draw."""
+    cfg = dataclasses.replace(T.LLAMA2_7B, max_seq=L2_TOKENS, n_layers=L2_LAYERS)
+    torch.cuda.reset_peak_memory_stats()
+    flt, init_ms = sync_time(torch, lambda: T.init_params(cfg, SEED, device=dev))
+    ids = np.random.default_rng(SEED).integers(0, cfg.vocab, (L2_LANES, L2_TOKENS))
+    toks = torch.from_numpy(ids).to(dev)
+    lens = torch.full((L2_LANES,), L2_TOKENS, dtype=torch.int64, device=dev)
+    for mode in ("w8", "float"):
+        c = dataclasses.replace(cfg, w8=mode == "w8")
+        params, q_ms = sync_time(torch, lambda: T.ensure_w8(c, flt) if c.w8 else flt)
+        torch.cuda.reset_peak_memory_stats()
+        (words, nwords), enc_ms = sync_time(torch, lambda: lm_engine.lm_encode(
+            c, params, toks, lens, L2_PB))
+        back, dec_ms = sync_time(torch, lambda: lm_engine.lm_decode(
+            c, params, words, lens, L2_PB, L2_TOKENS))
+        peak = torch.cuda.max_memory_allocated()
+        check(torch.equal(back, toks), f"llama2 (e) {mode}: the round trip differs")
+        nums = graph_vs_eager(torch, T, lm_engine, step_graph, c, params, toks, L2_TOKENS,
+                              L2_TOKENS - STEP_BUDGET, prob_bits=L2_PB)
+        print_step(smi, f"llama2 (e) Llama-2-7B {mode} step, {L2_LANES} lanes, width "
+                   f"{L2_TOKENS}, pos {L2_TOKENS - STEP_BUDGET}-{L2_TOKENS - 1}, prob_bits "
+                   f"{L2_PB}", nums, lm_step_bound(torch, c, params, L2_LANES, L2_TOKENS))
+        n = L2_LANES * L2_TOKENS
+        print(f"llama2 (e) [{smi}] Llama-2-7B {mode} ({cfg.n_layers} of 32 layers, d "
+              f"{cfg.d_model}, heads {cfg.n_heads}/{cfg.n_kv_heads} of "
+              f"{cfg.d_model // cfg.n_heads}, d_ff {cfg.d_ff}, vocab {cfg.vocab}; random "
+              f"weights, seed {SEED}): init_params {init_ms / 1e3:.2f} s on the host clock"
+              f"{f', ensure_w8 {q_ms / 1e3:.2f} s' if c.w8 else ''}; lm_encode / lm_decode of "
+              f"{L2_LANES} lanes x {L2_TOKENS} uniform ids at prob_bits {L2_PB}: round trip "
+              f"exact, {int(nwords.sum()) * 32 / n:.3f} bits a token; encode "
+              f"{n / (enc_ms / 1e3):.1f} tokens/s ({enc_ms / L2_TOKENS:.3f} ms a step), decode "
+              f"{n / (dec_ms / 1e3):.1f} tokens/s ({dec_ms / L2_TOKENS:.3f} ms a step), first "
+              f"calls (graph captures) included; graph step {nums['graph']['ms']:.3f} ms, "
+              f"device busy {nums['graph']['busy_ms']:.3f} ms (one profiled replay); "
+              f"max_memory_allocated {peak} bytes", flush=True)
+        del params
+    del flt
+    torch.cuda.empty_cache()
+
+
 def phase8_tokens_are_bytes(torch, ttrain, lm_api, container_mod, smoke, root, corpus,
                             float_bpb):
     """(b): byte-6l at smoke.LM_CODING on the corpus's first 32 KiB, the
@@ -1986,11 +2145,11 @@ def phase8_card_vs_cpu(torch, engine, corpus, work, child):
               f"beside (a)-(c))", flush=True)
 
 
-def phase8(torch, T, cli, container, engine, lm_api, lm_engine, ttrain, rk, A, smoke, root,
-           work, corpus, dev, smi, float_bpb6):
-    """Phase 8, the token alphabet and the scan codecs, (a)-(e);
+def phase8(torch, T, cli, container, engine, lm_api, lm_engine, step_graph, ttrain, rk, A, smoke,
+           root, work, corpus, dev, smi, float_bpb6):
+    """Phase 8, the token alphabet, the scan codecs and Llama-2-7B, (a)-(f);
     ``float_bpb6``: phase 4 (b)'s bits/byte, or None."""
-    with Phase("phase 8: the token alphabet and the scan codecs"):
+    with Phase("phase 8: the token alphabet, the scan codecs, Llama-2-7B"):
         rk.reset_launches()
         A.reset_launches()
         child = phase8_cpu_start(root, work, corpus)
@@ -2000,14 +2159,15 @@ def phase8(torch, T, cli, container, engine, lm_api, lm_engine, ttrain, rk, A, s
                                     float_bpb6)
             phase8_scan(torch, cli, engine, container, smoke, corpus, work, smi)
             phase8_card_vs_cpu(torch, engine, corpus, work, child)
+            phase8_llama2(torch, T, lm_engine, step_graph, smi, dev)
         finally:
             if child.poll() is None:
                 child.kill()
                 child.wait()
         counts = {**rk.launches, **A.launches}
-        print(f"tokens and scan (e) launches of K1-K12: {counts}", flush=True)
+        print(f"tokens, scan and Llama-2 (f) launches of K1-K12: {counts}", flush=True)
         check(set(counts.values()) == {0},
-              "the token or scan path launched a TPU-kernel port")
+              "the token, scan or Llama-2 path launched a TPU-kernel port")
 
 
 # phase 9 (b)'s byte-16l coding: smoke.SLIDE16_CODING at the flagship's 4 lanes
@@ -2465,50 +2625,32 @@ def phase10_native(native, smoke, corpus, smi):
               f"(OpenMP over the host's cores)", flush=True)
 
 
-# (e), in a child process with a fresh CUDA context (in the whole run, a
-# torch.profiler session after phases 4-9 recorded no kernel): argv the
-# trace directory, T, B, the rate; one launch of K1 under profile_trace
-TRACE_CHILD = """
-import sys
-import numpy as np, torch
-from lac_tpu_torch import metrics, smoke
-from lac_tpu_torch.ops import rans_kernels as rk
-t_len, b, rate = (int(a) for a in sys.argv[2:5])
-syms = torch.from_numpy(np.frombuffer(smoke.smoke_corpus(t_len * b), dtype=np.uint8)
-                        .reshape(b, t_len).T.copy()).cuda()
-rk.o0n_encode_intervals(syms, rate)  # loaded and warm
-torch.cuda.synchronize()
-with metrics.profile_trace(sys.argv[1]) as path:
-    rk.o0n_encode_intervals(syms, rate)
-print(path, rk.launches["o0n_intervals"])
-"""
-
-
-def phase10_trace_start(root, work):
-    """Start (e)'s child: it runs beside (a)-(d), its one K1 launch too."""
-    return subprocess.Popen([sys.executable, "-c", TRACE_CHILD, os.path.join(work, "trace"),
-                             str(BLOCK_SIZES[0]), str(TRACE_LANES), str(RATE)], cwd=root,
-                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-
-
-def phase10_trace(tracer, smi):
-    """(e): profile_trace around one launch of K1: the Chrome trace names
-    K1's kernel."""
-    out, err = tracer.communicate(timeout=TRACE_CHILD_S)
-    check(tracer.returncode == 0, f"trace (e): the child exited {tracer.returncode}: "
-                                  f"{err[-2000:]}")
-    path, launches = out.split()[-2:]
-    check(os.path.isfile(path) and launches == "2", f"trace (e): {path}, {launches} launches")
+def phase10_trace(torch, rk, metrics, corpus, work, smi, dev):
+    """(e): metrics.profile_trace around one launch of K1, in this process
+    after every other phase (where a blind trace once showed, ROADMAP C5):
+    the Chrome trace names K1's kernel once, beside profile_trace's warm-up."""
+    t_len, b = BLOCK_SIZES[0], TRACE_LANES
+    syms = torch.from_numpy(np.frombuffer(corpus[: t_len * b], dtype=np.uint8)
+                            .reshape(b, t_len).T.copy()).to(dev)
+    rk.o0n_encode_intervals(syms, RATE)  # loaded and warm
+    torch.cuda.synchronize()
+    rk.reset_launches()
+    with metrics.profile_trace(os.path.join(work, "trace")) as path:
+        rk.o0n_encode_intervals(syms, RATE)
+    check(os.path.isfile(path) and rk.launches["o0n_intervals"] == 1,
+          f"trace (e): {path}, {rk.launches['o0n_intervals']} launches")
     with open(path) as f:
         events = json.load(f)["traceEvents"]
     k1 = [e for e in events if K1_KERNEL in str(e.get("name", "")) and "dur" in e]
     kernels = [e for e in events if e.get("cat") == "kernel"]
-    check(len(k1) == 1, f"trace (e): {len(k1)} events of {K1_KERNEL} among {len(events)} "
-                        f"({len(kernels)} kernels) in {path}")
-    print(f"trace (e) [{smi}] profile_trace around one K1 launch (T {BLOCK_SIZES[0]}, B "
-          f"{TRACE_LANES}; a child process beside (a)-(d)): {os.path.getsize(path)} bytes, "
-          f"{len(events)} events, K1 as {k1[0]['name']!r} ({k1[0].get('cat')}, "
-          f"{k1[0]['dur']} us)", flush=True)
+    warm = [e for e in events if e.get("name") == metrics.WARM_UP]
+    check(len(k1) == 1 and warm, f"trace (e): {len(k1)} events of {K1_KERNEL} among "
+                                 f"{len(events)} ({len(kernels)} kernels, warm-up {len(warm)}) "
+                                 f"in {path}")
+    print(f"trace (e) [{smi}] profile_trace around one K1 launch (T {t_len}, B {b}; in the main "
+          f"process after phases 0-9 and 10 (a)-(d)): {os.path.getsize(path)} bytes, "
+          f"{len(events)} events, {len(kernels)} kernels, K1 as {k1[0]['name']!r} "
+          f"({k1[0].get('cat')}, {k1[0]['dur']} us), the warm-up's span present", flush=True)
 
 
 def phase10_bench(cli, corpus, work, smi):
@@ -2532,11 +2674,11 @@ def phase10(torch, T, cli, container, lm_api, lm_registry, rk, A, smoke, root, w
             dev, smi, tinyllama=None):
     """Phase 10, (a)-(g). ``tinyllama``: phase 6's float TinyLlama-1.1B
     (init_params(TINYLLAMA_1B, SEED) on the card), or None to draw it."""
+    from lac_tpu_torch import metrics
     from lac_tpu_torch.native import host as native
 
     with Phase("phase 10: HF checkpoints, the host layers, the native coder, bench"):
         child = phase10_host_start(root)
-        tracer = phase10_trace_start(root, work)
         try:
             rk.reset_launches()
             A.reset_launches()
@@ -2552,12 +2694,11 @@ def phase10(torch, T, cli, container, lm_api, lm_registry, rk, A, smoke, root, w
             print(f"hf and host (g) launches of K1-K12 in (a)-(c): {counts}", flush=True)
             check(set(counts.values()) == {0}, "the hf or host path launched a TPU-kernel port")
             phase10_native(native, smoke, corpus, smi)
-            phase10_trace(tracer, smi)
+            phase10_trace(torch, rk, metrics, corpus, work, smi, dev)
         finally:
-            for proc in (child, tracer):
-                if proc.poll() is None:
-                    proc.kill()
-                    proc.wait()
+            if child.poll() is None:
+                child.kill()
+                child.wait()
         phase10_bench(cli, corpus, work, smi)
 
 
@@ -2612,8 +2753,8 @@ def main() -> int:
             smoke, root, work, smoke.smoke_corpus(smoke.LM_BPB_BYTES), torch.device("cuda", 0),
             smi, smoke.GOLDEN_LM_BPB, smoke.GOLDEN_SLIDE16_BPB, None),
         "--phase8": lambda work, smi: phase8(
-            torch, T, cli, container, engine, lm_api, lm_engine, ttrain, rk, A, smoke, root, work,
-            smoke.smoke_corpus(), torch.device("cuda", 0), smi, None),
+            torch, T, cli, container, engine, lm_api, lm_engine, step_graph, ttrain, rk, A, smoke,
+            root, work, smoke.smoke_corpus(), torch.device("cuda", 0), smi, None),
         "--phase9": lambda work, smi: phase9(
             torch, cli, container, lm_api, ttrain, lm_registry, rk, A, _build, smoke, root, work,
             smoke.smoke_corpus(), torch.device("cuda", 0), smi),
@@ -2797,23 +2938,33 @@ def main() -> int:
             check(set(window_counts.values()) == {0},
                   "the windowed path launched a TPU-kernel port")
 
-        with Phase("phase 6: the int8 LM modes (kv8, w8)"):
+        with Phase("phase 6: the int8 LM modes (kv8, w8), byte-12l-mqa"):
             rk.reset_launches()
             A.reset_launches()
-            phase6_cli(torch, cli, container, smoke, corpus, work)
-            phase5_cli(torch, cli, container, smoke, root, work, ("--kv8", "--w8"), bpb16)
-            tl = phase6_tinyllama(torch, T, lm_engine, corpus, smi, dev)
-            tl_float = phase6_steps(torch, T, ttrain, lm_engine, step_graph, smoke, root, smi,
-                                    float_ring, tl, corpus, dev)
-            phase6_exact(torch, int8, lm_engine, dev)
+            mqa_cpu = phase6_mqa_cpu_start(root, work, corpus)
+            try:
+                phase6_cli(torch, cli, container, smoke, corpus, work)
+                phase5_cli(torch, cli, container, smoke, root, work, ("--kv8", "--w8"), bpb16)
+                tl = phase6_tinyllama(torch, T, lm_engine, corpus, smi, dev)
+                tl_float = phase6_steps(torch, T, ttrain, lm_engine, step_graph, smoke, root,
+                                        smi, float_ring, tl, corpus, dev)
+                phase6_exact(torch, int8, lm_engine, dev)
+                phase6_mqa(torch, T, cli, container, lm_api, lm_registry, corpus, work, smi, dev,
+                           mqa_cpu)
+            finally:
+                if mqa_cpu.poll() is None:
+                    mqa_cpu.kill()
+                    mqa_cpu.wait()
             q8_counts = {**rk.launches, **A.launches}
-            print(f"q8 (f) int8 path launches of K1-K12: {q8_counts}", flush=True)
-            check(set(q8_counts.values()) == {0}, "the int8 LM path launched a TPU-kernel port")
+            print(f"q8 (g) int8 and byte-12l-mqa path launches of K1-K12: {q8_counts}",
+                  flush=True)
+            check(set(q8_counts.values()) == {0},
+                  "the int8 or byte-12l-mqa LM path launched a TPU-kernel port")
 
         phase7(torch, T, cli, container, detmath, quantize, lm_engine, step_graph, ttrain, rk,
                A, smoke, root, work, corpus, dev, smi, bpb_b, bpb16, float_ring)
-        phase8(torch, T, cli, container, engine, lm_api, lm_engine, ttrain, rk, A, smoke, root,
-               work, corpus, dev, smi, bpb_b)
+        phase8(torch, T, cli, container, engine, lm_api, lm_engine, step_graph, ttrain, rk, A,
+               smoke, root, work, corpus, dev, smi, bpb_b)
         phase9(torch, cli, container, lm_api, ttrain, lm_registry, rk, A, _build, smoke, root,
                work, corpus, dev, smi)
         phase10(torch, T, cli, container, lm_api, lm_registry, rk, A, smoke, root, work, corpus,

@@ -41,7 +41,9 @@ with the float forward, the int8 modes (``--kv8``, ``--w8``) and det8, for
 blocks within the model context and past it (the slide and reprime
 schedules), its step replayed as a CUDA graph on the card; multi-device
 (SPMD, one rank per device); HuggingFace checkpoints (``hf:``); and the
-host layers. It does everything ``lac_tpu`` does.
+host layers. It does everything ``lac_tpu`` does: its modules, public
+names and parameters are ``lac_tpu``'s but the JAX-only ones, which the
+modules' docstrings name (``tests/test_torch_surface.py`` walks both).
 
 Importing the package sets ``CUBLAS_WORKSPACE_CONFIG`` (unless the caller
 has): cuBLAS reads it when its first call of the process sets up, and the

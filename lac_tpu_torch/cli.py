@@ -45,7 +45,7 @@ def _make_mesh_arg(args):
     from .config import MeshConfig
 
     try:
-        return MeshConfig(data=args.mesh_data or -1, model=args.mesh_model).make(args.device)
+        return MeshConfig(data=args.mesh_data or -1, model=args.mesh_model).make(device=args.device)
     except ValueError as e:
         raise SystemExit(f"--mesh-data / --mesh-model: {e}") from e
 

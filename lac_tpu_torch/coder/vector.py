@@ -2,8 +2,8 @@
 
 Ports ``lac_tpu/coder/vector.py:42-178``: the encode scan
 (``_encode_scan``, ``rans_encode_batch``), ``RansDecState``,
-``rans_decode_init``, the decode step (``_decode_step``; the engine calls
-it inside its model loop) and ``rans_decode_scan``. Bit for bit the spec of
+``rans_decode_init``, the decode step (``rans_decode_step``; the engine
+calls it inside its model loop) and ``rans_decode_scan``. Bit for bit the spec of
 ``coder/rans.py`` (``rans_encode_np`` / ``rans_decode_np``), over B
 independent streams held as tensor lanes on any device:
 
@@ -36,6 +36,7 @@ __all__ = [
     "rans_encode_batch",
     "RansDecState",
     "rans_decode_init",
+    "rans_decode_step",
     "rans_decode_scan",
 ]
 
@@ -108,12 +109,15 @@ def rans_decode_init(words: torch.Tensor) -> RansDecState:
     return RansDecState(x, words, pos)
 
 
-def _decode_step(state: RansDecState, cdf: torch.Tensor, prob_bits: int,
-                 active: torch.Tensor):
+def rans_decode_step(state: RansDecState, cdf: torch.Tensor, prob_bits: int,
+                     active: torch.Tensor | None = None):
     """One decode step for all lanes. ``cdf``: [B, V+1] exclusive prefix
-    with total 2**prob_bits; ``active``: [B] bool. Returns (sym [B] int64,
-    new state); an inactive lane keeps its state and gives symbol 0."""
+    with total 2**prob_bits; ``active``: [B] bool (every lane when None).
+    Returns (sym [B] int64, new state); an inactive lane keeps its state and
+    gives symbol 0."""
     x, words, pos = state
+    if active is None:
+        active = torch.ones(x.shape, dtype=torch.bool, device=x.device)
     slot = x & ((1 << prob_bits) - 1)
     # symbol = count of cdf entries <= slot, minus 1: a compare and a sum
     # over the row (lac_tpu/coder/vector.py:127-128)
@@ -139,7 +143,7 @@ def rans_decode_scan(words: torch.Tensor, cdfs: torch.Tensor, lengths: torch.Ten
     lengths = lengths.to(i64)
     syms = []
     for t in range(cdfs.shape[1]):
-        sym, state = _decode_step(state, cdfs[:, t], prob_bits, t < lengths)
+        sym, state = rans_decode_step(state, cdfs[:, t], prob_bits, t < lengths)
         syms.append(sym)
     if not syms:
         return torch.zeros((words.shape[0], 0), dtype=i64, device=words.device)

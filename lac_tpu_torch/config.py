@@ -1,15 +1,17 @@
 """Configuration of the byte and LM coding paths.
 
-Ports ``ByteCodingConfig``, ``LMCodingConfig`` and ``MeshConfig`` of
-``lac_tpu/config.py:18-87``. Every coding field serialises to the
-container's config, so the two packages must agree on them.
+Ports ``ByteCodingConfig``, ``LMCodingConfig``, ``MeshConfig`` and
+``from_dict`` of ``lac_tpu/config.py:18-100``. Every coding field
+serialises to the container's config, so the two packages must agree on
+them.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 
-__all__ = ["ByteCodingConfig", "LMCodingConfig", "MeshConfig"]
+__all__ = ["ByteCodingConfig", "LMCodingConfig", "MeshConfig", "from_dict"]
 
 
 @dataclass(frozen=True)
@@ -75,7 +77,21 @@ class MeshConfig:
     data: int = -1    # -1: every rank the model dim leaves
     model: int = 1    # tensor-parallel span
 
-    def make(self, device=None):
+    def make(self, devices=None, device=None):
+        """The mesh (``parallel.mesh.make_mesh``): ``devices`` one a rank,
+        or this rank's ``device``."""
         from .parallel.mesh import make_mesh
 
-        return make_mesh(data=self.data, model=self.model, device=device)
+        return make_mesh(data=self.data, model=self.model, devices=devices, device=device)
+
+
+def from_dict(cls, d: dict):
+    """Build a config dataclass from a (container or CLI) dict, ignoring
+    unknown keys; ``LMCodingConfig`` takes its ``window`` from the wire's
+    ``max_seq`` when ``window`` is absent, so it round-trips from a
+    container header's config."""
+    names = {f.name for f in dataclasses.fields(cls)}
+    kw = {k: v for k, v in d.items() if k in names}
+    if cls is LMCodingConfig and "window" not in d and d.get("max_seq") is not None:
+        kw["window"] = d["max_seq"]
+    return cls(**kw)

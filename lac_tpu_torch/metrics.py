@@ -5,6 +5,22 @@ Ports ``lac_tpu/metrics.py``: ``stream_stats``, ``Throughput``,
 ``JsonlLogger`` are copies; ``profile_trace`` (:88-98) records with
 ``torch.profiler`` where the reference uses ``jax.profiler``.
 
+A fault of torch's profiler (Kineto over CUPTI; seen with torch 2.11 and
+CUDA 12.8 on an H100; ``tests/test_torch_gpu.py`` reproduces it): as a
+process ages, each session loses the device records of its first few
+kernel launches: the launches are recorded, their kernels are not, and the
+launches after them keep theirs, whatever their module, with or without a
+synchronize or a sleep between. The count grows with the process's CUDA
+calls, about one launch for every 5-7 million CUPTI correlation ids
+(14-19 at 95 million); graph capture and NCCL do not bring it on, plain
+launches do. A trace of a few launches is then blind. ``profile_trace``
+therefore opens each session with ``WARM_UP_LAUNCHES`` small launches of
+its own (``warm_up``, under a ``record_function`` of that name), which
+take the loss, and checks the trace before it writes it
+(``checked_trace``): every kernel launch of the region must have its
+device event, or it raises and writes nothing. Any other session whose
+kernels are read does the same.
+
 Keeps the reference's exact fractional-bit accounting idea
 (total_encoded_entropy = emitted + carried info, arith_code.py:220-226;
 bits_per_token live counters, arithmetic_coding.py:243-247) vectorized per
@@ -28,6 +44,8 @@ __all__ = [
     "stream_stats",
     "Throughput",
     "profile_trace",
+    "warm_up",
+    "checked_trace",
     "JsonlLogger",
     "ngram_stats",
     "measure_compress",
@@ -90,26 +108,91 @@ class Throughput:
         }
 
 
+WARM_UP = "profile_trace warm-up"
+WARM_UP_LAUNCHES = 1024  # the loss reaches this many at 5e9 CUDA calls or more
+_LAUNCH_CATS = ("cuda_runtime", "cuda_driver")
+_LAUNCHES = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cudaLaunchCooperativeKernel",
+             "cuLaunchKernel", "cuLaunchKernelEx")
+_DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+
+
+def warm_up(torch) -> None:
+    """WARM_UP_LAUNCHES one-element kernels on the card, finished before
+    the caller's region starts, under a ``record_function`` named
+    ``WARM_UP``: the first launches of a profiler session, whose device
+    records it may lose (module docstring); about 5 ms. Call it first
+    inside any ``torch.profiler`` session whose kernels are read."""
+    with torch.profiler.record_function(WARM_UP):
+        x = torch.zeros(1, device="cuda")
+        for _ in range(WARM_UP_LAUNCHES):
+            x.add_(1)
+        torch.cuda.synchronize()
+
+
+def _check_device_events(path: str) -> list:
+    """The events after the warm-up in the Chrome trace at ``path``. Raise,
+    and remove ``path``, unless every kernel launch among them has a device
+    event of the same correlation id."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    warm_end = max((e["ts"] + e.get("dur", 0) for e in events
+                    if e.get("name") == WARM_UP and "ts" in e), default=float("-inf"))
+    region = [e for e in events if e.get("ts", 0) > warm_end]
+    launches = [e for e in region if e.get("cat") in _LAUNCH_CATS
+                and e.get("name") in _LAUNCHES]
+    seen = {e.get("args", {}).get("correlation") for e in events
+            if e.get("cat") in _DEVICE_CATS}
+    blind = [e for e in launches if e.get("args", {}).get("correlation") not in seen]
+    if blind:
+        os.remove(path)
+        raise RuntimeError(
+            f"profile_trace: {len(blind)} of {len(launches)} kernel launches have no device "
+            f"event (first: {blind[0]['name']}, correlation "
+            f"{blind[0].get('args', {}).get('correlation')}); the profiler recorded no kernel "
+            "for them, so no trace was written")
+    return region
+
+
+def checked_trace(prof, path: str) -> list:
+    """Write the finished CUDA session ``prof`` (opened with ``warm_up``)
+    as a Chrome trace at ``path`` and return its events after the warm-up;
+    raise, and write nothing, if a kernel launch among them has no device
+    event (module docstring). Every session whose kernels are read goes
+    through here."""
+    prof.export_chrome_trace(path)
+    return _check_device_events(path)
+
+
 @contextlib.contextmanager
 def profile_trace(logdir: str):
     """Record the enclosed region with ``torch.profiler`` (the CPU, and the
     card's kernels when CUDA is available) and write it into ``logdir`` as
     a Chrome trace, ``trace.json``, on the way out; yields that path. The
     analog of the reference's debug_log event hook at hardware granularity.
+    With CUDA, the session opens with warm-up launches (``WARM_UP``) and
+    the trace is written only if every launch of the region has its kernel
+    (module docstring); otherwise it raises.
     """
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    acts = [ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        acts.append(ProfilerActivity.CUDA)
+    cuda = torch.cuda.is_available()
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
     os.makedirs(logdir, exist_ok=True)
     path = os.path.join(logdir, "trace.json")
     with profile(activities=acts) as prof:
-        yield path
-        if torch.cuda.is_available():
+        if cuda:
             torch.cuda.synchronize()
-    prof.export_chrome_trace(path)
+            warm_up(torch)
+        yield path
+        if cuda:
+            torch.cuda.synchronize()
+    part = path + ".part"
+    if cuda:
+        checked_trace(prof, part)
+    else:
+        prof.export_chrome_trace(part)
+    os.replace(part, path)
 
 
 def ngram_stats(data, order: int) -> dict:

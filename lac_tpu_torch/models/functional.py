@@ -82,6 +82,7 @@ __all__ = [
     "MarkovDecay",
     "MarkovCDF",
     "O0C_V",
+    "CDF_STATE_BITS",
     "cdf_state_init",
     "cdf_state_to_coder",
     "cdf_state_update",
@@ -98,7 +99,9 @@ __all__ = [
 ]
 
 O0C_V = 256  # order0c alphabet: the byte
-_O0C_M = (1 << 16) - O0C_V  # order0c state range [0, M]; prob_bits 16
+# the reference's capacity note: the state's domain is derived from
+# prob_bits (``_cdf_m``), not from this
+CDF_STATE_BITS = 15
 NIB_V = 16  # nibble alphabet
 NIB_STATE_BITS = 15  # internal state precision
 NIB_CODE_BITS = 8  # per-nibble coding precision (composed prob_bits = 16)
@@ -125,23 +128,38 @@ def _cdf_m(prob_bits: int, v: int) -> int:
     return (1 << prob_bits) - v
 
 
-def cdf_state_init(batch: int, device=None, v: int = O0C_V, prob_bits: int = 16) -> torch.Tensor:
-    """Uniform order0c state: [B, V+1] int32 with fixed endpoints 0, M."""
+def cdf_state_init(batch: int, v: int = O0C_V, prob_bits: int = 16,
+                   device=None) -> torch.Tensor:
+    """Uniform order0c state: [B, V+1] int32 with fixed endpoints 0, M, on
+    ``device``."""
     j = torch.arange(v + 1, dtype=torch.int32, device=device)
     return ((j * _cdf_m(prob_bits, v)) // v).expand(batch, v + 1).contiguous()
 
 
-def cdf_state_to_coder(state: torch.Tensor) -> torch.Tensor:
+def _state_v(state: torch.Tensor, v: int | None) -> int:
+    """The state's alphabet size V, checked against ``v`` when given."""
+    if v is not None and state.shape[-1] != v + 1:
+        raise ValueError(f"a state of {state.shape[-1]} boundaries is not one of vocab {v}")
+    return state.shape[-1] - 1
+
+
+def cdf_state_to_coder(state: torch.Tensor, prob_bits: int = 16,
+                       v: int | None = None) -> torch.Tensor:
     """[..., V+1] state -> coder CDF with total 2**prob_bits and every width
-    >= 1: one iota add, since the state is pre-scaled."""
+    >= 1: one iota add, since the state is pre-scaled (``prob_bits`` does
+    not enter; ``v``, the reference's argument, is checked against the
+    state's V when given)."""
+    _state_v(state, v)
     return state + torch.arange(state.shape[-1], dtype=torch.int32, device=state.device)
 
 
-def cdf_state_update(state: torch.Tensor, syms: torch.Tensor, rate, out=None,
-                     m: int = _O0C_M) -> torch.Tensor:
+def cdf_state_update(state: torch.Tensor, syms: torch.Tensor, rate, v: int | None = None,
+                     prob_bits: int = 16, *, out=None) -> torch.Tensor:
     """Move the boundaries toward the observed symbol's one-hot CDF.
-    ``syms``: [B]; ``rate``: an int or a [B, 1] int32 column; ``m``: the
-    state's range ``2**prob_bits - V``. ``out`` may be ``state``."""
+    ``syms``: [B]; ``rate``: an int or a [B, 1] int32 column; ``v``: the
+    alphabet size (the state's V when None); the state's range is
+    ``2**prob_bits - V``. ``out`` may be ``state``."""
+    m = _cdf_m(prob_bits, _state_v(state, v))
     k = torch.arange(state.shape[-1], dtype=torch.int32, device=state.device)
     toward_zero = state - (state >> rate)
     toward_total = state + ((m - state) >> rate)
@@ -184,21 +202,21 @@ class Order0CDF(_ByteModel):
     rate: int = 4
 
     def init_state(self, batch: int, device=None):
-        return (cdf_state_init(batch, device, self.vocab, self.prob_bits), 0)
+        return (cdf_state_init(batch, self.vocab, self.prob_bits, device), 0)
 
     def cdf(self, state) -> torch.Tensor:
         return cdf_state_to_coder(state[0])
 
     def update(self, state, syms: torch.Tensor):
         cdf, step = state
-        return (cdf_state_update(cdf, syms, adaptive_rate(self.rate, step),
-                                 m=_cdf_m(self.prob_bits, self.vocab)), step + 1)
+        return (cdf_state_update(cdf, syms, adaptive_rate(self.rate, step), self.vocab,
+                                 self.prob_bits), step + 1)
 
     def update_(self, state, syms: torch.Tensor):
         """As ``update``, writing the new CDF into the old one."""
         cdf, step = state
-        cdf_state_update(cdf, syms, adaptive_rate(self.rate, step), out=cdf,
-                         m=_cdf_m(self.prob_bits, self.vocab))
+        cdf_state_update(cdf, syms, adaptive_rate(self.rate, step), self.vocab, self.prob_bits,
+                         out=cdf)
         return (cdf, step + 1)
 
 
@@ -503,7 +521,7 @@ class MarkovCDF(ScanModel):
     rate: int = 4
 
     def init_state(self, batch: int, device=None):
-        row = cdf_state_init(1, device, self.vocab, self.prob_bits)
+        row = cdf_state_init(1, self.vocab, self.prob_bits, device)
         table = row.expand(batch, self.vocab, self.vocab + 1).contiguous()
         counts = torch.zeros((batch, self.vocab), dtype=torch.int32, device=device)
         return (table, torch.zeros((batch,), dtype=torch.int64, device=device), counts)
@@ -519,7 +537,7 @@ class MarkovCDF(ScanModel):
         table, prev, counts = state
         lane = _lanes(table)
         rate = adaptive_rate(self.rate, counts[lane, prev][:, None])
-        table[lane, prev] = cdf_state_update(table[lane, prev], syms, rate,
-                                             m=_cdf_m(self.prob_bits, self.vocab))
+        table[lane, prev] = cdf_state_update(table[lane, prev], syms, rate, self.vocab,
+                                             self.prob_bits)
         counts[lane, prev] += 1
         return (table, syms, counts)

@@ -24,7 +24,14 @@ f32 upcasts, with TF32 off. Norm statistics, RoPE and softmax are f32.
 Masked scores are ``-inf``, so they contribute exactly 0.
 
 Parameters keep the reference's layout (``x @ w``, ``w`` is ``[in, out]``)
-and names; ``convert.py`` carries them between the packages. A model may
+and names; ``convert.py`` carries them between the packages.
+
+JAX-only, with no counterpart: ``init_params`` / ``init_params_w8``'s
+``key`` (a JAX PRNG key; the port draws from ``seed``, an int, with
+torch's generator), ``forward``'s ``unroll`` (how far XLA unrolls the
+``lax.scan`` over layers; the port runs its layers as a Python loop), and
+``stack_layers`` (the stacked ``[n_layers, ...]`` leaves that scan
+consumes; the port keeps one ``Block`` a layer). A model may
 hold its parameters in any float type (training keeps an f32 master copy):
 the forward casts each one to ``cfg.dtype`` where it is used, so the
 gradients reach the parameters as they are stored.

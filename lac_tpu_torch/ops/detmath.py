@@ -2,8 +2,9 @@
 
 Ports ``lac_tpu/ops/detmath.py``: ``ceil_log2`` and ``int_sum_pow2``
 (:37-61), ``det_exp`` (:76-88, in the form of its host mirror
-``det_exp_np``, :91-114), ``det_rsqrt`` (:117-120), ``det_silu``
-(:123-129) and ``det_gelu_tanh`` (:132-145).
+``det_exp_np``, :91-114), ``det_exp_np`` itself (a copy: the NumPy spec
+holder), ``det_rsqrt`` (:117-120), ``det_silu`` (:123-129) and
+``det_gelu_tanh`` (:132-145).
 
 det8 uses only correctly rounded float ops (+, -, *, /, sqrt, each its own
 torch op) and integer ops for everything that carries a value, so its
@@ -29,8 +30,8 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["ceil_log2", "int_sum_pow2", "fma32", "det_exp", "det_sqrt", "det_rsqrt", "det_silu",
-           "det_gelu_tanh"]
+__all__ = ["ceil_log2", "int_sum_pow2", "fma32", "det_exp", "det_exp_np", "det_sqrt", "det_rsqrt",
+           "det_silu", "det_gelu_tanh"]
 
 f32 = torch.float32
 
@@ -93,6 +94,28 @@ def det_exp(x: torch.Tensor) -> torch.Tensor:
     two_n = ((ni + 127) << 23).view(f32)
     # below 2^-126 the true value underflows anyway; pinned to exactly 0
     return torch.where(n < -126.0, 0.0, p * two_n)
+
+
+def det_exp_np(x):
+    """Host (NumPy) spec mirror of ``det_exp``, a copy of ``lac_tpu``'s: each
+    Horner step ``p * f + c`` is an exact f64 product and one rounding to
+    f32, the FMA that XLA's CPU backend forms. ``x``: a NumPy array; returns
+    f32."""
+    import numpy as np
+
+    def fma32_np(a, b, c):
+        return (a.astype(np.float64) * b + c).astype(np.float32)
+
+    y = (x.astype(np.float32) * np.float32(_LOG2E)).astype(np.float32)
+    n = np.floor(y)
+    f = (y - n).astype(np.float32)
+    p = np.full_like(f, np.float32(_EXP2_C[-1]))
+    for c in _EXP2_C[-2::-1]:
+        p = fma32_np(p, f, np.float64(np.float32(c)))
+    p = fma32_np(p, f, np.float64(1.0))
+    ni = np.clip(n, -126.0, 0.0).astype(np.int32)
+    two_n = ((ni + 127) << 23).view(np.float32)
+    return np.where(n < -126.0, np.float32(0.0), (p * two_n).astype(np.float32))
 
 
 def det_sqrt(x: torch.Tensor) -> torch.Tensor:

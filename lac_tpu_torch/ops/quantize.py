@@ -2,8 +2,9 @@
 
 Ports ``lac_tpu/ops/quantize.py:128-217``, the device functions of the
 LM path: ``quantize_logits`` (the float path, and ``det=True``, the det8
-forward's), ``cdf_from_freq`` and ``gather_intervals``; and
-``rescale_cdf`` (:40-69), the host coder's integer rescale, a copy.
+forward's), ``cdf_from_freq`` and ``gather_intervals``; and, as copies,
+``rescale_cdf`` (:40-69), the host coder's integer rescale, and the NumPy
+spec holders ``quantize_logits_np`` and ``cdf_from_freq_np`` (:72-114).
 
 ``quantize_logits`` has two stages, split here so that each can be held
 to the reference on its own:
@@ -26,12 +27,14 @@ its integers equal a plain cumsum's, so ``cdf_from_freq`` is a plain
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-from .detmath import det_exp, int_sum_pow2
+from .detmath import ceil_log2, det_exp, det_exp_np, int_sum_pow2
 
-__all__ = ["rescale_cdf", "quantize_float", "quantize_det", "freq_from_floor", "quantize_logits",
-           "cdf_from_freq", "gather_intervals"]
+__all__ = ["rescale_cdf", "quantize_logits_np", "cdf_from_freq_np", "quantize_float",
+           "quantize_det", "freq_from_floor", "quantize_logits", "cdf_from_freq",
+           "gather_intervals"]
 
 f32 = torch.float32
 
@@ -66,6 +69,44 @@ def rescale_cdf(cdf, denom: int):
         out[i] = c
         p = c
     return out
+
+
+def quantize_logits_np(logits: np.ndarray, prob_bits: int, det: bool = False) -> np.ndarray:
+    """Quantize float logits ``[..., V]`` to int64 frequencies summing
+    exactly to ``2**prob_bits``, every one >= 1: f32 softmax scaled to
+    ``total - V``, floored, +1 each, the residual to the first argmax.
+    ``det=True`` takes ``det_exp_np`` and the integer denominator, op for op
+    as ``quantize_det``. The host spec holder, bit-equal to ``lac_tpu``'s."""
+    v = logits.shape[-1]
+    total = 1 << prob_bits
+    if total < 2 * v:
+        raise ValueError(f"prob_bits {prob_bits} too small for vocab {v}")
+    x = logits.astype(np.float32)
+    x = x - x.max(axis=-1, keepdims=True)
+    budget = np.float32(total - v)
+    if det:
+        p = det_exp_np(x)
+        sb = 30 - ceil_log2(v)
+        pi = np.round(p * np.float32(2.0**sb)).astype(np.int32)
+        tot = pi.sum(axis=-1, keepdims=True, dtype=np.int64)
+        scale = (budget * np.float32(2.0**sb)) / tot.astype(np.float32)
+    else:
+        p = np.exp(x)
+        scale = budget / p.sum(axis=-1, keepdims=True, dtype=np.float32)
+    freq = np.floor(p * scale).astype(np.int64) + 1
+    residual = total - freq.sum(axis=-1, keepdims=True)
+    amax = np.argmax(freq, axis=-1)
+    np.put_along_axis(
+        freq, amax[..., None], np.take_along_axis(freq, amax[..., None], -1) + residual, -1
+    )
+    return freq
+
+
+def cdf_from_freq_np(freq: np.ndarray) -> np.ndarray:
+    """Exclusive-prefix CDF with a trailing total, ``[..., V+1]``:
+    ``cdf[..., 0] = 0``, ``cdf[..., -1] = total``."""
+    c = np.cumsum(freq, axis=-1)
+    return np.concatenate([np.zeros_like(c[..., :1]), c], axis=-1)
 
 
 def _check(v: int, prob_bits: int) -> None:

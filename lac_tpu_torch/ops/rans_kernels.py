@@ -11,7 +11,12 @@ Ports ``lac_tpu/ops/pallas_rans.py``:
 - ``o0n_encode_intervals`` (:742-822) -> K1, ``lac_o0n_intervals``;
 - ``rans32_encode_dense`` (:179-267) followed by ``compact_words``
   (:271-310) -> K2, ``rans32_encode``, one kernel whose result equals
-  ``compact_words(rans32_encode_dense(...))``;
+  ``compact_words(rans32_encode_dense(...))``. Neither name is kept: the
+  dense grid (a word or ``SENTINEL``, 0xFFFFFFFF, at every position) is
+  the Pallas kernel's storage layout, which ``compact_words`` then squeezes
+  into decode order; K2 writes each lane's words in decode order through a
+  per-lane pointer, so no dense grid, no ``SENTINEL`` and no compaction
+  pass exist for a caller to use;
 - ``o0n_rans32_decode`` (:849-1030) -> K3, ``lac_o0n_decode``;
 - ``o1n_encode_intervals`` (:1044-1141) -> K4, ``lac_o1n_intervals``;
 - ``o1n_rans32_decode`` (:1148-1258) -> K5, ``lac_o1n_decode``;
@@ -32,7 +37,10 @@ The plain versions are one loop per direction, ``_intervals_plain`` and
 the codec's interval and search: the nibble models' through their
 ``hi_row`` / ``lo_row`` selectors, composed into one 16-bit step;
 order0c's (``Order0CDF``) on its 257-entry CDF, at the reference turbo
-path's fixed ``v = 256`` and ``prob_bits = 16``.
+path's fixed ``v = 256`` and ``prob_bits = 16``. The reference's order0c
+wrappers also take ``v`` and ``prob_bits``, static arguments of its Pallas
+kernels; K8 and K9 are built for that one geometry, so the port's take
+neither.
 
 A wrapper runs the plain version only for a tensor on the CPU. For a CUDA
 tensor it launches the kernel (``csrc/nib_rans32.cu``: K1 and K3-K7, one

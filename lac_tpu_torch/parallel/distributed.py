@@ -50,26 +50,32 @@ def backend_for(device: torch.device) -> str:
     return "cpu:gloo,cuda:nccl" if device.type == "cuda" else "gloo"
 
 
-def distributed_init(init_method: str | None = None, world_size: int | None = None,
-                     rank: int | None = None, device=None,
+def distributed_init(coordinator: str | None = None, num_processes: int | None = None,
+                     process_id: int | None = None, device=None,
                      timeout: float | None = None) -> None:
-    """Join the process group of ``world_size`` ranks (no-op at world size
-    <= 1). Unset arguments come from ``torchrun``'s environment
-    (``WORLD_SIZE``, ``RANK``, ``env://``). On the card each rank takes
-    card ``LOCAL_RANK`` modulo the cards it sees. ``timeout``: seconds a
-    collective may wait (torch's default when None)."""
+    """Join the process group of ``num_processes`` ranks as rank
+    ``process_id`` (no-op at one process), the reference's arguments:
+    ``coordinator`` is the rendezvous, ``host:port`` (as ``tcp://host:port``)
+    or a URL torch takes (``tcp://``, ``file://``, ``env://``). Unset
+    arguments come from ``torchrun``'s environment (``WORLD_SIZE``,
+    ``RANK``, ``env://``). On the card each rank takes card ``LOCAL_RANK``
+    modulo the cards it sees. ``timeout``: seconds a collective may wait
+    (torch's default when None)."""
+    world_size = num_processes
     if world_size is None:
         world_size = int(os.environ.get("WORLD_SIZE", "1"))
     if world_size <= 1:
         return
-    if rank is None:
-        rank = int(os.environ["RANK"])
+    rank = int(os.environ["RANK"]) if process_id is None else process_id
+    init_method = coordinator or "env://"
+    if "://" not in init_method:
+        init_method = "tcp://" + init_method
     dev = resolve_device(device)
     if dev.type == "cuda":
         torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", rank))
                               % torch.cuda.device_count())
     kw = {} if timeout is None else {"timeout": datetime.timedelta(seconds=timeout)}
-    dist.init_process_group(backend_for(dev), init_method=init_method or "env://",
+    dist.init_process_group(backend_for(dev), init_method=init_method,
                             world_size=world_size, rank=rank, **kw)
 
 
@@ -81,12 +87,13 @@ def rank_and_size(group=None) -> tuple[int, int]:
     return dist.get_rank(group), dist.get_world_size(group)
 
 
-def my_block_span(n_blocks: int, rank: int | None = None,
-                  world_size: int | None = None) -> tuple[int, int]:
-    """Contiguous block span [start, end) owned by this rank of the world."""
+def my_block_span(n_blocks: int, process_id: int | None = None,
+                  n_processes: int | None = None) -> tuple[int, int]:
+    """Contiguous block span [start, end) owned by rank ``process_id`` of
+    ``n_processes`` (this rank of the world when None)."""
     r, n = rank_and_size()
-    r = r if rank is None else rank
-    n = n if world_size is None else world_size
+    r = r if process_id is None else process_id
+    n = n if n_processes is None else n_processes
     per = -(-n_blocks // n)
     start = min(r * per, n_blocks)
     return start, min(start + per, n_blocks)

@@ -10,6 +10,7 @@ ranks of the process group, one rank per device (``distributed.py``).
 
 from __future__ import annotations
 
+import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 
@@ -19,13 +20,27 @@ from .distributed import backend_for
 __all__ = ["make_mesh", "mesh_geometry"]
 
 
-def make_mesh(data: int = -1, model: int = 1, device=None) -> DeviceMesh:
+def make_mesh(data: int = -1, model: int = 1, devices=None, device=None) -> DeviceMesh:
     """Build a (data, model) mesh over the process group's ranks on
     ``device`` (the card unless the caller asks for the CPU). ``data=-1``:
-    every rank the ``model`` dim leaves. Without a process group a 1 x 1
-    mesh starts a one-rank group (its store in-process: no address, no
-    file); any other mesh needs its ranks launched (``torchrun
-    --nproc-per-node``). Every rank of the group calls it."""
+    every rank the ``model`` dim leaves. ``devices``, the reference's
+    argument, lists the mesh's devices, one a rank in rank order: this rank
+    takes ``devices[rank]``, and a list that is not one device a rank is
+    refused. Without a process group a 1 x 1 mesh starts a one-rank group
+    (its store in-process: no address, no file); any other mesh needs its
+    ranks launched (``torchrun --nproc-per-node``). Every rank of the group
+    calls it."""
+    if devices is not None:
+        if device is not None:
+            raise ValueError("make_mesh takes devices (one a rank) or device, not both")
+        devices = [resolve_device(d) for d in devices]
+        rank, n = (dist.get_rank(), dist.get_world_size()) if dist.is_initialized() else (0, 1)
+        if len(devices) != n:
+            raise ValueError(f"{len(devices)} devices for a process group of {n} ranks: "
+                             "a mesh takes one device a rank")
+        device = devices[rank]
+        if device.type == "cuda" and device.index is not None:
+            torch.cuda.set_device(device)
     dev = resolve_device(device)
     if not dist.is_initialized():
         if data not in (-1, 1) or model != 1:

@@ -47,6 +47,12 @@ The reductions each mode splits, and how (``transformer._row_parallel``):
 On the card the all-reduces go over NCCL and are captured in the coding
 step's CUDA graph (``runtime/step_graph.py``); on the CPU they go over gloo,
 eagerly. At ``model`` 1 nothing is cut and no collective runs.
+
+JAX-only, with no counterpart: the reference's GSPMD placements
+``param_pspecs``, ``param_shardings``, ``cache_pspecs`` and ``lane_pspec``
+(``PartitionSpec`` trees and ``NamedSharding``s that XLA partitions one
+program from). Here a rank holds its slice itself (``shard_params``) and
+its lanes (``lane_share``), so there is no placement to describe.
 """
 
 from __future__ import annotations
@@ -121,11 +127,13 @@ def _shard(w, dim: int, rank: int, m: int):
     return nn.Parameter(part, requires_grad=w.requires_grad)
 
 
-def shard_params(mesh: DeviceMesh, cfg: LMConfig, params: Transformer) -> Transformer:
-    """This rank's slice of ``params`` under ``cfg``'s forward (quantized
-    first for w8 and det8: module docstring), its layers carrying the
-    ``model`` group (``Block.tp``). At ``model`` 1, ``params`` as
-    ``ensure_quantized`` gives it."""
+def shard_params(mesh: DeviceMesh, params: Transformer,
+                 cfg: LMConfig | None = None) -> Transformer:
+    """This rank's slice of ``params`` under ``cfg``'s forward (default
+    ``params.cfg``; quantized first for w8 and det8: module docstring), its
+    layers carrying the ``model`` group (``Block.tp``). At ``model`` 1,
+    ``params`` as ``ensure_quantized`` gives it."""
+    cfg = params.cfg if cfg is None else cfg
     params = ensure_quantized(cfg, params)
     m = mesh_geometry(mesh)["model"]
     if m == 1:

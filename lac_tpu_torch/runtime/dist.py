@@ -221,7 +221,7 @@ def lm_compress_distributed(
     mine = _local(
         lambda: encode_lm_span(cfg, params, data, start, end, block_tokens, lanes, prob_bits,
                                overlap, cache_grow=cache_grow, window_mode=window_mode,
-                               share=share),
+                               slide_seg=slide_seg, share=share),
         share, f"lm encode span [{start},{end})")
     if mesh is None:  # the mesh's ranks gathered over data in encode_lm_span
         mine = [unpack_block(b) for b in allgather_blocks([pack_block(*t) for t in mine],
@@ -265,7 +265,8 @@ def lm_decompress_distributed(container: bytes, model=None, mesh=None, device=No
         lambda: decode_lm_span(cfg, params, blocks, start, end, c["block_tokens"], c["lanes"],
                                header.prob_bits, c["overlap"],
                                cache_grow=int(c.get("cache_grow", 0)),
-                               window_mode=c.get("window_mode", "reprime"), share=share),
+                               window_mode=c.get("window_mode", "reprime"),
+                               slide_seg=int(c.get("slide_seg", 0)), share=share),
         share, f"lm decode span [{start},{end})")
     out = b"".join(outs if share is not None else allgather_blocks(outs, nblocks))
     if len(out) != header.original_len:

@@ -15,8 +15,8 @@ chunk of 64 steps is one CUDA graph replay): each block is a lane, and a
 step runs the model's CDF, the coder and the model's update for every lane
 at once. The encoder gathers each position's interval from the model and
 hands the ``[B, T]`` intervals to ``coder/vector._encode_scan``; the
-decoder runs ``coder/vector._decode_step`` between the model's CDF and its
-update. Every value is an integer, so the containers equal ``lac_tpu``'s
+decoder runs ``coder/vector.rans_decode_step`` between the model's CDF and
+its update. Every value is an integer, so the containers equal ``lac_tpu``'s
 byte for byte on any device. A step writes the model's tables in place
 (``update_``); no two lanes write one entry, so no result depends on the
 order of a write, and the engine runs under inference mode only. The loop
@@ -35,7 +35,7 @@ import numpy as np
 import torch
 
 from ..coder.rans import encode_capacity
-from ..coder.vector import RansDecState, _decode_step, _encode_scan, rans_decode_init
+from ..coder.vector import RansDecState, _encode_scan, rans_decode_init, rans_decode_step
 from ..models.functional import ScanModel
 from ..models.registry import get_scan_model, model_config
 from ..ops.quantize import gather_intervals
@@ -100,8 +100,8 @@ def _decode_lanes(words: torch.Tensor, lengths: torch.Tensor, model: ScanModel,
 
     def step(carry, xt):
         state = carry[0] if bare else carry[:m]
-        sym, (x, _, pos) = _decode_step(RansDecState(carry[m], words, carry[m + 1]),
-                                        model.cdf(state), model.prob_bits, xt[0])
+        sym, (x, _, pos) = rans_decode_step(RansDecState(carry[m], words, carry[m + 1]),
+                                            model.cdf(state), model.prob_bits, xt[0])
         return (*_leaves(model.update_(state, sym)), x, pos), (sym,)
 
     active = torch.arange(n, device=dev)[:, None] < lengths[None, :]

@@ -24,6 +24,12 @@ token container adds ``"alphabet": "tokens"`` and ``"vocab"``, and each
 decoder refuses the other alphabet's containers, ``recover`` (through
 ``lm_decompress_prefix``) a token container, as the reference's.
 
+``encode_lm_span`` / ``decode_lm_span`` take the reference's arguments but
+``place``, which is JAX-only: the function the reference's mesh setup
+returns to put a wave's lanes on its ``NamedSharding``; here a rank's
+lanes are its ``share``. They take ``slide_seg``, which changes no step
+(``runtime/lm_engine.py``).
+
 The kv8, w8 and det8 forwards code through every call (``kv8``, ``w8``,
 ``det8``; the header records them, and a decoder resolves the container's
 modes, as the reference's :272-274). Entry points run on the card unless
@@ -92,7 +98,7 @@ def _prepare_mesh(mesh, cfg: LMConfig, params: Transformer, lanes: int):
     if mesh.device_type != dev.type:
         raise ValueError(f"the mesh is on {mesh.device_type}, the model on {dev}")
     share = lane_share(mesh, lanes)  # refuses lanes the data dim does not divide
-    return shard_params(mesh, cfg, params), share
+    return shard_params(mesh, params, cfg), share
 
 
 def _reconstruct_mesh(geom: dict | None, mesh, dev: torch.device):
@@ -222,7 +228,7 @@ def _compress(symbols, tokens: bool, model_ref: str, block_tokens: int, lanes: i
         BlockEntry(*t)
         for t in encode_lm_span(cfg, params, symbols, 0, nblocks, block_tokens, lanes,
                                 prob_bits, overlap, cache_grow=cache_grow,
-                                window_mode=window_mode, share=share)
+                                window_mode=window_mode, slide_seg=slide_seg, share=share)
     ]
     config = {
         "model_ref": model_ref,
@@ -349,7 +355,8 @@ def _decode_blocks(cfg, params, share, header, blocks, ngood: int,
     parts = decode_lm_span(
         cfg, params, blocks, 0, ngood, c["block_tokens"], c["lanes"], header.prob_bits,
         c["overlap"], sym_dtype=sym_dtype, cache_grow=int(c.get("cache_grow", 0)),
-        window_mode=c.get("window_mode", "reprime"), share=share)
+        window_mode=c.get("window_mode", "reprime"), slide_seg=int(c.get("slide_seg", 0)),
+        share=share)
     return b"".join(parts)
 
 
@@ -443,7 +450,7 @@ def _gather_lanes(mine: dict, start: int, end: int, lanes: int, share: Lanes | N
 
 def encode_lm_span(cfg: LMConfig, params: Transformer, data, start: int, end: int,
                    block_tokens: int, lanes: int, prob_bits: int, overlap: int,
-                   cache_grow: int = 0, window_mode: str = "reprime",
+                   cache_grow: int = 0, window_mode: str = "reprime", slide_seg: int = 0,
                    share: Lanes | None = None):
     """Encode blocks [start, end) of ``data`` (bytes, or a 1-D int array of
     token ids) in fixed-shape waves of ``lanes`` on the parameters' device;
@@ -454,7 +461,8 @@ def encode_lm_span(cfg: LMConfig, params: Transformer, data, start: int, end: in
     before wave i's words are fetched (CUDA launches are asynchronous, so
     the card runs ahead while the host packs). ``share``: on a mesh, this
     rank codes its ``Lanes`` of each wave and the blocks are gathered over
-    ``data`` (every rank returns all of them)."""
+    ``data`` (every rank returns all of them). ``slide_seg``: as
+    ``lm_engine.lm_encode_windowed`` takes it (no step changes)."""
     if isinstance(data, (bytes, bytearray, memoryview)):
         arr, rdt = np.frombuffer(data, dtype=np.uint8), np.dtype(np.uint8)
     else:
@@ -490,7 +498,7 @@ def encode_lm_span(cfg: LMConfig, params: Transformer, data, start: int, end: in
             lengths[j - own.start] = len(chunk)
         words_d, nwords_d = lm_encode_windowed(
             cfg, params, torch.from_numpy(tokens).to(dev), torch.from_numpy(lengths).to(dev),
-            prob_bits, overlap, cache_grow, mode=window_mode)
+            prob_bits, overlap, cache_grow, mode=window_mode, slide_seg=slide_seg)
         if pending is not None:
             finish(*pending)
         pending = (w0, own, words_d, nwords_d)
@@ -502,7 +510,8 @@ def encode_lm_span(cfg: LMConfig, params: Transformer, data, start: int, end: in
 def decode_lm_span(cfg: LMConfig, params: Transformer, blocks, start: int, end: int,
                    block_tokens: int, lanes: int, prob_bits: int, overlap: int,
                    sym_dtype=np.uint8, cache_grow: int = 0,
-                   window_mode: str = "reprime", share: Lanes | None = None) -> list[bytes]:
+                   window_mode: str = "reprime", slide_seg: int = 0,
+                   share: Lanes | None = None) -> list[bytes]:
     """Decode container blocks [start, end); returns their symbols packed as
     ``sym_dtype`` (uint8 for the byte alphabet, ``_raw_dtype(vocab)`` for
     the token alphabet: the encoder's raw packing) in block order, with the
@@ -541,7 +550,8 @@ def decode_lm_span(cfg: LMConfig, params: Transformer, blocks, start: int, end: 
         if any_coded:
             syms_d = lm_decode_windowed(
                 cfg, params, torch.from_numpy(words).to(dev), torch.from_numpy(lengths).to(dev),
-                prob_bits, block_tokens, overlap, cache_grow, mode=window_mode)
+                prob_bits, block_tokens, overlap, cache_grow, mode=window_mode,
+                slide_seg=slide_seg)
         if pending is not None:
             finish(*pending)
         pending = (w0, own, syms_d)

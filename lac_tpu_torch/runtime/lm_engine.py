@@ -325,24 +325,34 @@ def lm_decode(cfg: LMConfig, params: Transformer, words, lengths, prob_bits: int
     return _decode(cfg, params, words, lengths, prob_bits, t_len, cache_grow, "reprime", 2)
 
 
+def _check_slide_seg(slide_seg) -> None:
+    """``slide_seg`` as the LM functions take it: an int >= 0, which changes
+    no step of the port (module docstring); anything else is refused."""
+    if isinstance(slide_seg, bool) or not isinstance(slide_seg, int) or slide_seg < 0:
+        raise ValueError(f"slide_seg must be an int >= 0, got {slide_seg!r}")
+
+
 def lm_encode_windowed(cfg: LMConfig, params: Transformer, tokens, lengths, prob_bits: int,
-                       overlap: int = 2, cache_grow: int = 0, mode: str = "reprime"):
+                       overlap: int = 2, cache_grow: int = 0, mode: str = "reprime",
+                       slide_seg: int = 0):
     """``lm_encode`` for lanes of any length. Past the model context,
     ``mode`` picks the schedule: "reprime" re-primes the cache every
     ``window // overlap`` tokens, "slide" rings a ``cfg.max_seq`` cache with
     global RoPE positions (full-window context at every token; slide
     ignores ``cache_grow``). The mode and ``overlap`` are part of the
     bitstream's schedule: the container records them and the decoder must
-    pass the same. ``lac_tpu``'s ``slide_seg`` changes no step here (module
-    docstring), so the engine does not take it."""
+    pass the same. ``slide_seg`` is ``lac_tpu``'s argument, checked
+    (``_check_slide_seg``): it changes no step here (module docstring)."""
+    _check_slide_seg(slide_seg)
     return _encode(cfg, params, tokens, lengths, prob_bits, cache_grow, mode, overlap)
 
 
 def lm_decode_windowed(cfg: LMConfig, params: Transformer, words, lengths, prob_bits: int,
                        t_len: int, overlap: int = 2, cache_grow: int = 0,
-                       mode: str = "reprime") -> torch.Tensor:
+                       mode: str = "reprime", slide_seg: int = 0) -> torch.Tensor:
     """``lm_decode`` for lanes of any length, under the encoder's schedule
-    (``lm_encode_windowed``)."""
+    (``lm_encode_windowed``; ``slide_seg`` likewise checked, and no step)."""
+    _check_slide_seg(slide_seg)
     return _decode(cfg, params, words, lengths, prob_bits, t_len, cache_grow, mode, overlap)
 
 

@@ -16,7 +16,7 @@ cache holds four buffers, all captured). A step reads only these tensors
 and the parameters: the model step and the integer CDF
 (``_step_cdf``), then the direction's tail, which codes position ``t`` from
 the CDF (``SegIntervals``: its interval, ``gather_intervals``;
-``SegDecode``: its symbol, ``_decode_step``), writes it at column ``t``
+``SegDecode``: its symbol, ``rans_decode_step``), writes it at column ``t``
 and advances ``t``; the model step wrote the cache at ``pos`` and advanced
 ``pos``. No value a step reads is a host number that changes from step to
 step, so one graph serves every position at its width.
@@ -44,7 +44,7 @@ from __future__ import annotations
 
 import torch
 
-from ..coder.vector import _decode_step, rans_decode_init
+from ..coder.vector import rans_decode_step, rans_decode_init
 from ..models.transformer import LMConfig, Transformer, forward, index_write
 from ..ops.quantize import cdf_from_freq, gather_intervals, quantize_logits
 
@@ -195,7 +195,7 @@ class SegDecode(_Runner):
         self.symbols = torch.zeros((self.lanes, t_len), dtype=torch.int64, device=self.device)
 
     def code(self, cdf: torch.Tensor) -> None:
-        sym, state = _decode_step(self.state, cdf, self.prob_bits, self.t < self.lengths)
+        sym, state = rans_decode_step(self.state, cdf, self.prob_bits, self.t < self.lengths)
         self.state.x.copy_(state.x)
         self.state.pos.copy_(state.pos)
         index_write(self.symbols, 1, self.t, sym[:, None])

@@ -2,7 +2,8 @@
 
 Ports ``lac_tpu/train.py``: ``lm_loss`` (:33-50), ``train_byte_lm``
 (:53-186) and the checkpoint format, ``save_checkpoint`` and
-``load_checkpoint`` (:196-269).
+``load_checkpoint`` (:196-269). ``lm_loss``'s ``unroll`` is JAX-only (the
+unroll of the reference's ``lax.scan`` over layers; ``models/transformer.py``).
 
 What is the reference's and must stay so:
 

@@ -150,7 +150,7 @@ def test_my_block_span_is_the_reference(n_blocks, world):
 def test_world_of_one():
     """Without a process group: no-op init, the whole span, gathers that
     return their input, and a refusal of a short payload list."""
-    PD.distributed_init(world_size=1, device="cpu")
+    PD.distributed_init(num_processes=1, device="cpu")
     assert not torch.distributed.is_initialized()
     assert PD.my_block_span(7) == (0, 7)
     assert PD.allgather_blocks([b"a", b"bc"], 2) == [b"a", b"bc"]

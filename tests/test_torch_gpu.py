@@ -908,3 +908,135 @@ def test_hf_checkpoint_loads_onto_the_card_as_on_the_cpu(cuda, tmp_path, preset)
     for name, p in got.items():
         assert p.device.type == "cuda", name
         assert torch.equal(p.cpu().view(torch.int16), want[name].view(torch.int16)), name
+
+
+def test_byte12l_mqa_det8_container_equals_the_cpus(cuda):
+    """byte-12l-mqa (one KV head for six query heads) at full width: its det8
+    container of its own greedy continuation (made on the CPU, so that the
+    blocks are coded) is the same bytes on the card as on the CPU, and each
+    decodes on the other."""
+    from lac_tpu_torch.models import lm_registry
+    from lac_tpu_torch.models import transformer as T
+    from lac_tpu_torch.runtime import lm_api
+    from lac_tpu_torch.stream.container import read_container
+
+    ref = "prng:byte-12l-mqa:0"
+    cfg, cpu = lm_registry.resolve_lm(ref, device="cpu")
+    assert (cfg.n_heads, cfg.n_kv_heads) == (6, 1)
+    cache = T.init_cache(cfg, 2)
+    tok = torch.tensor([ord("a"), ord("{")])
+    out = [tok]
+    with torch.no_grad():
+        for _ in range(63):
+            logits, cache = T.forward(cfg, cpu, tok[:, None], cache)
+            tok = logits[:, -1].argmax(-1)
+            out.append(tok)
+    data = torch.stack(out, 1).reshape(-1).numpy().astype(np.uint8).tobytes()
+    kw = dict(block_tokens=64, lanes=2, det8=True)
+    want = lm_api.lm_compress_bytes(data, ref, model=(cfg, cpu), device="cpu", **kw)
+    gpu = lm_registry.resolve_lm(ref, device=cuda)
+    got = lm_api.lm_compress_bytes(data, ref, model=gpu, **kw)
+    assert got == want
+    assert all(b.token_count == 64 for b in read_container(got)[1])
+    assert lm_api.lm_decompress_bytes(want, model=gpu) == data
+    assert lm_api.lm_decompress_bytes(got, model=(cfg, cpu), device="cpu") == data
+
+
+# C5's reproducer, case by case: plain one-element launches added before
+# each case, 1, 3.5, 7, 12 and 20 million in all
+C5_LAUNCHES = (1_000_000, 2_500_000, 3_500_000, 5_000_000, 8_000_000)
+C5_K1, C5_BURST = "nib_intervals_kernel<1, 16>", 64
+_c5_done = [0]
+
+
+def _plain_session(syms, x, path) -> dict:
+    """A plain torch.profiler session of C5_BURST one-element launches then
+    one K1 launch: its launches, the first one's CUPTI correlation id, how
+    many lost their kernel, counted from the first on, and whether K1's
+    kernel is there."""
+    import json
+
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(C5_BURST):
+            x.add_(1)
+        torch.cuda.synchronize()
+        rk.o0n_encode_intervals(syms, RATE)
+        torch.cuda.synchronize()
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = {e["args"].get("correlation"): e["name"] for e in events
+               if e.get("cat") == "kernel"}
+    launches = sorted((e["ts"], e["args"].get("correlation")) for e in events
+                      if e.get("cat") == "cuda_runtime" and "Launch" in e.get("name", ""))
+    lost = [c not in kernels for _, c in launches]
+    return {"launches": len(launches), "first_correlation": launches[0][1],
+            "lost_prefix": lost.index(False) if False in lost else len(lost),
+            "k1": any(C5_K1 in n for n in kernels.values())}
+
+
+@pytest.mark.parametrize("launches", C5_LAUNCHES)
+def test_profile_trace_names_k1_late_in_a_process(cuda, tmp_path, monkeypatch, record_property,
+                                                  launches):
+    """ROADMAP C5's reproducer: a world-1 NCCL group with an all-reduce
+    captured in a CUDA graph and replayed, then ``launches`` more small
+    launches, after which a plain torch.profiler session loses the kernels
+    of its first few launches (lac_tpu_torch/metrics.py; the loss, with the
+    session's first correlation id, is printed and recorded as a property);
+    profile_trace around one K1 launch still names K1, three times over.
+    Without its warm-up it either names K1 or raises and writes nothing:
+    never a trace without the launch's kernel."""
+    import json
+
+    import torch.distributed as dist
+
+    from lac_tpu_torch import metrics
+    from lac_tpu_torch.parallel import make_mesh
+    from lac_tpu_torch.parallel.shard import TP
+
+    syms = torch.from_numpy(np.resize(np.frombuffer(b"profile me " * 4, np.uint8),
+                                      (4096, 1024)).copy()).to(cuda)
+    rk.o0n_encode_intervals(syms, RATE)
+    try:
+        tp = TP(make_mesh(1, 1).get_group("model"), 1)
+        acc = torch.arange(12, dtype=torch.int32, device=cuda)
+        stream = torch.cuda.Stream()
+        stream.wait_stream(torch.cuda.current_stream())
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.stream(stream):
+            tp.sum(acc)
+            with torch.cuda.graph(graph, stream=stream):
+                tp.sum(acc)
+        torch.cuda.current_stream().wait_stream(stream)
+        graph.replay()
+        x = torch.zeros(1, device=cuda)
+        for _ in range(launches):
+            x.add_(1)
+        torch.cuda.synchronize()
+        _c5_done[0] += launches
+        plain = _plain_session(syms, x, str(tmp_path / "plain.json"))
+        print(f"C5 after {_c5_done[0]} plain launches in this test: {plain}")
+        for key, value in plain.items():
+            record_property(key, value)
+        for i in range(3):
+            with metrics.profile_trace(str(tmp_path / f"t{i}")) as path:
+                rk.o0n_encode_intervals(syms, RATE)
+            with open(path) as f:
+                events = json.load(f)["traceEvents"]
+            assert sum(C5_K1 in e.get("name", "") for e in events
+                       if e.get("cat") == "kernel") == 1
+            assert any(e.get("name") == metrics.WARM_UP for e in events)
+        monkeypatch.setattr(metrics, "warm_up", lambda torch: None)
+        try:
+            with metrics.profile_trace(str(tmp_path / "bare")) as path:
+                rk.o0n_encode_intervals(syms, RATE)
+            with open(path) as f:
+                assert C5_K1 in f.read()
+        except RuntimeError as e:
+            assert "have no device event" in str(e)
+            assert not (tmp_path / "bare" / "trace.json").exists()
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()

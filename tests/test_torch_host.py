@@ -172,6 +172,45 @@ def test_profile_trace_and_logger(tmp_path):
     assert set(t.report()) == {"name", "seconds", "MB_per_s", "symbols_per_s"}
 
 
+def _trace(path, launches, kernels):
+    """A Chrome trace of a warm-up span, ``launches`` runtime launches and
+    ``kernels`` device events (each a correlation id)."""
+    ev = [{"ph": "X", "cat": "user_annotation", "name": metrics.WARM_UP, "ts": 0, "dur": 10},
+          {"ph": "X", "cat": "cuda_runtime", "name": "cudaLaunchKernel", "ts": 5, "dur": 1,
+           "args": {"correlation": 1}},
+          {"ph": "X", "cat": "kernel", "name": "warm", "ts": 6, "dur": 1,
+           "args": {"correlation": 1}}]
+    ev += [{"ph": "X", "cat": "cuda_runtime", "name": name, "ts": 20 + i, "dur": 1,
+            "args": {"correlation": c}} for i, (name, c) in enumerate(launches)]
+    ev += [{"ph": "X", "cat": "kernel", "name": "k", "ts": 40 + i, "dur": 1,
+            "args": {"correlation": c}} for i, c in enumerate(kernels)]
+    with open(path, "w") as f:
+        json.dump({"traceEvents": ev}, f)
+
+
+def test_profile_trace_refuses_a_blind_trace(tmp_path):
+    """The check behind profile_trace on the card (ROADMAP C5): a trace whose
+    kernel launches after the warm-up each have a device event passes; one
+    that lacks any launch's kernel raises and is removed. The warm-up's own
+    launch may lose its kernel, which is what it is for."""
+    ok = tmp_path / "ok.json"
+    _trace(ok, [("cudaLaunchKernel", 7), ("cudaLaunchKernelExC", 8), ("cudaMemcpyAsync", 9)],
+           [7, 8])
+    metrics._check_device_events(str(ok))
+    assert ok.exists()
+    warm_lost = tmp_path / "warm.json"
+    _trace(warm_lost, [("cudaLaunchKernel", 7)], [7])
+    ev = json.loads(warm_lost.read_text())
+    ev["traceEvents"] = [e for e in ev["traceEvents"] if e["name"] != "warm"]
+    warm_lost.write_text(json.dumps(ev))
+    metrics._check_device_events(str(warm_lost))
+    blind = tmp_path / "blind.json"
+    _trace(blind, [("cudaLaunchKernel", 7), ("cudaLaunchKernel", 8)], [8])
+    with pytest.raises(RuntimeError, match="1 of 2 kernel launches have no device event"):
+        metrics._check_device_events(str(blind))
+    assert not blind.exists()
+
+
 def test_native_source_is_lac_tpu_s():
     with open(native._SRC, "rb") as f, open(ref_native._SRC, "rb") as g:
         assert f.read() == g.read()

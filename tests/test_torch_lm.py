@@ -348,7 +348,7 @@ def test_unported_modes_and_refs_raise(trained):
         assert lm_api.lm_decompress_bytes(c, model=(cfg, model), device="cpu") == DATA[:200]
     with pytest.raises(ValueError, match="torchrun --nproc-per-node"):
         lm_api.lm_compress_bytes(DATA, model=(cfg, model), device="cpu",
-                                 mesh=MeshConfig(data=2).make("cpu"))
+                                 mesh=MeshConfig(data=2).make(device="cpu"))
     # a block past the context codes (tests/test_torch_window.py), det8's too
     det8 = dataclasses.replace(cfg, det8=True)
     toks = np.frombuffer(DATA[:300], dtype=np.uint8).astype(np.int64)[None]

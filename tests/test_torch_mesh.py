@@ -131,7 +131,7 @@ def test_one_by_one_mesh(one_rank, mode, ref, single):
     mesh = make_mesh(1, 1, device="cpu")
     cfg, params = resolve_lm(ref, device="cpu")
     cfg = dataclasses.replace(cfg, **W.MODES[mode])
-    sharded = shard_params(mesh, cfg, params)
+    sharded = shard_params(mesh, params, cfg)
     assert all(lyr.tp is None for lyr in sharded.layers)
     assert (sharded is params) == (mode in ("float", "kv8"))  # w8, det8: quantized
     c = lm_api.lm_compress_bytes(W.LM_DATA, model_ref=ref, mesh=mesh, **W.MODES[mode],

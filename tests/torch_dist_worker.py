@@ -150,7 +150,7 @@ def two(out: str, rank: int, ref: str) -> None:
         plain, mesh=tp, device=CPU)))
     # float logits of the tensor-parallel model: a prefill, then 2 cached steps
     cfg, params = resolve_lm(ref, device=CPU)
-    sharded = shard_params(tp, cfg, params)
+    sharded = shard_params(tp, params, cfg)
     toks = torch.from_numpy(LOGIT_TOKENS)
     with torch.inference_mode():
         save(out, "logits-prefill", rank, T.forward(cfg, sharded, toks, prefill=True).numpy())
