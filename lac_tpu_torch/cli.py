@@ -23,7 +23,10 @@ code an LM on a (data, model) mesh: under ``torchrun`` they take the
 launched ranks (every rank runs the same command, rank 0 writes the
 output); without a launch, a 1 x 1 mesh starts a one-rank group, and any
 other refuses, naming ``torchrun --nproc-per-node``. ``decompress``
-rebuilds a float container's mesh the same way. ``bench`` round-trips a
+rebuilds a float container's mesh the same way. ``--trace FILE`` on
+``compress`` and ``decompress`` installs a tracer for the command
+(``metrics.tracing``) and appends its spans and counters to FILE as JSON
+lines at the end. ``bench`` round-trips a
 file through ``compress_bytes`` / ``decompress_bytes`` after one warm
 run and prints the reference's JSON keys; each timed region ends with the
 result in host bytes.
@@ -138,6 +141,27 @@ def _cmd_decompress(args) -> int:
         print(f"{args.file}: {len(data)} -> {len(out)} bytes "
               f"({len(out) / dt / 1e6:.2f} MB/s) -> {dst}")
     return 0
+
+
+TRACE_HELP = ("record the program's spans and counters (lac_tpu_torch.metrics) and append them "
+              "to FILE as JSON lines at the end (rank 0)")
+
+
+def _traced(args) -> int:
+    """The command under a fresh tracer; rank 0 appends its records to
+    ``args.trace``, also when the command raises."""
+    from .metrics import JsonlLogger, tracing
+
+    with tracing() as tracer:
+        try:
+            return args.fn(args)
+        finally:
+            if _is_rank0():
+                logger = JsonlLogger(args.trace)
+                try:
+                    tracer.write(logger)
+                finally:
+                    logger.close()
 
 
 def _cmd_verify(args) -> int:
@@ -323,12 +347,14 @@ def main(argv=None) -> int:
     c.add_argument("--mesh-model", type=int, default=1,
                    help="device mesh tensor-parallel span (lm only)")
     c.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    c.add_argument("--trace", metavar="FILE", default=None, help=TRACE_HELP)
     c.set_defaults(fn=_cmd_compress)
 
     d = sub.add_parser("decompress", help="decompress a .lac container")
     d.add_argument("file")
     d.add_argument("-o", "--output")
     d.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    d.add_argument("--trace", metavar="FILE", default=None, help=TRACE_HELP)
     d.set_defaults(fn=_cmd_decompress)
 
     i = sub.add_parser("info", help="show container metadata")
@@ -378,6 +404,8 @@ def main(argv=None) -> int:
     if not had_group and int(os.environ.get("WORLD_SIZE", "1")) > 1 and hasattr(args, "device"):
         distributed_init(device=args.device)  # a torchrun launch: join its ranks
     try:
+        if getattr(args, "trace", None):
+            return _traced(args)
         return args.fn(args)
     finally:
         if not had_group and dist.is_initialized():

@@ -29,6 +29,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..metrics import span
 from ..utils.scan import scan
 from .rans import RANS_L
 
@@ -54,36 +55,37 @@ def _encode_scan(cdf_lo: torch.Tensor, freq: torch.Tensor, lengths: torch.Tensor
     (emission runs in decreasing t), so one stable sort per lane places
     them: no per-step indexed write."""
     b, t_len = freq.shape
-    dev = freq.device
-    x = torch.full((b,), RANS_L, dtype=i64, device=dev)
-    n_emit = torch.zeros((b,), dtype=i64, device=dev)
-    body = torch.zeros((b, 0), dtype=i64, device=dev)
-    if t_len:
-        # [T, B], a step's lanes contiguous
-        active = torch.arange(t_len, device=dev)[:, None] < lengths.to(i64)[None, :]
-        # a position past a lane's length is never coded: give it f 1 so
-        # its (discarded) division is defined on every device
-        f_all = torch.where(active, freq.t().to(i64), 1)
-        x_max_all = ((RANS_L >> prob_bits) << 32) * f_all
+    with span("lac.coder.encode_scan", lanes=b, T=t_len):
+        dev = freq.device
+        x = torch.full((b,), RANS_L, dtype=i64, device=dev)
+        n_emit = torch.zeros((b,), dtype=i64, device=dev)
+        body = torch.zeros((b, 0), dtype=i64, device=dev)
+        if t_len:
+            # [T, B], a step's lanes contiguous
+            active = torch.arange(t_len, device=dev)[:, None] < lengths.to(i64)[None, :]
+            # a position past a lane's length is never coded: give it f 1 so
+            # its (discarded) division is defined on every device
+            f_all = torch.where(active, freq.t().to(i64), 1)
+            x_max_all = ((RANS_L >> prob_bits) << 32) * f_all
 
-        def step(carry, xt):
-            (x,), (act, f, x_max, lo) = carry, xt
-            emit = act & (x >= x_max)
-            x_ren = torch.where(emit, x >> 32, x)
-            x_new = ((x_ren // f) << prob_bits) + (x_ren % f) + lo
-            return (torch.where(act, x_new, x),), (emit, x & _MASK32)
+            def step(carry, xt):
+                (x,), (act, f, x_max, lo) = carry, xt
+                emit = act & (x >= x_max)
+                x_ren = torch.where(emit, x >> 32, x)
+                x_new = ((x_ren // f) << prob_bits) + (x_ren % f) + lo
+                return (torch.where(act, x_new, x),), (emit, x & _MASK32)
 
-        (x,), (emits, lows) = scan(step, (x,), (active, f_all, x_max_all,
-                                                cdf_lo.t().to(i64)), reverse=True)
-        emit_bt = emits.t()
-        n_emit = emit_bt.sum(1)
-        order = torch.sort((~emit_bt).to(torch.uint8), dim=1, stable=True).indices
-        body = torch.gather(lows.t(), 1, order)
-        body = torch.where(torch.arange(t_len, device=dev)[None, :] < n_emit[:, None], body, 0)
-    words = torch.cat([(x >> 32)[:, None], (x & _MASK32)[:, None], body], dim=1)
-    if cap > words.shape[1]:
-        words = torch.cat([words, words.new_zeros((b, cap - words.shape[1]))], dim=1)
-    return words[:, :cap], n_emit + 2
+            (x,), (emits, lows) = scan(step, (x,), (active, f_all, x_max_all,
+                                                    cdf_lo.t().to(i64)), reverse=True)
+            emit_bt = emits.t()
+            n_emit = emit_bt.sum(1)
+            order = torch.sort((~emit_bt).to(torch.uint8), dim=1, stable=True).indices
+            body = torch.gather(lows.t(), 1, order)
+            body = torch.where(torch.arange(t_len, device=dev)[None, :] < n_emit[:, None], body, 0)
+        words = torch.cat([(x >> 32)[:, None], (x & _MASK32)[:, None], body], dim=1)
+        if cap > words.shape[1]:
+            words = torch.cat([words, words.new_zeros((b, cap - words.shape[1]))], dim=1)
+        return words[:, :cap], n_emit + 2
 
 
 def rans_encode_batch(cdf_lo: torch.Tensor, freq: torch.Tensor, lengths: torch.Tensor,

@@ -1,4 +1,5 @@
-"""Observability: entropy accounting, throughput counters, profiler hooks.
+"""Observability: entropy accounting, throughput counters, profiler hooks,
+and the program's own spans and counters.
 
 Ports ``lac_tpu/metrics.py``: ``stream_stats``, ``Throughput``,
 ``ngram_stats``, ``measure_compress`` (over the port's oracle coder) and
@@ -27,6 +28,24 @@ bits_per_token live counters, arithmetic_coding.py:243-247) vectorized per
 stream, and adds what it lacked: the measured-vs-ideal coder-overhead gap as
 a regression metric, wall-clock throughput, profiler trace capture, and
 structured JSONL logs (SURVEY.md §5 tracing/metrics rows).
+
+Spans and counters (``Tracer``, ``span``, ``count``): the LM coding path
+marks its layers (the file API's calls, waves, host packing and container,
+the engine's schedule, the step runner's eager steps, graph captures and
+replays, the vector coder's encode scan) with ``span(name, **meta)`` and
+counts what it did with ``count(name, n)``. With no tracer installed, the
+default, each is one ``None`` check: nothing is recorded, no clock is read
+and no ``torch`` function is called. ``tracing()`` (or ``set_tracer``)
+installs a ``Tracer``, which keeps every record in memory: a span's name,
+``t0`` / ``t1`` on ``time.perf_counter``, its ``id``, its ``parent`` (the
+enclosing span's id), its ``call`` (the outermost span's id, shared by
+every span of one API call) and its ``meta``; a counter's name, time and
+increment. A span is also a ``torch.profiler.record_function`` named
+``span:<name>``, so that inside a profiler session it annotates the trace
+on the trace's own clock, beside the kernels. Spans never synchronize the
+device: they time the host, and the profiler's trace is the device's side.
+``Tracer.write`` writes the records through ``JsonlLogger``, one line each.
+Nothing reads ``Throughput`` on the coding path.
 """
 
 from __future__ import annotations
@@ -49,6 +68,11 @@ __all__ = [
     "JsonlLogger",
     "ngram_stats",
     "measure_compress",
+    "Tracer",
+    "set_tracer",
+    "tracing",
+    "span",
+    "count",
 ]
 
 
@@ -274,3 +298,130 @@ class JsonlLogger:
         rec = {"ts": round(time.time(), 3), "event": event, **fields}
         self._fh.write(json.dumps(rec, sort_keys=True) + "\n")
         self._fh.flush()
+
+    def close(self) -> None:
+        """Close the file this logger opened (standard error stays open)."""
+        if self._fh is not sys.stderr:
+            self._fh.close()
+
+
+class Tracer:
+    """The spans and counters of a traced process, in memory (module
+    docstring). ``records``: dicts in the order the spans opened and the
+    counts were made, ``kind`` ``"span"`` (``name``, ``t0``, ``t1``, ``id``,
+    ``parent``, ``call``, ``meta``) or ``"count"`` (``name``, ``t``, ``n``,
+    ``call``); ``totals``: each counter's running sum. Spans nest by the
+    order they are entered, so a tracer serves one thread (the coding
+    path's)."""
+
+    def __init__(self):
+        self.records: list[dict] = []
+        self.totals: dict[str, int] = {}
+        self._open: list[dict] = []  # the spans entered and not yet left, outermost first
+        self._ids = 0
+
+    def spans(self, name: str | None = None) -> list[dict]:
+        """The span records, all or those named ``name``."""
+        return [r for r in self.records if r["kind"] == "span" and name in (None, r["name"])]
+
+    def count(self, name: str, n: int = 1) -> None:
+        self.totals[name] = self.totals.get(name, 0) + n
+        self.records.append({"kind": "count", "name": name, "t": time.perf_counter(), "n": n,
+                             "call": self._open[0]["id"] if self._open else None})
+
+    def write(self, logger: JsonlLogger) -> None:
+        """Every record through ``logger``, one JSON line each (its
+        ``event`` is the record's kind)."""
+        for r in self.records:
+            logger.log(r["kind"], **{k: v for k, v in r.items() if k != "kind"})
+
+
+class _Span:
+    """One span of an installed tracer; ``set`` adds to its meta."""
+
+    __slots__ = ("_tracer", "_rec", "_annotation")
+
+    def __init__(self, tracer: Tracer, name: str, meta: dict):
+        self._tracer, self._rec = tracer, {"kind": "span", "name": name, "meta": meta}
+
+    def __enter__(self):
+        import torch
+
+        tr, rec = self._tracer, self._rec
+        rec["id"], tr._ids = tr._ids, tr._ids + 1
+        rec["parent"] = tr._open[-1]["id"] if tr._open else None
+        rec["call"] = tr._open[0]["id"] if tr._open else rec["id"]
+        tr._open.append(rec)
+        tr.records.append(rec)
+        self._annotation = torch.profiler.record_function(f"span:{rec['name']}")
+        self._annotation.__enter__()
+        rec["t0"] = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        self._rec["t1"] = time.perf_counter()
+        self._annotation.__exit__(*exc)
+        self._tracer._open.pop()
+        return False
+
+    def set(self, **meta) -> None:
+        self._rec["meta"].update(meta)
+
+
+class _NoSpan:
+    """The span of a process with no tracer: records nothing. It is false,
+    so that a caller can skip computing meta (``if sp: sp.set(...)``)."""
+
+    __slots__ = ()
+
+    def __bool__(self) -> bool:
+        return False
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        return False
+
+    def set(self, **meta) -> None:
+        pass
+
+
+_NO_SPAN = _NoSpan()
+_tracer: Tracer | None = None
+
+
+def set_tracer(tracer: Tracer | None) -> Tracer | None:
+    """Install ``tracer`` (None: none) for the process; returns the one it
+    replaces."""
+    global _tracer
+    before, _tracer = _tracer, tracer
+    return before
+
+
+@contextlib.contextmanager
+def tracing():
+    """Install a fresh ``Tracer`` for the enclosed region and yield it; the
+    tracer installed before comes back on the way out."""
+    tracer = Tracer()
+    before = set_tracer(tracer)
+    try:
+        yield tracer
+    finally:
+        set_tracer(before)
+
+
+def span(name: str, **meta):
+    """A context manager that records a span ``name`` with ``meta`` (JSON
+    values) in the installed tracer, or does nothing when there is none."""
+    tracer = _tracer
+    if tracer is None:
+        return _NO_SPAN
+    return _Span(tracer, name, meta)
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add ``n`` to the counter ``name`` of the installed tracer, if any."""
+    tracer = _tracer
+    if tracer is not None:
+        tracer.count(name, n)

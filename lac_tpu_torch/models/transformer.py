@@ -153,6 +153,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from ..metrics import span
 from ..ops.attention import causal_attention
 from ..ops.detmath import ceil_log2, det_exp, det_gelu_tanh, det_rsqrt, det_silu, fma32, \
     int_sum_pow2
@@ -502,7 +503,7 @@ def _quantized(cfg: LMConfig, params: Transformer, cls) -> Transformer:
     values as stored, as the reference quantizes them (its bf16 configs
     store the embedding in f32); the embeddings, norms and biases are
     ``params``' own tensors, shared. ``params`` is left as it was."""
-    with torch.no_grad():
+    with span("lac.model.quantize", kind="w8" if cls is W8 else "det8"), torch.no_grad():
         model = Transformer(cfg, device="meta", w8=True)
         model.embed, model.final_norm = params.embed, params.final_norm
         model.pos_embed = params.pos_embed

@@ -61,6 +61,7 @@ import numpy as np
 import torch
 
 from ..coder.rans import encode_capacity
+from ..metrics import count, span
 from ..models.lm_registry import resolve_lm
 from ..models.transformer import LMConfig, Transformer, ensure_quantized
 from ..parallel.distributed import allgather_lists, pack_block, rank_and_size, unpack_block
@@ -209,47 +210,53 @@ def _compress(symbols, tokens: bool, model_ref: str, block_tokens: int, lanes: i
               w8: bool, cache_grow: int, window_mode: str, slide_seg, device) -> bytes:
     """One owner of both alphabets' encode (``lm_compress_bytes`` and
     ``lm_compress_tokens``)."""
-    dev = resolve_device(device)
-    cfg, params = _model_on(model, model_ref, max_seq, dev)
-    cfg = _cfg_for_det8(cfg, det8, kv8=kv8, w8=w8)
-    params = ensure_quantized(cfg, params)  # once for the call, not once a wave
-    params, share = _prepare_mesh(mesh, cfg, params, lanes)
-    window_mode = _resolve_window_mode(window_mode, cfg)
-    slide_seg = _resolve_slide_seg(slide_seg, window_mode, cfg, block_tokens)
-    if tokens:
-        symbols = _token_array(symbols, cfg.vocab)
-    elif cfg.vocab < 256:
-        raise ValueError("byte-level coding needs vocab >= 256")
-    prob_bits = auto_prob_bits(cfg, prob_bits)
-    n = len(symbols)
-    nblocks = max(1, -(-n // block_tokens))
-    fingerprint = lm_fingerprint(cfg, params, prob_bits, cache_grow, slide_seg)
-    blocks = [
-        BlockEntry(*t)
-        for t in encode_lm_span(cfg, params, symbols, 0, nblocks, block_tokens, lanes,
-                                prob_bits, overlap, cache_grow=cache_grow,
-                                window_mode=window_mode, slide_seg=slide_seg, share=share)
-    ]
-    config = {
-        "model_ref": model_ref,
-        "max_seq": cfg.max_seq,
-        "block_tokens": block_tokens,
-        "lanes": lanes,
-        "overlap": overlap,
-        "fingerprint": fingerprint,
-        "mesh": _mesh_geometry(mesh),
-        "det8": bool(cfg.det8),
-        "kv8": bool(cfg.kv8),
-        "w8": bool(cfg.w8),
-        "cache_grow": int(cache_grow),
-        "window_mode": window_mode,
-        "slide_seg": int(slide_seg),
-    }
-    if tokens:
-        config.update(alphabet="tokens", vocab=cfg.vocab)
-    header = ContainerHeader(codec=CODEC_RANS64, prob_bits=prob_bits, model_id="lm",
-                             config=config, original_len=n)
-    return write_container(header, blocks)
+    with span("lac.api.compress", alphabet="tokens" if tokens else "bytes", lanes=lanes) as sp:
+        with span("lac.api.prepare"):
+            dev = resolve_device(device)
+            cfg, params = _model_on(model, model_ref, max_seq, dev)
+            cfg = _cfg_for_det8(cfg, det8, kv8=kv8, w8=w8)
+            params = ensure_quantized(cfg, params)  # once for the call, not once a wave
+            params, share = _prepare_mesh(mesh, cfg, params, lanes)
+            window_mode = _resolve_window_mode(window_mode, cfg)
+            slide_seg = _resolve_slide_seg(slide_seg, window_mode, cfg, block_tokens)
+            if tokens:
+                symbols = _token_array(symbols, cfg.vocab)
+            elif cfg.vocab < 256:
+                raise ValueError("byte-level coding needs vocab >= 256")
+            prob_bits = auto_prob_bits(cfg, prob_bits)
+            n = len(symbols)
+            nblocks = max(1, -(-n // block_tokens))
+            fingerprint = lm_fingerprint(cfg, params, prob_bits, cache_grow, slide_seg)
+        sp.set(symbols=n, blocks=nblocks, kv8=cfg.kv8, w8=cfg.w8, det8=cfg.det8)
+        blocks = [
+            BlockEntry(*t)
+            for t in encode_lm_span(cfg, params, symbols, 0, nblocks, block_tokens, lanes,
+                                    prob_bits, overlap, cache_grow=cache_grow,
+                                    window_mode=window_mode, slide_seg=slide_seg, share=share)
+        ]
+        config = {
+            "model_ref": model_ref,
+            "max_seq": cfg.max_seq,
+            "block_tokens": block_tokens,
+            "lanes": lanes,
+            "overlap": overlap,
+            "fingerprint": fingerprint,
+            "mesh": _mesh_geometry(mesh),
+            "det8": bool(cfg.det8),
+            "kv8": bool(cfg.kv8),
+            "w8": bool(cfg.w8),
+            "cache_grow": int(cache_grow),
+            "window_mode": window_mode,
+            "slide_seg": int(slide_seg),
+        }
+        if tokens:
+            config.update(alphabet="tokens", vocab=cfg.vocab)
+        header = ContainerHeader(codec=CODEC_RANS64, prob_bits=prob_bits, model_id="lm",
+                                 config=config, original_len=n)
+        out = write_container(header, blocks)
+        if sp:
+            _note_memory(sp, dev)
+        return out
 
 
 def lm_compress_bytes(
@@ -323,30 +330,44 @@ def _lm_decode_setup(header: ContainerHeader, model, mesh, dev: torch.device,
     model and the mesh, check the forward mode, the vocab (tokens) and the
     fingerprint against the container's config. Returns (cfg, params, this
     rank's ``Lanes`` or None)."""
+    with span("lac.api.prepare"):
+        c = header.config
+        if header.model_id != "lm" or header.codec != CODEC_RANS64:
+            raise ValueError("not an LM container")
+        if c.get("alphabet", "bytes") != alphabet:
+            if alphabet == "bytes":
+                raise ValueError("container holds a token-alphabet stream; use "
+                                 "lm_decompress_tokens")
+            raise ValueError("container holds a byte-alphabet stream; use lm_decompress_bytes")
+        if not c.get("det8"):  # float CDFs are mesh-dependent: replay the encode mesh
+            mesh = _reconstruct_mesh(c.get("mesh"), mesh, dev)
+        cfg, params = _model_on(model, c["model_ref"], c["max_seq"], dev)
+        cfg = _cfg_for_det8(cfg, bool(c.get("det8")), decoding=True, kv8=bool(c.get("kv8")),
+                            w8=bool(c.get("w8")))
+        if alphabet == "tokens" and cfg.vocab != c["vocab"]:
+            raise ValueError(f"model vocab {cfg.vocab} != container vocab {c['vocab']}")
+        params = ensure_quantized(cfg, params)
+        params, share = _prepare_mesh(mesh, cfg, params, c["lanes"])
+        fp = lm_fingerprint(cfg, params, header.prob_bits, int(c.get("cache_grow", 0)),
+                            int(c.get("slide_seg", 0)))
+        if fp != c["fingerprint"]:
+            raise ValueError(
+                "model fingerprint mismatch: decoder weights/stack differ from the "
+                f"encoder's (got {fp}, container has {c['fingerprint']})")
+        return cfg, params, share
+
+
+def _note_call(sp, header: ContainerHeader, nblocks: int) -> None:
+    """A decompress call's meta, from its container."""
     c = header.config
-    if header.model_id != "lm" or header.codec != CODEC_RANS64:
-        raise ValueError("not an LM container")
-    if c.get("alphabet", "bytes") != alphabet:
-        if alphabet == "bytes":
-            raise ValueError("container holds a token-alphabet stream; use "
-                             "lm_decompress_tokens")
-        raise ValueError("container holds a byte-alphabet stream; use lm_decompress_bytes")
-    if not c.get("det8"):  # float CDFs are mesh-dependent: replay the encode mesh
-        mesh = _reconstruct_mesh(c.get("mesh"), mesh, dev)
-    cfg, params = _model_on(model, c["model_ref"], c["max_seq"], dev)
-    cfg = _cfg_for_det8(cfg, bool(c.get("det8")), decoding=True, kv8=bool(c.get("kv8")),
-                        w8=bool(c.get("w8")))
-    if alphabet == "tokens" and cfg.vocab != c["vocab"]:
-        raise ValueError(f"model vocab {cfg.vocab} != container vocab {c['vocab']}")
-    params = ensure_quantized(cfg, params)
-    params, share = _prepare_mesh(mesh, cfg, params, c["lanes"])
-    fp = lm_fingerprint(cfg, params, header.prob_bits, int(c.get("cache_grow", 0)),
-                        int(c.get("slide_seg", 0)))
-    if fp != c["fingerprint"]:
-        raise ValueError(
-            "model fingerprint mismatch: decoder weights/stack differ from the "
-            f"encoder's (got {fp}, container has {c['fingerprint']})")
-    return cfg, params, share
+    sp.set(symbols=header.original_len, blocks=nblocks, lanes=c["lanes"],
+           kv8=bool(c.get("kv8")), w8=bool(c.get("w8")), det8=bool(c.get("det8")))
+
+
+def _note_memory(sp, dev: torch.device) -> None:
+    """The card's allocated bytes at the end of an API call (no sync)."""
+    if dev.type == "cuda":
+        sp.set(memory_allocated=torch.cuda.memory_allocated(dev))
 
 
 def _decode_blocks(cfg, params, share, header, blocks, ngood: int,
@@ -364,25 +385,36 @@ def lm_decompress_bytes(container: bytes, model=None, mesh=None, device=None) ->
     """Inverse of ``lm_compress_bytes``. ``mesh``: the encode geometry's
     mesh (a float container without one builds it on the process group; a
     det8 container decodes on any)."""
-    header, blocks = read_container(container)
-    cfg, params, share = _lm_decode_setup(header, model, mesh, resolve_device(device))
-    out = _decode_blocks(cfg, params, share, header, blocks, len(blocks))
-    if len(out) != header.original_len:
-        raise ValueError("decoded length mismatch")
-    return out
+    with span("lac.api.decompress", alphabet="bytes") as sp:
+        header, blocks = read_container(container)
+        dev = resolve_device(device)
+        cfg, params, share = _lm_decode_setup(header, model, mesh, dev)
+        if sp:
+            _note_call(sp, header, len(blocks))
+        out = _decode_blocks(cfg, params, share, header, blocks, len(blocks))
+        if len(out) != header.original_len:
+            raise ValueError("decoded length mismatch")
+        if sp:
+            _note_memory(sp, dev)
+        return out
 
 
 def lm_decompress_tokens(container: bytes, model=None, mesh=None, device=None) -> np.ndarray:
     """Inverse of ``lm_compress_tokens``: the int32 token id array."""
-    header, blocks = read_container(container)
-    cfg, params, share = _lm_decode_setup(header, model, mesh, resolve_device(device),
-                                          "tokens")
-    rdt = _raw_dtype(cfg.vocab)
-    out = np.frombuffer(_decode_blocks(cfg, params, share, header, blocks, len(blocks), rdt),
-                        dtype=rdt).astype(np.int32)
-    if out.size != header.original_len:
-        raise ValueError("decoded length mismatch")
-    return out
+    with span("lac.api.decompress", alphabet="tokens") as sp:
+        header, blocks = read_container(container)
+        dev = resolve_device(device)
+        cfg, params, share = _lm_decode_setup(header, model, mesh, dev, "tokens")
+        if sp:
+            _note_call(sp, header, len(blocks))
+        rdt = _raw_dtype(cfg.vocab)
+        out = np.frombuffer(_decode_blocks(cfg, params, share, header, blocks, len(blocks), rdt),
+                            dtype=rdt).astype(np.int32)
+        if out.size != header.original_len:
+            raise ValueError("decoded length mismatch")
+        if sp:
+            _note_memory(sp, dev)
+        return out
 
 
 def lm_compress_text(text: str, tokenizer, **kw) -> bytes:
@@ -408,19 +440,25 @@ def lm_decompress_prefix(container: bytes, model=None, mesh=None, device=None):
     recovered_blocks, total_blocks, bad_blocks, recovered_bytes,
     original_len}. Raises only when nothing is decodable (unparseable
     header, wrong model or fingerprint)."""
-    header, blocks, bad = scan_container(container)
-    cfg, params, share = _lm_decode_setup(header, model, mesh, resolve_device(device))
-    ngood = bad[0] if bad else len(blocks)
-    out = _decode_blocks(cfg, params, share, header, blocks, ngood) if ngood else b""
-    report = {
-        "ok": not bad and len(out) == header.original_len,
-        "recovered_blocks": ngood,
-        "total_blocks": len(blocks),
-        "bad_blocks": bad,
-        "recovered_bytes": len(out),
-        "original_len": header.original_len,
-    }
-    return out, report
+    with span("lac.api.decompress", alphabet="bytes", prefix=True) as sp:
+        header, blocks, bad = scan_container(container)
+        dev = resolve_device(device)
+        cfg, params, share = _lm_decode_setup(header, model, mesh, dev)
+        if sp:
+            _note_call(sp, header, len(blocks))
+        ngood = bad[0] if bad else len(blocks)
+        out = _decode_blocks(cfg, params, share, header, blocks, ngood) if ngood else b""
+        report = {
+            "ok": not bad and len(out) == header.original_len,
+            "recovered_blocks": ngood,
+            "total_blocks": len(blocks),
+            "bad_blocks": bad,
+            "recovered_bytes": len(out),
+            "original_len": header.original_len,
+        }
+        if sp:
+            _note_memory(sp, dev)
+        return out, report
 
 
 def _own(share: Lanes | None, lanes: int, nb: int) -> range:
@@ -473,32 +511,44 @@ def encode_lm_span(cfg: LMConfig, params: Transformer, data, start: int, end: in
     mine: dict[int, bytes] = {}
 
     def finish(w0: int, own: range, words_d, nwords_d) -> None:
-        words, nwords = words_d.cpu().numpy(), nwords_d.cpu().numpy()
-        for j in own:
-            i = j - own.start
-            s0 = (w0 + j) * block_tokens
-            length = min(block_tokens, n - s0)
-            payload = words[i, : nwords[i]].astype(">u4").tobytes()
-            if len(payload) >= length * rdt.itemsize and length > 0:
-                payload, count = arr[s0 : s0 + length].astype(rdt).tobytes(), 0
-            else:
-                count = length
-            mine[w0 + j] = pack_block(length, count, payload)
+        with span("lac.api.fetch", first=w0):
+            words, nwords = words_d.cpu().numpy(), nwords_d.cpu().numpy()
+        with span("lac.api.pack", first=w0):
+            for j in own:
+                i = j - own.start
+                s0 = (w0 + j) * block_tokens
+                length = min(block_tokens, n - s0)
+                payload = words[i, : nwords[i]].astype(">u4").tobytes()
+                if len(payload) >= length * rdt.itemsize and length > 0:
+                    payload, token_count = arr[s0 : s0 + length].astype(rdt).tobytes(), 0
+                    count("api.raw_blocks")
+                else:
+                    token_count = length
+                mine[w0 + j] = pack_block(length, token_count, payload)
 
     pending = None
     for w0 in range(start, end, lanes):
         own = _own(share, lanes, min(lanes, end - w0))
         if not own:
             continue
-        tokens = np.zeros((width, block_tokens), dtype=np.int64)
-        lengths = np.zeros((width,), dtype=np.int64)
-        for j in own:
-            chunk = arr[(w0 + j) * block_tokens : (w0 + j + 1) * block_tokens]
-            tokens[j - own.start, : len(chunk)] = chunk
-            lengths[j - own.start] = len(chunk)
-        words_d, nwords_d = lm_encode_windowed(
-            cfg, params, torch.from_numpy(tokens).to(dev), torch.from_numpy(lengths).to(dev),
-            prob_bits, overlap, cache_grow, mode=window_mode, slide_seg=slide_seg)
+        with span("lac.api.wave", direction="enc", first=w0, lanes=width, live=len(own),
+                  block_tokens=block_tokens) as sp:
+            with span("lac.api.assemble"):
+                tokens = np.zeros((width, block_tokens), dtype=np.int64)
+                lengths = np.zeros((width,), dtype=np.int64)
+                for j in own:
+                    chunk = arr[(w0 + j) * block_tokens : (w0 + j + 1) * block_tokens]
+                    tokens[j - own.start, : len(chunk)] = chunk
+                    lengths[j - own.start] = len(chunk)
+                tokens_d = torch.from_numpy(tokens).to(dev)
+                lengths_d = torch.from_numpy(lengths).to(dev)
+            if sp:
+                sp.set(symbols=int(lengths.sum()))
+            count("api.lanes_live", len(own))
+            count("api.lanes_padded", width - len(own))
+            words_d, nwords_d = lm_encode_windowed(
+                cfg, params, tokens_d, lengths_d, prob_bits, overlap, cache_grow,
+                mode=window_mode, slide_seg=slide_seg)
         if pending is not None:
             finish(*pending)
         pending = (w0, own, words_d, nwords_d)
@@ -522,36 +572,48 @@ def decode_lm_span(cfg: LMConfig, params: Transformer, blocks, start: int, end: 
     mine: dict[int, bytes] = {}
 
     def finish(w0: int, own: range, syms_d) -> None:
-        syms = None if syms_d is None else syms_d.cpu().numpy()
-        for j in own:
-            blk = blocks[w0 + j]
-            if blk.token_count == 0 and blk.raw_len > 0:
-                mine[w0 + j] = blk.payload
-            else:
-                mine[w0 + j] = syms[j - own.start, : blk.token_count].astype(sym_dtype).tobytes()
+        with span("lac.api.fetch", first=w0):
+            syms = None if syms_d is None else syms_d.cpu().numpy()
+        with span("lac.api.pack", first=w0):
+            for j in own:
+                blk = blocks[w0 + j]
+                if blk.token_count == 0 and blk.raw_len > 0:
+                    mine[w0 + j] = blk.payload
+                else:
+                    mine[w0 + j] = syms[j - own.start, : blk.token_count].astype(
+                        sym_dtype).tobytes()
 
     pending = None
     for w0 in range(start, end, lanes):
         own = _own(share, lanes, min(lanes, end - w0))
         if not own:
             continue
-        words = np.zeros((width, cap), dtype=np.int64)
-        lengths = np.zeros((width,), dtype=np.int64)
-        any_coded = False
-        for j in own:
-            blk = blocks[w0 + j]
-            if blk.token_count == 0 and blk.raw_len > 0:
-                continue
-            w = np.frombuffer(blk.payload, dtype=">u4")
-            words[j - own.start, : len(w)] = w
-            lengths[j - own.start] = blk.token_count
-            any_coded = True
-        syms_d = None
-        if any_coded:
-            syms_d = lm_decode_windowed(
-                cfg, params, torch.from_numpy(words).to(dev), torch.from_numpy(lengths).to(dev),
-                prob_bits, block_tokens, overlap, cache_grow, mode=window_mode,
-                slide_seg=slide_seg)
+        with span("lac.api.wave", direction="dec", first=w0, lanes=width,
+                  block_tokens=block_tokens) as sp:
+            with span("lac.api.assemble"):
+                words = np.zeros((width, cap), dtype=np.int64)
+                lengths = np.zeros((width,), dtype=np.int64)
+                live = 0
+                for j in own:
+                    blk = blocks[w0 + j]
+                    if blk.token_count == 0 and blk.raw_len > 0:
+                        continue
+                    w = np.frombuffer(blk.payload, dtype=">u4")
+                    words[j - own.start, : len(w)] = w
+                    lengths[j - own.start] = blk.token_count
+                    live += 1
+                if live:
+                    words_d = torch.from_numpy(words).to(dev)
+                    lengths_d = torch.from_numpy(lengths).to(dev)
+            if sp:
+                sp.set(live=live, symbols=int(lengths.sum()))
+            syms_d = None
+            if live:
+                count("api.lanes_live", live)
+                count("api.lanes_padded", width - live)
+                syms_d = lm_decode_windowed(
+                    cfg, params, words_d, lengths_d, prob_bits, block_tokens, overlap,
+                    cache_grow, mode=window_mode, slide_seg=slide_seg)
         if pending is not None:
             finish(*pending)
         pending = (w0, own, syms_d)

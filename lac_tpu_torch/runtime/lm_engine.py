@@ -72,6 +72,7 @@ import zlib
 import torch
 
 from ..coder.vector import _encode_scan
+from ..metrics import span
 from ..models.transformer import (LMConfig, Transformer, ensure_quantized, forward, init_cache,
                                   kv_heads)
 from ..ops.quantize import cdf_from_freq, quantize_logits
@@ -146,13 +147,14 @@ def _grow_cache(cfg: LMConfig, cache: dict, new_w: int) -> dict:
     """A cache ``new_w`` wide holding every buffer of ``cache`` (``k`` and
     ``v``, and kv8's ``ks`` and ``vs``) at the front, and its ``pos``
     tensor."""
-    k = cache["k"]
-    grown = init_cache(cfg, k.shape[1], new_w, device=k.device, kv_heads=k.shape[3])
-    for key, val in cache.items():
-        if key != "pos":
-            grown[key][:, :, : k.shape[2]] = val
-    grown["pos"] = cache["pos"]
-    return grown
+    with span("lac.engine.grow", width=new_w):
+        k = cache["k"]
+        grown = init_cache(cfg, k.shape[1], new_w, device=k.device, kv_heads=k.shape[3])
+        for key, val in cache.items():
+            if key != "pos":
+                grown[key][:, :, : k.shape[2]] = val
+        grown["pos"] = cache["pos"]
+        return grown
 
 
 def _check_grow(cache_grow: int) -> None:
@@ -254,25 +256,29 @@ def _schedule(run: _Runner, t_len: int, bucket: int, overlap: int) -> None:
     re-prime schedule of ``overlap``."""
     cfg, b, dev = run.cfg, run.lanes, run.device
     kvh = kv_heads(cfg, run.params)
-    if t_len <= cfg.max_seq:
-        cache = init_cache(cfg, b, _first_width(t_len, bucket), device=dev, kv_heads=kvh)
-        _run_grown(cfg, cache, t_len, bucket, run)
-        return
-    if cfg.slide:  # the ring is max_seq wide from the first step: no growth
-        run.steps(init_cache(cfg, b, device=dev, kv_heads=kvh), t_len)
-        return
-    segs, keep = window_schedule(t_len, cfg.max_seq, overlap)
-    # growth in the first window only (a re-prime fills keep slots, so later
-    # windows need the full width), and only where it ends on the window
-    grow = bucket if (bucket and cfg.max_seq % bucket == 0) else 0
-    cache = init_cache(cfg, b, grow or None, device=dev, kv_heads=kvh)
-    for t0, steps, reprime in segs:
-        if reprime:
-            cdf, cache = _reprime_cdf(cfg, run.params, run.symbols[:, t0 - keep : t0],
-                                      run.prob_bits, cache)
-            run.code(cdf)
-            t0, steps = t0 + 1, steps - 1
-        cache = _run_grown(cfg, cache, steps, grow if t0 == 0 else 0, run)
+    mode = ("grow" if bucket else "fixed") if t_len <= cfg.max_seq else (
+        "slide" if cfg.slide else "reprime")
+    with span("lac.engine.schedule", direction=run.direction, t_len=t_len, bucket=bucket,
+              mode=mode):
+        if t_len <= cfg.max_seq:
+            cache = init_cache(cfg, b, _first_width(t_len, bucket), device=dev, kv_heads=kvh)
+            _run_grown(cfg, cache, t_len, bucket, run)
+            return
+        if cfg.slide:  # the ring is max_seq wide from the first step: no growth
+            run.steps(init_cache(cfg, b, device=dev, kv_heads=kvh), t_len)
+            return
+        segs, keep = window_schedule(t_len, cfg.max_seq, overlap)
+        # growth in the first window only (a re-prime fills keep slots, so later
+        # windows need the full width), and only where it ends on the window
+        grow = bucket if (bucket and cfg.max_seq % bucket == 0) else 0
+        cache = init_cache(cfg, b, grow or None, device=dev, kv_heads=kvh)
+        for t0, steps, reprime in segs:
+            if reprime:
+                cdf, cache = _reprime_cdf(cfg, run.params, run.symbols[:, t0 - keep : t0],
+                                          run.prob_bits, cache)
+                run.code(cdf)
+                t0, steps = t0 + 1, steps - 1
+            cache = _run_grown(cfg, cache, steps, grow if t0 == 0 else 0, run)
 
 
 def _encode(cfg: LMConfig, params: Transformer, tokens, lengths, prob_bits: int,
@@ -287,7 +293,9 @@ def _encode(cfg: LMConfig, params: Transformer, tokens, lengths, prob_bits: int,
         runner = SegChunks if cfg.det8 else SegIntervals
         run = runner(_step_cfg(cfg, t_len, mode), params, prob_bits, tokens)
         _schedule(run, t_len, cache_grow, overlap)
-        return _encode_scan(run.lo, run.f, lengths, prob_bits, t_len + 2)
+        out = _encode_scan(run.lo, run.f, lengths, prob_bits, t_len + 2)
+        run.release()
+        return out
 
 
 def _decode(cfg: LMConfig, params: Transformer, words, lengths, prob_bits: int, t_len: int,
@@ -300,6 +308,7 @@ def _decode(cfg: LMConfig, params: Transformer, words, lengths, prob_bits: int, 
     with _coding(dev):
         run = SegDecode(_step_cfg(cfg, t_len, mode), params, prob_bits, words, lengths, t_len)
         _schedule(run, t_len, cache_grow, overlap)
+        run.release()
         return run.symbols
 
 
@@ -382,11 +391,12 @@ def lm_fingerprint(cfg: LMConfig, params: Transformer, prob_bits: int, cache_gro
     containers."""
     params = ensure_quantized(cfg, params)
     dev = _device(params)
-    cache = init_cache(cfg, 1, device=dev, kv_heads=kv_heads(cfg, params))
-    with _coding(dev):
-        bos = torch.full((1,), cfg.bos_id, dtype=torch.int64, device=dev)
-        cdf, _ = _step_cdf(cfg, params, cache, bos, prob_bits)
-    crc = zlib.crc32(cdf.cpu().numpy().astype("<i4").tobytes())
+    with span("lac.engine.fingerprint"):
+        cache = init_cache(cfg, 1, device=dev, kv_heads=kv_heads(cfg, params))
+        with _coding(dev):
+            bos = torch.full((1,), cfg.bos_id, dtype=torch.int64, device=dev)
+            cdf, _ = _step_cdf(cfg, params, cache, bos, prob_bits)
+        crc = zlib.crc32(cdf.cpu().numpy().astype("<i4").tobytes())
     if cache_grow:
         crc = zlib.crc32(f"cache_grow={cache_grow}".encode(), crc)
     if slide_seg:

@@ -29,7 +29,10 @@ width's later steps. On the CPU every step runs eagerly. The encoder and
 the decoder run the same schedule, so the same positions run eagerly and
 the rest replay graphs of the same ops at the same shapes: the
 determinism contract of ``lm_engine.py`` carried over. A capture or replay
-that fails raises; nothing falls back to eager steps.
+that fails raises; nothing falls back to eager steps. Spans
+(``metrics.span``) mark a call of ``steps``, its eager first step, its
+capture and its run of replays, never a step inside a graph, and the
+graphs' release at the end of a coding call (``release``).
 
 Under det8 a step is the det8 forward with ``quantize_logits(det=True)``
 and captures and replays like a float step (its RoPE tables are a device
@@ -45,6 +48,7 @@ from __future__ import annotations
 import torch
 
 from ..coder.vector import rans_decode_step, rans_decode_init
+from ..metrics import count, span
 from ..models.transformer import LMConfig, Transformer, forward, index_write
 from ..ops.quantize import cdf_from_freq, gather_intervals, quantize_logits
 
@@ -67,6 +71,7 @@ class _Runner:
     step's CDF (after a replay, the graph's output tensor)."""
 
     symbols: torch.Tensor
+    direction: str  # "enc" or "dec", as spans name it
 
     def __init__(self, cfg: LMConfig, params: Transformer, prob_bits: int, lanes: int):
         self.cfg, self.params, self.prob_bits, self.lanes = cfg, params, prob_bits, lanes
@@ -91,37 +96,55 @@ class _Runner:
     def steps(self, cache: dict, n: int) -> None:
         """Run ``n`` steps on ``cache`` from the current position. A width
         keeps the cache its graph was captured on."""
-        if self._stream is None:
-            for _ in range(n):
-                self._step(cache)
-            return
         if n <= 0:
             return
         width = cache["k"].shape[2]
-        entry = self._graphs.get(width)
-        if entry is None:
-            cur = torch.cuda.current_stream(self.device)
-            self._stream.wait_stream(cur)
-            with torch.cuda.stream(self._stream):
-                self._step(cache)  # the warm-up codes its position
-            eager_cdf = self.cdf
-            graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(graph, pool=self._pool, stream=self._stream):
-                self._step(cache)  # recorded, not run: self.cdf is the graph's output
-            cur.wait_stream(self._stream)
-            entry = self._graphs[width] = (cache, graph, self.cdf)
-            self.cdf = eager_cdf
-            n -= 1
-        elif entry[0] is not cache:
-            raise ValueError(f"the step at cache width {width} was captured on another cache")
-        for _ in range(n):
-            entry[1].replay()
-            self.cdf = entry[2]
+        with span("lac.step.run", direction=self.direction, width=width, n=n):
+            if self._stream is None:
+                for _ in range(n):
+                    self._step(cache)
+                count("step.eager", n)
+                return
+            entry = self._graphs.get(width)
+            if entry is None:
+                cur = torch.cuda.current_stream(self.device)
+                self._stream.wait_stream(cur)
+                with span("lac.step.warm", width=width), torch.cuda.stream(self._stream):
+                    self._step(cache)  # the warm-up codes its position
+                count("step.eager")
+                eager_cdf = self.cdf
+                graph = torch.cuda.CUDAGraph()
+                with span("lac.graph.capture", graph="step", width=width):
+                    with torch.cuda.graph(graph, pool=self._pool, stream=self._stream):
+                        self._step(cache)  # recorded, not run: self.cdf is the graph's output
+                count("graph.captures")
+                cur.wait_stream(self._stream)
+                entry = self._graphs[width] = (cache, graph, self.cdf)
+                self.cdf = eager_cdf
+                n -= 1
+            elif entry[0] is not cache:
+                raise ValueError(f"the step at cache width {width} was captured on another cache")
+            if n:
+                with span("lac.step.replay", n=n):
+                    for _ in range(n):
+                        entry[1].replay()
+                    self.cdf = entry[2]
+                count("graph.replays", n)
+
+    def release(self) -> None:
+        """Destroy the call's graphs now, under a span of their own: their
+        teardown is host work the card waits on, which would otherwise run
+        unnamed when the runner is dropped."""
+        if self._graphs:
+            with span("lac.graph.release", graphs=len(self._graphs)):
+                self._graphs.clear()
 
 
 class SegIntervals(_Runner):
     """The encode direction (``lac_tpu``'s ``_seg_intervals``): each
     position's coding interval into ``lo`` and ``f`` [B, T] int32."""
+
+    direction = "enc"
 
     def __init__(self, cfg: LMConfig, params: Transformer, prob_bits: int,
                  tokens: torch.Tensor):
@@ -186,6 +209,8 @@ class SegChunks(SegIntervals):
 class SegDecode(_Runner):
     """The decode direction (``lac_tpu``'s ``_seg_decode``): each position's
     symbol into ``symbols`` [B, T] int64 (0 past a lane's length)."""
+
+    direction = "dec"
 
     def __init__(self, cfg: LMConfig, params: Transformer, prob_bits: int,
                  words: torch.Tensor, lengths: torch.Tensor, t_len: int):

@@ -29,6 +29,8 @@ import struct
 import zlib
 from dataclasses import dataclass, field
 
+from ..metrics import span
+
 MAGIC = b"LACU"
 VERSION = 1
 
@@ -59,19 +61,21 @@ class ContainerHeader:
 
 
 def write_container(header: ContainerHeader, blocks: list[BlockEntry]) -> bytes:
-    out = bytearray()
-    out += MAGIC
-    out += struct.pack("<BBBB", VERSION, header.codec, header.prob_bits, header.flags)
-    mid = header.model_id.encode()
-    out += struct.pack("<H", len(mid)) + mid
-    cfg = json.dumps(header.config, sort_keys=True, separators=(",", ":")).encode()
-    out += struct.pack("<I", len(cfg)) + cfg
-    out += struct.pack("<QI", header.original_len, len(blocks))
-    for b in blocks:
-        out += struct.pack("<IIII", b.raw_len, b.token_count, len(b.payload), b.crc)
-    for b in blocks:
-        out += b.payload
-    return bytes(out)
+    with span("lac.container.write", blocks=len(blocks)) as sp:
+        out = bytearray()
+        out += MAGIC
+        out += struct.pack("<BBBB", VERSION, header.codec, header.prob_bits, header.flags)
+        mid = header.model_id.encode()
+        out += struct.pack("<H", len(mid)) + mid
+        cfg = json.dumps(header.config, sort_keys=True, separators=(",", ":")).encode()
+        out += struct.pack("<I", len(cfg)) + cfg
+        out += struct.pack("<QI", header.original_len, len(blocks))
+        for b in blocks:
+            out += struct.pack("<IIII", b.raw_len, b.token_count, len(b.payload), b.crc)
+        for b in blocks:
+            out += b.payload
+        sp.set(bytes=len(out))
+        return bytes(out)
 
 
 def scan_container(
@@ -129,7 +133,9 @@ def scan_container(
 
 
 def read_container(data: bytes) -> tuple[ContainerHeader, list[BlockEntry]]:
-    header, blocks, bad = scan_container(data)
+    with span("lac.container.read", bytes=len(data)) as sp:
+        header, blocks, bad = scan_container(data)
+        sp.set(blocks=len(blocks))
     if bad:
         raise ValueError(f"block checksum mismatch: corrupt payload (blocks {bad})")
     return header, blocks

@@ -35,6 +35,8 @@ from typing import Callable
 
 import torch
 
+from ..metrics import count, span
+
 __all__ = ["scan", "CHUNK"]
 
 CHUNK = 64  # steps a recorded chunk
@@ -83,8 +85,10 @@ def scan(step: Callable, carry: tuple, xs: tuple, reverse: bool = False):
     run = chunk
     if static[0].is_cuda:
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
+        with span("lac.graph.capture", graph="scan", chunk=k), torch.cuda.graph(graph):
             chunk()
+        count("graph.captures")
+        count("graph.replays", len(starts) - 1)
         run = graph.replay
     for lo in starts[1:]:
         for buf, x in zip(xs_in, xs):

@@ -468,6 +468,36 @@ def test_lm_cpu_container_is_refused_on_the_card(cuda):
         lm_api.lm_decompress_bytes(c)
 
 
+def test_lm_encode_call_records_its_captures_and_replays(cuda):
+    """One encode call of 64 lanes x 512 tokens at cache_grow 128 (byte-6l,
+    context 768) under a tracer: 5 ``lac.graph.capture`` spans, the step at
+    widths 128-512 and the rANS scan's chunk, 515 replays (512 - 4 steps,
+    512 / 64 - 1 scan chunks) and one release of the 4 step graphs; the
+    container equals the one made with no tracer, and decodes."""
+    import os
+
+    from lac_tpu_torch import metrics
+    from lac_tpu_torch.runtime import lm_api
+    from lac_tpu_torch.smoke import heldout_slice
+    from lac_tpu_torch.train import load_checkpoint
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    model = load_checkpoint(os.path.join(root, LM_CKPT))
+    data = heldout_slice()[: 64 * 512]
+    kw = dict(model_ref="file:" + LM_CKPT, model=model, block_tokens=512, lanes=64,
+              cache_grow=128)
+    plain = lm_api.lm_compress_bytes(data, **kw)
+    with metrics.tracing() as tracer:
+        c = lm_api.lm_compress_bytes(data, **kw)
+    caps = sorted((s["meta"]["graph"], s["meta"].get("width", s["meta"].get("chunk")))
+                  for s in tracer.spans("lac.graph.capture"))
+    assert caps == [("scan", 64), ("step", 128), ("step", 256), ("step", 384), ("step", 512)]
+    assert tracer.totals["graph.captures"] == 5 and tracer.totals["graph.replays"] == 515
+    assert tracer.totals["step.eager"] == 4
+    assert [s["meta"] for s in tracer.spans("lac.graph.release")] == [{"graphs": 4}]
+    assert c == plain and lm_api.lm_decompress_bytes(c, model=model) == data
+
+
 # --------------------------------------------------------------------------
 # Windowed LM coding on the card: the step as a CUDA graph
 # (runtime.step_graph), blocks past the model context
