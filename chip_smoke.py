@@ -241,6 +241,16 @@ import faulthandler; faulthandler.dump_traceback_later(1150, exit=True)  # noqa:
 #          the CLI's bench on the 32 MiB corpus with order0n: roundtrip_ok;
 #          (g) no launch of K1-K12 in (a)-(c).
 #
+# The cached step's kernel (step_attn, ops/step_attention.py; it ports no
+# TPU kernel, since lac_tpu's cached step is jnp that XLA fuses) runs in
+# every float or w8 LM step on the card, so phases 4-10 count its launches
+# apart from K1-K12's: phases 4, 5, 6, 8 and 10 must launch it, phase 7
+# (det8) must not. Each graph-against-eager run (4 (d), 5 (c), 6 (d), 7
+# (e)) of a float or w8 model holds it to its plain version on the cache's
+# layer-0 slice at the run's pos (STEP_ATTN_TOL) and checks its launches:
+# once a layer at every step built there, eager or captured, none at a
+# replay.
+#
 # --flagship: the shipped flagship configuration (bench.py: byte-16l, block
 # 65536, 4 lanes, overlap 8, slide, slide_seg 512) on the whole held-out
 # slice, 65,536 steps a side, through lm_compress_bytes and
@@ -458,6 +468,11 @@ LM_REPS = 3
 # graph against eager: steps compared, then steps timed a side; the steps a
 # graph_vs_eager call runs (the graph also TIMED_STEPS under CUDA events)
 GRAPH_STEPS, TIMED_STEPS = 32, 20
+# the step kernel (ops/step_attention.py) against its plain version, max
+# |kernel - plain| / max(max |plain|, 1): in bf16 both round the
+# probabilities and the output, and a sum in another order moves a value
+# one bf16 step (2^-8 of it); in f32 only the order of the sums differs
+STEP_ATTN_TOL = {"torch.bfloat16": 1e-2, "torch.float32": 1e-4}
 STEP_BUDGET = GRAPH_STEPS + 2 * TIMED_STEPS + 2
 # phase 5 and --flagship: lac_tpu's bits/byte on a v5e, context only
 # (measurements/r3_slide.log: byte-16l slide at block 4096, 64 lanes;
@@ -1209,13 +1224,23 @@ def graph_vs_eager(torch, T, lm_engine, step_graph, cfg, params, tokens, width: 
     way on the host clock around a synchronize, one more each way under
     torch.profiler, and the graph's TIMED_STEPS under CUDA events (its
     device time, whether or not the profiler sees inside a replay): at most
-    STEP_BUDGET steps from ``start``."""
+    STEP_BUDGET steps from ``start``. A float model's steps take the step
+    kernel (ops/step_attention.py): on the cache's layer-0 slice at pos
+    ``start`` it is held to its plain version (STEP_ATTN_TOL), and it must
+    launch once a layer at every step built here, eager or captured."""
+    from lac_tpu_torch import metrics
+    from lac_tpu_torch.ops import step_attention as SA
+
     dev = params.embed.device
     b = tokens.shape[0]
     torch.cuda.reset_peak_memory_stats()
-    with lm_engine._coding(dev):
+    launches0 = SA.launches
+    with lm_engine._coding(dev), metrics.tracing() as tracer:
         base = T.init_cache(cfg, b, width, device=dev)
         T.forward(cfg, params, tokens[:, :start], base, prefill=True)
+        takes = SA.takes_step(cfg, dev)
+        if takes:
+            kernel_vs_plain(torch, SA, cfg, base, b, width, start)
         runs, cdfs = [], []
         for graphed in (False, True):
             run = step_graph.SegIntervals(cfg, params, prob_bits, tokens[:, start:])
@@ -1247,7 +1272,44 @@ def graph_vs_eager(torch, T, lm_engine, step_graph, cfg, params, tokens, width: 
             out[name] = {"ms": ms / TIMED_STEPS, "kernels": kernels, "mem": mem,
                          "busy_ms": busy, "idle": 1 - busy / (ms / TIMED_STEPS), "top": top}
         out["graph"]["event_ms"] = event_ms(torch, graph_one, reps=TIMED_STEPS)
+    # the steps built: the eager run's GRAPH_STEPS + TIMED_STEPS + 1
+    # profiled, called directly, and the graph run's eager first step and
+    # capture (counted by the runner); replays build nothing
+    built = tracer.totals.get("step.eager", 0) + tracer.totals.get("graph.captures", 0)
+    built += GRAPH_STEPS + TIMED_STEPS + 1
+    layers = tracer.totals.get("attn.step_kernel", 0)
+    launched = SA.launches - launches0
+    print(f"step kernel (lanes {b}, width {width}): {launched} launches, {layers} layers built "
+          f"on it, of {cfg.n_layers} layers x {built} steps built", flush=True)
+    want = cfg.n_layers * built if takes else 0
+    check(layers == want and launched == want + takes,  # + kernel_vs_plain's
+          f"step kernel: {launched} launches and {layers} layers built on it, expected "
+          f"{want} (lanes {b}, width {width})")
     return out
+
+
+def kernel_vs_plain(torch, SA, cfg, cache, b: int, width: int, pos: int) -> None:
+    """The step kernel against its plain version on the cache's layer-0
+    slice at ``pos`` (the coding run's), with a seeded query and fresh row:
+    within STEP_ATTN_TOL of max(max |plain|, 1)."""
+    from lac_tpu_torch.models.transformer import _scale_f32
+
+    dev = cache["k"].device
+    ck, cv = cache["k"][0], cache["v"][0]
+    kvh, hd = ck.shape[2], ck.shape[3]
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    q, k, v = torch.randn(b, 1, cfg.n_heads + 2 * kvh, hd, generator=g, device=dev).to(
+        ck.dtype).split([cfg.n_heads, kvh, kvh], dim=2)
+    p = cache["pos"]
+    check(int(p) == pos, f"the cache's pos {int(p)}, expected {pos}")
+    got = SA.step_attention(q, k, v, ck, cv, p, _scale_f32(hd))
+    want = SA.step_attention_plain(q, k, v, ck, cv, p, _scale_f32(hd)).float()
+    err = float((got.float() - want).abs().max() / max(float(want.abs().max()), 1.0))
+    tol = STEP_ATTN_TOL[str(ck.dtype)]
+    print(f"step kernel vs plain (lanes {b}, width {width}, pos {pos}, {ck.dtype}): relative "
+          f"error {err:.2e} (tolerance {tol:.0e})", flush=True)
+    check(err <= tol, f"step kernel off its plain version by {err:.2e} (lanes {b}, width "
+                      f"{width}, pos {pos})")
 
 
 def print_step(smi, what, nums, bound) -> None:
@@ -1864,9 +1926,11 @@ def flagship(torch, ttrain, lm_api, container_mod, smoke, root, smi):
 def phase7(torch, T, cli, container, detmath, quantize, lm_engine, step_graph, ttrain, rk, A,
            smoke, root, work, corpus, dev, smi, float_bpb6, float_bpb16, float_ring):
     """Phase 7, det8 (a)-(f); ``float_ring``: phase 5 (c)'s steps, or None."""
+    from lac_tpu_torch.ops import step_attention as SA
     with Phase("phase 7: det8, the integer-reduction forward"):
         rk.reset_launches()
         A.reset_launches()
+        SA.launches = 0
         phase7_cli(torch, cli, container, smoke, corpus, work, float_bpb6)
         phase5_cli(torch, cli, container, smoke, root, work, ("--det8",), float_bpb16)
         model = det8_byte16l(T, ttrain, smoke, root)
@@ -1875,8 +1939,10 @@ def phase7(torch, T, cli, container, detmath, quantize, lm_engine, step_graph, t
                            smi)
         phase7_steps(torch, T, lm_engine, step_graph, smoke, model, smi, float_ring)
         counts = {**rk.launches, **A.launches}
-        print(f"det8 (f) det8 path launches of K1-K12: {counts}", flush=True)
+        print(f"det8 (f) det8 path launches of K1-K12: {counts}; of the step kernel: "
+              f"{SA.launches}", flush=True)
         check(set(counts.values()) == {0}, "the det8 path launched a TPU-kernel port")
+        check(SA.launches == 0, "the det8 path launched the float step kernel")
 
 
 # --------------------------------------------------------------------------
@@ -2149,9 +2215,11 @@ def phase8(torch, T, cli, container, engine, lm_api, lm_engine, step_graph, ttra
            root, work, corpus, dev, smi, float_bpb6):
     """Phase 8, the token alphabet, the scan codecs and Llama-2-7B, (a)-(f);
     ``float_bpb6``: phase 4 (b)'s bits/byte, or None."""
+    from lac_tpu_torch.ops import step_attention as SA
     with Phase("phase 8: the token alphabet, the scan codecs, Llama-2-7B"):
         rk.reset_launches()
         A.reset_launches()
+        SA.launches = 0
         child = phase8_cpu_start(root, work, corpus)
         try:
             phase8_llama3(torch, T, lm_api, lm_engine, container, smi, dev)
@@ -2165,7 +2233,9 @@ def phase8(torch, T, cli, container, engine, lm_api, lm_engine, step_graph, ttra
                 child.kill()
                 child.wait()
         counts = {**rk.launches, **A.launches}
-        print(f"tokens, scan and Llama-2 (f) launches of K1-K12: {counts}", flush=True)
+        print(f"tokens, scan and Llama-2 (f) launches of K1-K12: {counts}; of the step "
+              f"kernel: {SA.launches}", flush=True)
+        check(SA.launches > 0, "phase 8's float steps did not take the step kernel")
         check(set(counts.values()) == {0},
               "the token, scan or Llama-2 path launched a TPU-kernel port")
 
@@ -2388,6 +2458,7 @@ def phase9_train(ttrain, registry, mesh, corpus, smi) -> None:
 def phase9(torch, cli, container, lm_api, ttrain, registry, rk, A, _build, smoke, root, work,
            corpus, dev, smi):
     """Phase 9, multi-device, (a)-(d)."""
+    from lac_tpu_torch.ops import step_attention as SA
     import torch.distributed as dist
 
     from lac_tpu_torch.parallel.mesh import make_mesh
@@ -2406,6 +2477,7 @@ def phase9(torch, cli, container, lm_api, ttrain, registry, rk, A, _build, smoke
         phase9_report(smoke, smi, results)
         rk.reset_launches()
         A.reset_launches()
+        SA.launches = 0
         kw = dist_lm_coding(smoke)
         data = smoke.heldout_slice()[:DIST_LM_BYTES]
         single, ms = sync_time(torch, lambda: lm_api.lm_compress_bytes(
@@ -2421,7 +2493,8 @@ def phase9(torch, cli, container, lm_api, ttrain, registry, rk, A, _build, smoke
         phase9_train(ttrain, registry, mesh, corpus, smi)
         dist.destroy_process_group()
         counts = {**rk.launches, **A.launches}
-        print(f"dist (d) launches of K1-K12 in (c): {counts}", flush=True)
+        print(f"dist (d) launches of K1-K12 in (c): {counts}; of the step kernel in (b)-(c): "
+              f"{SA.launches}", flush=True)
         check(set(counts.values()) == {0}, "the mesh path launched a TPU-kernel port")
 
 
@@ -2676,12 +2749,14 @@ def phase10(torch, T, cli, container, lm_api, lm_registry, rk, A, smoke, root, w
     (init_params(TINYLLAMA_1B, SEED) on the card), or None to draw it."""
     from lac_tpu_torch import metrics
     from lac_tpu_torch.native import host as native
+    from lac_tpu_torch.ops import step_attention as SA
 
     with Phase("phase 10: HF checkpoints, the host layers, the native coder, bench"):
         child = phase10_host_start(root)
         try:
             rk.reset_launches()
             A.reset_launches()
+            SA.launches = 0
             for what, slug, preset, bos, shards, greedy in HF_CHECKPOINTS:
                 src = tinyllama if slug == "tinyllama" else None
                 tinyllama = None
@@ -2691,7 +2766,9 @@ def phase10(torch, T, cli, container, lm_api, lm_registry, rk, A, smoke, root, w
                   "hf: the loader imported transformers or safetensors")
             phase10_host(smoke, smi, child)
             counts = {**rk.launches, **A.launches}
-            print(f"hf and host (g) launches of K1-K12 in (a)-(c): {counts}", flush=True)
+            print(f"hf and host (g) launches of K1-K12 in (a)-(c): {counts}; of the step "
+                  f"kernel: {SA.launches}", flush=True)
+            check(SA.launches > 0, "the hf models' float steps did not take the step kernel")
             check(set(counts.values()) == {0}, "the hf or host path launched a TPU-kernel port")
             phase10_native(native, smoke, corpus, smi)
             phase10_trace(torch, rk, metrics, corpus, work, smi, dev)
@@ -2731,6 +2808,7 @@ def main() -> int:
     from lac_tpu_torch.ops import attention as A
     from lac_tpu_torch.ops import detmath, int8, quantize
     from lac_tpu_torch.ops import rans_kernels as rk
+    from lac_tpu_torch.ops import step_attention as SA
     from lac_tpu_torch.runtime import engine, lm_api, lm_engine, step_graph, turbo
     from lac_tpu_torch.stream import container
 
@@ -2913,12 +2991,15 @@ def main() -> int:
         with Phase("phase 4: LM coding"):
             rk.reset_launches()
             A.reset_launches()
+            SA.launches = 0
             torch.cuda.reset_peak_memory_stats()
             c_lm, waves, enc_ms, dec_ms = phase4_cli(torch, cli, container, corpus, work)
             lm_peak = torch.cuda.max_memory_allocated()
             lm_counts = {**rk.launches, **A.launches}
-            print(f"lm path launches of K1-K12: {lm_counts}", flush=True)
+            print(f"lm path launches of K1-K12: {lm_counts}; of the step kernel: {SA.launches}",
+                  flush=True)
             check(set(lm_counts.values()) == {0}, "the lm path launched a TPU-kernel port")
+            check(SA.launches > 0, "the lm path's float steps did not take the step kernel")
             bpb_b = phase4_trained(ttrain, lm_api, smoke, root, corpus)
             lm_model = lm_registry.resolve_lm(LM_REF)
             phase4_determinism(torch, lm_api, lm_engine, lm_registry, container, corpus, c_lm,
@@ -2930,17 +3011,21 @@ def main() -> int:
         with Phase("phase 5: windowed LM coding"):
             rk.reset_launches()
             A.reset_launches()
+            SA.launches = 0
             bpb16 = phase5_cli(torch, cli, container, smoke, root, work)
             phase5_byte6l(torch, ttrain, lm_api, smoke, root)
             float_ring = phase5_steps(torch, T, ttrain, lm_engine, step_graph, smoke, root, smi)
             window_counts = {**rk.launches, **A.launches}
-            print(f"window path launches of K1-K12: {window_counts}", flush=True)
+            print(f"window path launches of K1-K12: {window_counts}; of the step kernel: "
+                  f"{SA.launches}", flush=True)
+            check(SA.launches > 0, "the windowed float steps did not take the step kernel")
             check(set(window_counts.values()) == {0},
                   "the windowed path launched a TPU-kernel port")
 
         with Phase("phase 6: the int8 LM modes (kv8, w8), byte-12l-mqa"):
             rk.reset_launches()
             A.reset_launches()
+            SA.launches = 0
             mqa_cpu = phase6_mqa_cpu_start(root, work, corpus)
             try:
                 phase6_cli(torch, cli, container, smoke, corpus, work)
@@ -2956,8 +3041,10 @@ def main() -> int:
                     mqa_cpu.kill()
                     mqa_cpu.wait()
             q8_counts = {**rk.launches, **A.launches}
-            print(f"q8 (g) int8 and byte-12l-mqa path launches of K1-K12: {q8_counts}",
-                  flush=True)
+            print(f"q8 (g) int8 and byte-12l-mqa path launches of K1-K12: {q8_counts}; of the "
+                  f"step kernel (the float and w8 models' steps): {SA.launches}", flush=True)
+            check(SA.launches > 0, "the float and w8 steps of phase 6 did not take the step "
+                                   "kernel")
             check(set(q8_counts.values()) == {0},
                   "the int8 or byte-12l-mqa LM path launched a TPU-kernel port")
 

@@ -49,7 +49,12 @@ to step, and a CUDA graph of the step replays at every position
 (``runtime/step_graph.py``). Each layer writes its fresh K/V at ``pos`` in
 place after its own reads (the reference writes all layers at once after
 the layer scan; a layer reads only its own slice and masks ``w >= pos``,
-so the two give the same values).
+so the two give the same values). On the card, a float step of one token
+computes the same math in one hand-written kernel
+(``ops/step_attention.py``) that reads only the live slots ``w < pos`` of
+the cache in place; its sums run in another order than the CPU's, so its
+logits differ in the last bits, and the fingerprint says so
+(``runtime.lm_engine.lm_fingerprint``).
 
 Slide mode (``cfg.slide``, the reference's ring cache, :117-136, :1083-1095)
 codes blocks longer than the context on one ``W``-wide cache: the write
@@ -153,11 +158,12 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from ..metrics import span
+from ..metrics import count, span
 from ..ops.attention import causal_attention
 from ..ops.detmath import ceil_log2, det_exp, det_gelu_tanh, det_rsqrt, det_silu, fma32, \
     int_sum_pow2
 from ..ops.int8 import int8_bmm, int8_mm
+from ..ops.step_attention import _heads_f32, step_attention, takes_step
 
 __all__ = [
     "LMConfig",
@@ -1031,11 +1037,6 @@ def _attention(cfg: LMConfig, p: Block, x: torch.Tensor, fused: bool = False,
     return _out_proj(cfg, p, out.reshape(b, s, h * hd))
 
 
-def _heads_f32(t: torch.Tensor) -> torch.Tensor:
-    """[B, N, KVH, ...] -> contiguous f32 [B, KVH, N, ...]."""
-    return t.transpose(1, 2).to(f32, memory_format=torch.contiguous_format)
-
-
 def _mask(scores: torch.Tensor, w_len: int, drop, keep) -> None:
     """-inf, in place, at the cache slots ``drop`` and the fresh scores off
     ``keep`` (``_attention_cached``); either may be None."""
@@ -1105,7 +1106,12 @@ def _attention_cached(cfg: LMConfig, p: Block, x: torch.Tensor, cache: dict, lay
     into the slice at ``slots``. ``rope``: the call's (cos, sin), or None.
     ``drop``: the cache slots no query may see, [W] or [R*S, W]. ``keep``:
     the causal mask of the fresh scores [R*S, S], or None at S 1, where it
-    keeps everything. ``slots``: [S] cache slots of the call's tokens."""
+    keeps everything. ``slots``: [S] cache slots of the call's tokens. On
+    the card a float step of one token (``takes_step``) takes
+    ``ops/step_attention.py``'s kernel at every shape, which masks by
+    ``pos`` itself and reads only the live slots; each layer built so
+    counts ``attn.step_kernel`` (at an eager step or a capture, not at a
+    replay)."""
     b, s, _ = x.shape
     slice_ = {key: t[layer] for key, t in cache.items() if key != "pos"}
     q, k, v = _qkv(cfg, p, x)
@@ -1113,21 +1119,27 @@ def _attention_cached(cfg: LMConfig, p: Block, x: torch.Tensor, cache: dict, lay
     if rope is not None:  # q and k rotated as one tensor: the same values
         q, k = _rope_apply(cfg, torch.cat([q, k], dim=2), *rope).split([h, kvh], dim=2)
     scale = _scale_f32(hd)
-    # GQA: the query heads of a KV head fold into the rows, [B, KVH, R*S, Dh]
-    # in (r, s) order; every product is one batched matmul over (B, KVH),
-    # with each operand made contiguous first
-    rep = h // kvh
-    qf = _heads_f32(q.reshape(b, s, kvh, rep, hd)).transpose(2, 3).reshape(b, kvh, rep * s, hd)
-    if cfg.det8:
-        w_len = slice_["k"].shape[1]
-        out = _attend_det8(cfg, qf, [(slice_["k"], slice_["v"]), (k, v)], w_len, drop, keep,
-                           scale, 2 * w_len)
-    elif cfg.kv8:
-        out = _attend_kv8(cfg, qf, _heads_f32(k), _heads_f32(v), slice_, drop, keep, scale)
+    ck, cv = slice_["k"], slice_["v"]
+    if s == 1 and takes_step(cfg, x.device):
+        # the card's float step: one kernel reads the live cache slots in
+        # place (ops/step_attention.py); [B, 1, H, Dh]
+        count("attn.step_kernel")
+        out = step_attention(q, k, v, ck, cv, cache["pos"], scale)
     else:
-        out = _attend_float(cfg, qf, _heads_f32(k), _heads_f32(v), slice_["k"], slice_["v"],
-                            drop, keep, scale)
-    out = out.reshape(b, kvh, rep, s, hd).permute(0, 3, 1, 2, 4)
+        # GQA: the query heads of a KV head fold into the rows, [B, KVH,
+        # R*S, Dh] in (r, s) order; every product is one batched matmul
+        # over (B, KVH), with each operand made contiguous first
+        rep = h // kvh
+        qf = _heads_f32(q.reshape(b, s, kvh, rep, hd)).transpose(2, 3)
+        qf = qf.reshape(b, kvh, rep * s, hd)
+        if cfg.det8:
+            w_len = ck.shape[1]
+            out = _attend_det8(cfg, qf, [(ck, cv), (k, v)], w_len, drop, keep, scale, 2 * w_len)
+        elif cfg.kv8:
+            out = _attend_kv8(cfg, qf, _heads_f32(k), _heads_f32(v), slice_, drop, keep, scale)
+        else:
+            out = _attend_float(cfg, qf, _heads_f32(k), _heads_f32(v), ck, cv, drop, keep, scale)
+        out = out.reshape(b, kvh, rep, s, hd).permute(0, 3, 1, 2, 4)
     y = _out_proj(cfg, p, out.reshape(b, s, h * hd))
     # after this layer's reads: the fresh K/V into its slice
     for key, t in _cache_rows(cfg, k, v).items():

@@ -3,9 +3,9 @@
 The JAX package has no counterpart: Pallas compiles its kernels inside
 ``jax.jit``. Here the ``csrc/*.cu`` files (plain C entry points, no PyTorch
 header; ``nib_rans32.cu``, ``rans32_encode.cu``, ``o0c_rans32.cu``,
-``causal_attn.cu``, and ``causal_attn_sm90.cu`` with its PTX wrappers in
-``sm90.cuh``) are compiled on first use, one ``nvcc`` process per source,
-all started together,
+``causal_attn.cu``, ``causal_attn_sm90.cu`` with its PTX wrappers in
+``sm90.cuh``, and ``step_attn.cu``) are compiled on first use, one
+``nvcc`` process per source, all started together,
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -Xcompiler -fPIC -c
 
@@ -96,6 +96,12 @@ _SIGNATURES = {
                               _P),
     # q, k, v, dO, lse, di, dq, B, H, S, D, ss, sh, sb, scale, stream
     "lac_attn_bwd_dq_sm90": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _L, _F, _P),
+    # the cached step's attention: q, k, v, ck, cv, pos, o, scratch, B, KVH,
+    # R, W, D, bf16, q_sb, q_sh, k_sb, k_sh, v_sb, v_sh, scale, stream
+    "lac_step_attn": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _L, _L, _L, _L,
+                      _L, _L, _F, _P),
+    # its scratch f32 values at B, KVH, R, W, D, bf16 (-1: shapes it does not take)
+    "lac_step_attn_scratch": (_I, _I, _I, _I, _I, _I),
 }
 
 _lock = threading.Lock()

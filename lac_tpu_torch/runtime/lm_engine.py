@@ -76,6 +76,7 @@ from ..metrics import span
 from ..models.transformer import (LMConfig, Transformer, ensure_quantized, forward, init_cache,
                                   kv_heads)
 from ..ops.quantize import cdf_from_freq, quantize_logits
+from ..ops.step_attention import takes_step
 from ..utils.device import as_lanes
 from .step_graph import SegChunks, SegDecode, SegIntervals, _Runner, _step_cdf
 
@@ -91,6 +92,9 @@ __all__ = [
 ]
 
 GROW_BUCKET = 128
+# the card's float step attention (ops/step_attention.py), folded into the
+# fingerprint (lm_fingerprint)
+_STEP_ATTN_TAG = b"lac_tpu_torch:step_attn"
 _SLIDE_SEG = 512  # lac_tpu's float slide segment (lm_engine.py:483)
 
 
@@ -388,7 +392,12 @@ def lm_fingerprint(cfg: LMConfig, params: Transformer, prob_bits: int, cache_gro
     the CPU and on the card, so its tag names no device; it still names
     the package, because ``lac_tpu``'s det8 differs from the port's in
     ``det_rsqrt`` (ROADMAP C), and each package refuses the other's det8
-    containers."""
+    containers. Last, a model whose steps take ``ops/step_attention.py``'s
+    kernel (``takes_step``: a float cache on the card) folds
+    ``_STEP_ATTN_TAG``: the kernel's sums change the logits' last bits, so
+    a card container written by the earlier route (``_attend_float``'s f32
+    copies) fails the gate rather than the decode. The probe itself cannot
+    tell the routes apart: from an empty cache both give v."""
     params = ensure_quantized(cfg, params)
     dev = _device(params)
     with span("lac.engine.fingerprint"):
@@ -406,4 +415,7 @@ def lm_fingerprint(cfg: LMConfig, params: Transformer, prob_bits: int, cache_gro
     if cfg.kv8:  # the probe's empty cache never reaches the kv8 route
         crc = zlib.crc32(b"kv8v2", crc)
     tag = "lac_tpu_torch:det8" if cfg.det8 else stack_tag(dev)
-    return zlib.crc32(tag.encode(), crc)
+    crc = zlib.crc32(tag.encode(), crc)
+    if takes_step(cfg, dev):
+        crc = zlib.crc32(_STEP_ATTN_TAG, crc)
+    return crc

@@ -411,7 +411,8 @@ def test_fused_training_loss_runs_the_kernels(cuda, impl):
 
 
 # --------------------------------------------------------------------------
-# LM coding on the card (runtime.lm_api / lm_engine; no hand-written kernel)
+# LM coding on the card (runtime.lm_api / lm_engine; the float step's cache
+# attention is ops/step_attention.py's kernel, below)
 # --------------------------------------------------------------------------
 
 LM_CKPT = "checkpoints/byte6l-pysrc.npz"
@@ -496,6 +497,199 @@ def test_lm_encode_call_records_its_captures_and_replays(cuda):
     assert tracer.totals["step.eager"] == 4
     assert [s["meta"] for s in tracer.spans("lac.graph.release")] == [{"graphs": 4}]
     assert c == plain and lm_api.lm_decompress_bytes(c, model=model) == data
+
+
+# --------------------------------------------------------------------------
+# The cached step's attention (ops/step_attention.py): the float step of one
+# token on the card. Tolerance, as K10-K12's: max |kernel - plain| /
+# max(max |plain|, 1), 1e-2 in bf16 (both round the probabilities and the
+# output to bf16; a sum in another order can move a value one bf16 step,
+# 2^-8 of it) and 1e-4 in f32 (the same f32 math summed in another order).
+# --------------------------------------------------------------------------
+
+STEP_SHAPES = [  # (B, H, KVH, Dh, W, dtype)
+    *[(64, 8, 8, 64, w, torch.bfloat16) for w in (128, 256, 384, 512)],  # byte-16l's widths
+    (8, 32, 4, 64, 2048, torch.bfloat16),  # TinyLlama-1.1B
+    (16, 6, 1, 64, 1024, torch.bfloat16),  # byte-12l-mqa
+    (4, 32, 32, 128, 4096, torch.bfloat16),  # Llama-2-7B
+    (4, 32, 8, 128, 8192, torch.bfloat16),  # Llama-3-8B
+    (8, 4, 2, 16, 256, torch.float32),  # tiny
+    (8, 4, 4, 16, 256, torch.float32),  # tiny-gpt2
+    (4, 16, 1, 64, 512, torch.bfloat16),  # 16 query heads a KV head: two groups of 8
+    (4, 12, 1, 64, 512, torch.bfloat16),  # 12: two groups of 6
+    (4, 8, 2, 80, 300, torch.bfloat16),  # 10 chunks a row on 16 threads
+    (4, 8, 2, 100, 300, torch.bfloat16),  # rows of 200 bytes: unaligned, a value a load
+    (4, 4, 2, 6, 64, torch.float32),  # rows of 24 bytes: unaligned, a masked chunk
+    (2, 8, 1, 64, 8192, torch.bfloat16),  # scores over shared memory: global scratch
+    (1, 1, 1, 128, 65536, torch.bfloat16),  # and at one query head
+]
+
+
+@pytest.mark.parametrize("b,h,kvh,hd,w,dtype", STEP_SHAPES)
+def test_step_attention_kernel_equals_plain_version(cuda, b, h, kvh, hd, w, dtype):
+    """At pos 0 (the fresh row alone), 1, a third, W - 1, W and past W (a
+    slide ring's every slot): within the tolerance of the plain version,
+    the same bits on a second call, one launch a call."""
+    from lac_tpu_torch.models import transformer as T
+    from lac_tpu_torch.ops import step_attention as SA
+
+    g = torch.Generator().manual_seed(h * w + hd)
+
+    def draw(*shape):
+        return (torch.randn(*shape, generator=g) * 2.0).to(dtype).to(cuda)
+
+    q, k = draw(b, 1, h + kvh, hd).split([h, kvh], dim=2)  # RoPE's views
+    v, ck, cv = draw(b, 1, kvh, hd), draw(b, w, kvh, hd), draw(b, w, kvh, hd)
+    scale = T._scale_f32(hd)
+    tol = 1e-4 if dtype == torch.float32 else 1e-2
+    for pos in (0, 1, w // 3, w - 1, w, w + 17):
+        p = torch.tensor(pos, device=cuda)
+        before = SA.launches
+        got = SA.step_attention(q, k, v, ck, cv, p, scale)
+        again = SA.step_attention(q, k, v, ck, cv, p, scale)
+        want = SA.step_attention_plain(q, k, v, ck, cv, p, scale)
+        torch.cuda.synchronize()
+        assert SA.launches == before + 2
+        assert got.dtype == dtype and got.shape == (b, 1, h, hd) and got.is_contiguous()
+        assert _attn_rel(got, want) <= tol, pos
+        assert torch.equal(got, again), pos
+
+
+def test_step_attention_launch_error_raises_without_fallback(cuda, monkeypatch):
+    from lac_tpu_torch.ops import _build
+    from lac_tpu_torch.ops import step_attention as SA
+
+    monkeypatch.setattr(_build.load_library(), "lac_step_attn", lambda *args: 700)
+    x = torch.zeros(2, 1, 4, 64, dtype=torch.bfloat16, device=cuda)
+    c = torch.zeros(2, 16, 4, 64, dtype=torch.bfloat16, device=cuda)
+    before = SA.launches
+    with pytest.raises(RuntimeError, match="lac_step_attn.*error 700"):
+        SA.step_attention(x, x, x, c, c, torch.tensor(3, device=cuda), 0.125)
+    assert SA.launches == before
+
+
+def test_lm_encode_call_builds_every_step_on_the_step_kernel(cuda):
+    """byte-6l, one encode call of 8 lanes x 256 at cache_grow 128 under a
+    tracer: every layer of every step built on the card (the fingerprint's
+    probe, the first step eager at widths 128 and 256, their captures)
+    takes the kernel route, once a layer, and the wrapper counts as many
+    launches; replays launch nothing from the host. The container decodes."""
+    import os
+
+    from lac_tpu_torch import metrics
+    from lac_tpu_torch.ops import step_attention as SA
+    from lac_tpu_torch.runtime import lm_api
+    from lac_tpu_torch.smoke import heldout_slice
+    from lac_tpu_torch.train import load_checkpoint
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    model = load_checkpoint(os.path.join(root, LM_CKPT))
+    data = heldout_slice()[: 8 * 256]
+    before = SA.launches
+    with metrics.tracing() as tracer:
+        c = lm_api.lm_compress_bytes(data, model_ref="file:" + LM_CKPT, model=model,
+                                     block_tokens=256, lanes=8, cache_grow=128)
+    step_caps = [s for s in tracer.spans("lac.graph.capture") if s["meta"]["graph"] == "step"]
+    eager = tracer.totals["step.eager"]
+    assert (eager, len(step_caps)) == (2, 2)
+    layers = model[0].n_layers
+    assert tracer.totals["attn.step_kernel"] == layers * (1 + eager + len(step_caps))
+    assert SA.launches - before == tracer.totals["attn.step_kernel"]
+    assert lm_api.lm_decompress_bytes(c, model=model) == data
+
+
+def test_card_float_fingerprint_folds_the_step_kernel_tag(cuda, monkeypatch):
+    """The card's float fingerprint is the earlier route's (``_attend_float``
+    on the card, no tag) with the step-attention tag folded on, so a float
+    container the earlier route wrote on the card fails the gate; kv8 and
+    det8, which do not take the kernel, fold nothing."""
+    import dataclasses
+    import zlib
+
+    from lac_tpu_torch.models import transformer as T
+    from lac_tpu_torch.models.lm_registry import resolve_lm
+    from lac_tpu_torch.ops import step_attention as SA
+    from lac_tpu_torch.runtime import lm_engine as E
+
+    cfg, params = resolve_lm("prng:tiny:0")
+    cfgs = [cfg, dataclasses.replace(cfg, kv8=True), dataclasses.replace(cfg, w8=True),
+            dataclasses.replace(cfg, det8=True)]
+    now = [E.lm_fingerprint(c, params, 16, cache_grow=16) for c in cfgs]
+    monkeypatch.setattr(T, "step_attention", SA.step_attention_plain)
+    monkeypatch.setattr(E, "_STEP_ATTN_TAG", b"")
+    earlier = [E.lm_fingerprint(c, params, 16, cache_grow=16) for c in cfgs]
+    tag = b"lac_tpu_torch:step_attn"
+    assert now[0] != earlier[0] and now[0] == zlib.crc32(tag, earlier[0])
+    assert now[1] == earlier[1]  # kv8
+    assert now[2] == zlib.crc32(tag, earlier[2])  # w8 keeps a float cache
+    assert now[3] == earlier[3]  # det8
+
+
+def test_step_attention_kernel_takes_unaligned_views(cuda):
+    """q, k and v views that start off 16 bytes (a value a load): the
+    same values as from aligned copies, bit for bit."""
+    from lac_tpu_torch.ops import step_attention as SA
+
+    g = torch.Generator().manual_seed(3)
+    b, h, kvh, hd, w = 8, 8, 2, 64, 200
+    flat = torch.randn(1 + b * (h + 2 * kvh) * hd, generator=g).to(torch.bfloat16).to(cuda)
+    q, k, v = flat[1:].view(b, 1, h + 2 * kvh, hd).split([h, kvh, kvh], dim=2)
+    ck, cv = (torch.randn(b, w, kvh, hd, generator=g).to(torch.bfloat16).to(cuda)
+              for _ in range(2))
+    p = torch.tensor(150, device=cuda)
+    got = SA.step_attention(q, k, v, ck, cv, p, 0.125)
+    want = SA.step_attention(q.contiguous(), k.contiguous(), v.contiguous(), ck, cv, p, 0.125)
+    assert torch.equal(got, want)
+
+
+def test_step_attention_refuses_rows_over_512_bytes(cuda):
+    """Dh 256 in f32 is a row of 1,024 bytes, two warps' chunks: the
+    library refuses it, and the wrapper raises before any launch."""
+    from lac_tpu_torch.ops import step_attention as SA
+
+    x = torch.zeros(2, 1, 2, 256, device=cuda)
+    c = torch.zeros(2, 16, 2, 256, device=cuda)
+    before = SA.launches
+    with pytest.raises(ValueError, match="does not take"):
+        SA.step_attention(x, x, x, c, c, torch.tensor(3, device=cuda), 0.0625)
+    assert SA.launches == before
+
+
+@pytest.mark.parametrize("kw", [
+    dict(d_model=96, n_heads=4, n_kv_heads=2, max_seq=256),  # head dim 24: a masked chunk
+    dict(d_model=400, n_heads=4, n_kv_heads=2, max_seq=256,
+         dtype=torch.bfloat16),  # head dim 100 in bf16: unaligned rows
+    dict(d_model=256, n_heads=16, n_kv_heads=1, max_seq=256),  # 16 query heads a KV head
+    dict(d_model=64, n_heads=8, n_kv_heads=1, max_seq=8192),  # the probe's scores in global
+])
+def test_lm_steps_at_every_head_shape_take_the_kernel(cuda, monkeypatch, kw):
+    """Shapes past the presets' take the kernel as the presets do: every
+    layer of every step built on the card (the fingerprint's probe, eager
+    steps, captures) counts ``attn.step_kernel``, the coding call round
+    trips, and the fingerprint carries the tag."""
+    import zlib
+
+    from lac_tpu_torch import metrics
+    from lac_tpu_torch.models import transformer as T
+    from lac_tpu_torch.runtime import lm_engine as E
+
+    cfg = T.tiny_config(**kw)
+    params = T.init_params(cfg, 0, device=cuda)
+    toks = torch.from_numpy(np.random.default_rng(5).integers(0, 256, (4, 200))).to(cuda)
+    lengths = torch.tensor([200, 170, 129, 1], device=cuda)
+    with metrics.tracing() as tracer:
+        words, _ = E.lm_encode(cfg, params, toks, lengths, 16, 128)
+        fp = E.lm_fingerprint(cfg, params, 16, cache_grow=128)
+    got = E.lm_decode(cfg, params, words, lengths, 16, 200, 128)
+    want = torch.where(torch.arange(200, device=cuda)[None] < lengths[:, None], toks, 0)
+    assert torch.equal(got, want)
+    step_caps = [s for s in tracer.spans("lac.graph.capture") if s["meta"]["graph"] == "step"]
+    probes = len(tracer.spans("lac.engine.fingerprint"))
+    builds = probes + tracer.totals["step.eager"] + len(step_caps)
+    assert probes == 1 and tracer.totals["attn.step_kernel"] == cfg.n_layers * builds
+    tag = E._STEP_ATTN_TAG
+    monkeypatch.setattr(E, "_STEP_ATTN_TAG", b"")
+    assert fp == zlib.crc32(tag, E.lm_fingerprint(cfg, params, 16, cache_grow=128))
 
 
 # --------------------------------------------------------------------------
